@@ -1,0 +1,27 @@
+"""Architecture registry — port of ``repro/configs/__init__.py``.
+
+``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists the
+architectures ported so far (the four dense decoder-only ones).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = [
+    "granite_8b",
+    "phi4_mini_3_8b",
+    "granite_3_2b",
+    "starcoder2_7b",
+]
+
+# pool ids use dashes
+CANONICAL = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def load(arch_id: str, smoke: bool = False):
+    mod_name = arch_id.replace("-", "_").replace(".", "_")
+    if mod_name not in ARCH_IDS:
+        raise ValueError(f"arch {arch_id!r} is not ported yet; ported: {sorted(CANONICAL)}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.get_harness(smoke=smoke)

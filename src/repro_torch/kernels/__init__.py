@@ -1,0 +1,23 @@
+"""Kernels of the port, written by hand for Hopper (reference:
+``repro/kernels/``, Pallas for the TPU).
+
+Each kernel module holds the CUDA kernel's wrapper, a plain PyTorch version of
+the same function, and a launch count on the wrapper.  ``launch_counts`` and
+``reset_launch_counts`` read and clear the counts of every kernel, so a run
+can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+from .flash_attention import flash_attention
+
+KERNELS = {"flash_attention": flash_attention}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,165 @@
+"""Flash attention (GQA), forward — port of ``repro/kernels/flash_attention.py``
+(``_attn_kernel`` / ``flash_attention``, a Pallas kernel for the TPU).
+
+``flash_attention`` is the wrapper: on CUDA tensors it launches the CUDA C++
+kernel of ``csrc/flash_attention.cu`` (built at first use, see ``_build.py``)
+or raises; on CPU tensors, and only there, it computes the same function with
+``flash_attention_plain``.  There is no fallback from the kernel to the plain
+version.  ``flash_attention.launches`` counts kernel launches.
+
+Layout as in the reference: q ``(B, K, G, Sq, D)``, k/v ``(B, K, Sk, D)`` with
+the G query heads of a kv head grouped.  Unlike the reference the tensors may
+be strided views (innermost stride 1), Sq and Sk need not be multiples of a
+tile, and ``q_start`` gives the global position of query row 0, so the same
+function serves prefill (``q_start=0``) and a decode step over the cache
+(``Sq=1, q_start=pos``).  Every query row must see at least one key.
+
+On the card the function is bound by bytes (q, k, v read once, o written
+once); the notes at the top of the CUDA source say what the kernel's design
+does about that and what it leaves for later.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30          # the kernel's finite mask fill (reference: NEG_INF)
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def visible(
+    Sq: int, Sk: int, *, causal: bool, window: int | None, prefix_len: int,
+    q_start: int, device=None,
+) -> torch.Tensor:
+    """Boolean (Sq, Sk): which key each query row may attend to."""
+    q_pos = q_start + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (q_pos >= k_pos)
+    if window is not None:
+        ok = ok & ((q_pos - k_pos) < window)
+    if prefix_len > 0:
+        ok = ok | (k_pos < prefix_len)
+    return ok
+
+
+def flash_attention_plain(
+    q: torch.Tensor,            # (B, K, G, Sq, D)
+    k: torch.Tensor,            # (B, K, Sk, D)
+    v: torch.Tensor,            # (B, K, Sk, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    prefix_len: int = 0,
+    q_start: int = 0,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's function, with the kernel's
+    arithmetic: inputs widened to fp32, fp32 scores and probabilities, the
+    finite -1e30 fill, output cast to the input type."""
+    Sq, D = q.shape[3], q.shape[4]
+    Sk = k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float(), k.float()) * scale
+    ok = visible(
+        Sq, Sk, causal=causal, window=window, prefix_len=prefix_len,
+        q_start=q_start, device=q.device,
+    )
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bksd->bkgqd", p, v.float()).to(q.dtype)
+
+
+def _check(q, k, v, window, prefix_len, q_start):
+    if q.ndim != 5 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"expected q (B,K,G,Sq,D), k/v (B,K,Sk,D); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, K, G, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[1] != K or k.shape[3] != D:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not agree")
+    if min(B, K, G, Sq, k.shape[2]) < 1:
+        raise ValueError(f"empty dimension: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v of different types: {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported {HEAD_DIMS}")
+    if (window is not None and window < 1) or prefix_len < 0 or q_start < 0:
+        raise ValueError(f"bad window={window}, prefix_len={prefix_len}, q_start={q_start}")
+
+
+def _launch(q, k, v, causal, window, prefix_len, q_start, scale) -> torch.Tensor:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
+            + [ci] * 4 + [ctypes.c_float, vp]
+        fn.restype = ci
+        lib.flash_attention_error_string.argtypes = [ci]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+    o = torch.empty_like(q)     # keeps q's strides where q is a dense view
+    strides = [*q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *o.stride()[:4]]
+    # the kernel loads rows 16 bytes at a time
+    per16 = 16 // q.element_size()
+    for t in (q, k, v, o):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1]):
+            raise ValueError(
+                "flash_attention needs innermost stride 1 and 16-byte aligned rows; "
+                f"got shape {tuple(t.shape)}, strides {t.stride()}"
+            )
+    B, K, G, Sq, D = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, K, G, Sq, k.shape[2], D, _DTYPES[q.dtype],
+            (ctypes.c_longlong * 14)(*strides),
+            int(causal), -1 if window is None else int(window), int(prefix_len),
+            int(q_start), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {err})")
+    flash_attention.launches += 1
+    return o
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, K, G, Sq, D)
+    k: torch.Tensor,            # (B, K, Sk, D)
+    v: torch.Tensor,            # (B, K, Sk, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    prefix_len: int = 0,
+    q_start: int = 0,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Attention output ``(B, K, G, Sq, D)`` in q's type."""
+    _check(q, k, v, window, prefix_len, q_start)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+            q_start=q_start, sm_scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    return _launch(q, k, v, causal, window, prefix_len, q_start, scale)
+
+
+flash_attention.launches = 0

@@ -1,0 +1,43 @@
+"""Public wrappers for the kernels — port of ``repro/kernels/ops.py`` (the two
+flash-attention adapters; the other kernels' wrappers come with them).
+
+Each validates shapes and adapts the model layers' layout to the kernel's.
+Where the reference transposes (and so copies) q, k and v, the port hands the
+kernel strided views: the kernel takes element strides, so the model's
+``(B, S, heads, Dh)`` tensors and a slice of the KV cache are read in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import flash_attention
+
+
+def flash_attention_bkgsd(
+    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
+) -> torch.Tensor:
+    """q (B,K,G,Sq,D), k/v (B,K,Sk,D) -> (B,K,G,Sq,D)."""
+    return flash_attention(
+        q, k, v, causal=causal, window=window, prefix_len=prefix_len, q_start=q_start
+    )
+
+
+def flash_attention_bsnd(
+    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
+) -> torch.Tensor:
+    """Model-layer layout: q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) GQA -> (B,Sq,N,Dh).
+    Query head n belongs to kv head n // (N // K)."""
+    if q.ndim != 4 or k.ndim != 4 or q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"expected q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) with K dividing N; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}"
+        )
+    B, Sq, N, D = q.shape
+    K = k.shape[2]
+    qk = q.unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)     # (B,K,G,Sq,D) view
+    o = flash_attention(
+        qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+        causal=causal, window=window, prefix_len=prefix_len, q_start=q_start,
+    )
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, D)

@@ -1,0 +1,123 @@
+"""Unified model harness — port of ``repro/models/api.py`` (``ShapeCell``,
+``SHAPES``, ``Harness``, ``TransformerHarness``).
+
+Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
+that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
+callables), ``serve_state_specs(cell)`` (KV-cache spec tree),
+``serve_input_specs(cell)`` and ``skip_reason(shape)``.  The training half
+(``loss``, ``train_input_specs``) and the other model families come with
+their slices.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from . import transformer
+from .layers import Runtime
+from .param import ParamSpec
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+TOKENS = torch.int32
+POS = torch.int32
+
+
+def _tok(shape, logical):
+    return ParamSpec(shape, logical, init="zeros", dtype=TOKENS)
+
+
+class Harness:
+    """Base interface; family subclasses below."""
+
+    arch_id: str = ""
+    family: str = ""
+    long_context_ok: bool = False
+    moe_strategy: str | None = None
+
+    def skip_reason(self, shape: str) -> str | None:
+        if shape == "long_500k" and not self.long_context_ok:
+            return "full quadratic attention — sub-quadratic required (DESIGN.md §4)"
+        return None
+
+    def clone(self, **cfg_updates) -> "Harness":
+        """Same harness with a modified config."""
+        new = copy.copy(self)
+        new.cfg = dataclasses.replace(self.cfg, **cfg_updates)
+        return new
+
+    # subclasses implement:
+    def param_specs(self) -> Any: ...
+    def prefill(self, rt: Runtime) -> Callable: ...
+    def decode(self, rt: Runtime) -> Callable: ...
+    def serve_state_specs(self, cell: ShapeCell) -> Any: ...
+    def serve_input_specs(self, cell: ShapeCell) -> dict: ...
+
+
+class TransformerHarness(Harness):
+    """Dense decoder-only transformers."""
+
+    def __init__(
+        self,
+        arch_id: str,
+        cfg: transformer.LMConfig,
+        *,
+        family: str = "dense",
+        long_context_ok: bool = False,
+    ):
+        self.arch_id = arch_id
+        self.cfg = cfg
+        self.family = family
+        self.long_context_ok = long_context_ok
+
+    def param_specs(self):
+        return transformer.lm_specs(self.cfg)
+
+    # -- serving ------------------------------------------------------------
+    def serve_state_specs(self, cell: ShapeCell):
+        max_len = cell.seq_len
+        if self.cfg.window is not None and cell.name == "long_500k":
+            # SWA: the live window bounds the cache; window+slack keeps the
+            # mask exact
+            max_len = min(max_len, self.cfg.window * 2)
+        return transformer.cache_specs(self.cfg, cell.global_batch, max_len)
+
+    def serve_input_specs(self, cell: ShapeCell) -> dict:
+        B = cell.global_batch
+        if cell.kind == "prefill":
+            return {"tokens": _tok((B, cell.seq_len), ("batch", "sp"))}
+        return {
+            "tokens": _tok((B, 1), ("batch", None)),
+            "pos": ParamSpec((), (), init="zeros", dtype=POS),
+        }
+
+    def prefill(self, rt: Runtime):
+        def fn(params, cache, tokens):
+            return transformer.prefill(rt, self.cfg, params, tokens, cache)
+
+        return fn
+
+    def decode(self, rt: Runtime):
+        def fn(params, cache, tokens, pos):
+            return transformer.decode_step(rt, self.cfg, params, tokens, cache, pos)
+
+        return fn

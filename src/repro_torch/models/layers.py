@@ -1,0 +1,327 @@
+"""Shared layers — port of ``repro/models/layers.py``.
+
+All layers are plain functions ``(rt, params, x, ...) -> y`` on tensors and
+nested dicts of tensors with the reference's keys and shapes (weights stay
+``(in, out)``).  ``rt`` is a :class:`Runtime`; this slice runs on one device,
+so ``rules`` is always None and ``shard`` is the identity.
+
+Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
+``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention``, ``init_kv_cache``,
+``swiglu``, ``gelu_mlp``, their ``*_specs``, ``embed_specs``, ``embed``,
+``unembed``.  ``blocked_sdpa``, ``kv_override`` (cross-attention) and
+``cross_entropy`` come with training and the encoder-decoder models.
+
+One thing differs from the reference on purpose: ``Runtime.use_kernels`` is
+honoured (the reference never reads it).  When it is set, ``attention`` goes
+through the hand-written flash-attention kernel, in prefill and in every
+decode step; when it is not, it goes through ``sdpa`` + ``_mask_bias`` exactly
+as the reference does.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .param import ParamSpec
+
+
+@dataclass(frozen=True)
+class Runtime:
+    """Context threaded through every layer."""
+
+    rules: Any = None            # sharding rules: None until the distribution slice
+    use_kernels: bool = True     # route attention through the flash-attention kernel
+
+    def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+        if self.rules is not None:
+            raise NotImplementedError("sharding rules come with the distribution slice")
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(dim: int) -> ParamSpec:
+    return ParamSpec((dim,), (None,), init="ones")
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    # the weight multiplies AFTER the cast back to the working type
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def layernorm_specs(dim: int) -> dict:
+    return {
+        "scale": ParamSpec((dim,), (None,), init="ones"),
+        "bias": ParamSpec((dim,), (None,), init="zeros"),
+    }
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y.to(dt) * p["scale"].to(dt)) + p["bias"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (S,) or (B, S).  Rotates the two HALVES of
+    the head dim against each other, not interleaved pairs."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]                       # (B, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    dt = x.dtype
+    return torch.cat(
+        [(x1 * cos - x2 * sin).to(dt), (x2 * cos + x1 * sin).to(dt)], dim=-1
+    )
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    causal: bool = True
+    window: int | None = None      # sliding-window size (None = full)
+    rope_theta: float | None = 10000.0
+    qkv_bias: bool = False
+    prefix_len: int = 0            # bidirectional prefix (VLM / audio stubs)
+    impl: str = "reference"        # kept for field parity; see Runtime.use_kernels
+
+
+def attn_specs(cfg: AttnConfig) -> dict:
+    """Flattened projections ``(d_model, heads * head_dim)``."""
+    D, N, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((D, N * Dh), ("embed_in", "qkv"), init="scaled"),
+        "wk": ParamSpec((D, K * Dh), ("embed_in", "kv"), init="scaled"),
+        "wv": ParamSpec((D, K * Dh), ("embed_in", "kv"), init="scaled"),
+        "wo": ParamSpec((N * Dh, D), ("qkv", "embed_in"), init="scaled"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((N * Dh,), ("qkv",), init="zeros")
+        specs["bk"] = ParamSpec((K * Dh,), ("kv",), init="zeros")
+        specs["bv"] = ParamSpec((K * Dh,), ("kv",), init="zeros")
+        specs["bo"] = ParamSpec((D,), (None,), init="zeros")
+    return specs
+
+
+def _mask_bias(
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    causal: bool,
+    window: int | None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Additive attention bias (0 / -1e9), shape (Sq, Sk), float32.
+
+    ``prefix_len`` makes the first N key positions visible to everyone.
+    """
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = ok & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+    if prefix_len > 0:
+        ok = ok | (k_pos[None, :] < prefix_len)
+    bias = torch.zeros(ok.shape, dtype=torch.float32, device=q_pos.device)
+    return bias.masked_fill(~ok, -1e9)
+
+
+def sdpa(
+    q: torch.Tensor,      # (B, Sq, K, G, Dh)  q heads grouped by kv head
+    k: torch.Tensor,      # (B, Sk, K, Dh)
+    v: torch.Tensor,      # (B, Sk, K, Dh)
+    bias: torch.Tensor | None,   # (Sq, Sk)
+) -> torch.Tensor:
+    """Reference grouped-query attention, with the reference's arithmetic:
+    probabilities are cast to v's type before the second product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    if bias is not None:
+        scores = scores + bias[None, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
+def attention(
+    rt: Runtime,
+    p: dict,
+    x: torch.Tensor,                 # (B, S, D)
+    cfg: AttnConfig,
+    positions: torch.Tensor,         # (S,) global positions of the q tokens
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B,Smax,K,Dh) x2
+    cache_pos: int | None = None,    # write offset into the cache
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Full attention layer.  Returns (out, cache).
+
+    The cache is written IN PLACE at ``cache_pos`` (the reference, whose
+    arrays are immutable, builds a new one with ``dynamic_update_slice``); the
+    tensors returned are the ones passed in.
+
+    On the kernel path the q tokens are the contiguous positions
+    ``cache_pos .. cache_pos + S - 1`` (``0 .. S - 1`` without a cache), which
+    is what ``positions`` holds in every caller; the kernel takes that start
+    as an integer and attends over the keys ``[0, cache_pos + S)`` of the
+    cache.  The reference attends over the whole cache with the causal mask
+    hiding the rest, which is the same: those probabilities are exactly 0.
+    """
+    B, S, D = x.shape
+    N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = N // K
+
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, N, Dh)
+    k = k.reshape(B, S, K, Dh)
+    v = v.reshape(B, S, K, Dh)
+    q = rt.shard(q, "batch", "sp", None, None)
+
+    if cfg.rope_theta is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    q_start = 0
+    new_cache = None
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if cache_pos is not None:
+            q_start = int(cache_pos)
+            ck[:, q_start:q_start + S] = k.to(ck.dtype)
+            cv[:, q_start:q_start + S] = v.to(cv.dtype)
+        k, v = ck, cv
+        new_cache = (ck, cv)
+
+    if rt.use_kernels:
+        if kv_cache is not None:
+            k, v = k[:, :q_start + S], v[:, :q_start + S]
+        out = ops.flash_attention_bsnd(
+            q, k.to(q.dtype), v.to(q.dtype),
+            causal=cfg.causal, window=cfg.window, prefix_len=cfg.prefix_len,
+            q_start=q_start,
+        )
+    else:
+        k_pos = (
+            torch.arange(k.shape[1], device=x.device) if kv_cache is not None
+            else positions
+        )
+        bias = _mask_bias(positions, k_pos, cfg.causal, cfg.window, cfg.prefix_len)
+        out = sdpa(q.reshape(B, S, K, G, Dh), k, v, bias)
+    out = out.reshape(B, S, N * Dh)
+    y = out @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return rt.shard(y, "batch", "sp", None), new_cache
+
+
+def init_kv_cache(
+    cfg: AttnConfig, batch: int, max_len: int, n_layers: int, dtype=torch.bfloat16
+) -> dict:
+    """Stacked (L, B, S, K, Dh) cache specs for the layer stack."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    logical = ("layers", "batch", "cache_seq", None, None)
+    return {
+        "k": ParamSpec(shape, logical, init="zeros", dtype=dtype),
+        "v": ParamSpec(shape, logical, init="zeros", dtype=dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu_specs(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": ParamSpec((d_model, d_ff), ("embed_in", "ff"), init="scaled"),
+        "w_up": ParamSpec((d_model, d_ff), ("embed_in", "ff"), init="scaled"),
+        "w_down": ParamSpec((d_ff, d_model), ("ff", "embed_in"), init="scaled"),
+    }
+
+
+def swiglu(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = rt.shard(h, "batch", "sp", "ff_act")
+    return rt.shard(h @ p["w_down"], "batch", "sp", None)
+
+
+def gelu_mlp_specs(d_model: int, d_ff: int, bias: bool = True) -> dict:
+    s = {
+        "w_in": ParamSpec((d_model, d_ff), ("embed_in", "ff"), init="scaled"),
+        "w_out": ParamSpec((d_ff, d_model), ("ff", "embed_in"), init="scaled"),
+    }
+    if bias:
+        s["b_in"] = ParamSpec((d_ff,), ("ff",), init="zeros")
+        s["b_out"] = ParamSpec((d_model,), (None,), init="zeros")
+    return s
+
+
+def gelu_mlp(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w_in"]
+    if "b_in" in p:
+        h = h + p["b_in"]
+    h = F.gelu(h, approximate="tanh")       # the reference's gelu is the tanh form
+    h = rt.shard(h, "batch", "sp", "ff_act")
+    y = h @ p["w_out"]
+    if "b_out" in p:
+        y = y + p["b_out"]
+    return rt.shard(y, "batch", "sp", None)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_specs(vocab_padded: int, d_model: int) -> dict:
+    """Untied lookup table and unembedding."""
+    return {
+        "tok": ParamSpec((vocab_padded, d_model), (None, "table_embed")),
+        "unembed": ParamSpec(
+            (d_model, vocab_padded), (None, "vocab"), init="scaled"
+        ),
+    }
+
+
+def embed(rt: Runtime, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return rt.shard(p["tok"][tokens], "batch", "sp", None)
+
+
+def unembed(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return rt.shard(x @ p["unembed"], "batch", "sp", "vocab")

@@ -1,0 +1,222 @@
+"""Unified decoder-only LM — port of ``repro/models/transformer.py``.
+
+One config class parameterizes GQA/MQA attention (RoPE, optional sliding
+window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP and a
+gemma-style sqrt(d) embedding scale.
+
+Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
+``cache_specs``, ``prefill``, ``decode_step`` and ``forward`` (without
+rematerialization, which comes with training).  Where the reference scans over
+the stacked layer dim, the port loops in Python and indexes views of the
+stacked leaves: no per-layer copy.  The KV cache is written in place
+(``layers.attention``), so ``prefill`` and ``decode_step`` return the cache
+they were given.  MoE layers and the modality prefix come with their slices.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from . import layers as L
+from .param import cast_floats, param_count, round_up, stack_specs, tree_map
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    norm: str = "rms"              # rms | ln
+    act: str = "swiglu"            # swiglu | gelu
+    window: int | None = None      # sliding-window attention
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    moe: Any = None                # MoE config: not ported yet, must be None
+    prefix_len: int = 0            # VLM/audio stub prefix (train/prefill)
+    embed_scale: bool = False      # gemma: x *= sqrt(d_model)
+    remat_policy: str = "nothing"  # kept for field parity; used by training
+    attn_impl: str = "reference"   # kept for field parity; see Runtime.use_kernels
+    unroll: bool = False           # kept for field parity; the port always loops
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def vocab_padded(self) -> int:
+        return round_up(self.vocab_size, 256)
+
+    def attn(self, prefix: int = 0) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim,
+            causal=True,
+            window=self.window,
+            rope_theta=self.rope_theta,
+            qkv_bias=self.qkv_bias,
+            prefix_len=prefix,
+            impl=self.attn_impl,
+        )
+
+    @property
+    def param_count(self) -> int:
+        return param_count(lm_specs(self))
+
+
+def _no_moe(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE layers (models/moe.py, kernels/moe_dispatch.py) are not ported "
+            "yet: they come with the MoE slice"
+        )
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _norm_specs(cfg: LMConfig) -> Any:
+    return (
+        L.rmsnorm_spec(cfg.d_model) if cfg.norm == "rms" else L.layernorm_specs(cfg.d_model)
+    )
+
+
+def _apply_norm(cfg: LMConfig, p: Any, x: torch.Tensor) -> torch.Tensor:
+    return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
+
+
+def block_specs(cfg: LMConfig) -> dict:
+    _no_moe(cfg)
+    specs = {
+        "ln1": _norm_specs(cfg),
+        "attn": L.attn_specs(cfg.attn()),
+        "ln2": _norm_specs(cfg),
+    }
+    if cfg.act == "swiglu":
+        specs["mlp"] = L.swiglu_specs(cfg.d_model, cfg.d_ff)
+    else:
+        specs["mlp"] = L.gelu_mlp_specs(cfg.d_model, cfg.d_ff)
+    return specs
+
+
+def lm_specs(cfg: LMConfig) -> dict:
+    return {
+        "embed": L.embed_specs(cfg.vocab_padded, cfg.d_model),
+        "blocks": stack_specs(block_specs(cfg), cfg.n_layers),
+        "final_norm": _norm_specs(cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _block(
+    rt: L.Runtime,
+    cfg: LMConfig,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_pos: int | None = None,
+):
+    _no_moe(cfg)
+    h = _apply_norm(cfg, p["ln1"], x)
+    a, new_cache = L.attention(
+        rt, p["attn"], h, cfg.attn(), positions, cache, cache_pos
+    )
+    x = x + a
+    h = _apply_norm(cfg, p["ln2"], x)
+    if cfg.act == "swiglu":
+        m = L.swiglu(rt, p["mlp"], h)
+    else:
+        m = L.gelu_mlp(rt, p["mlp"], h)
+    x = x + m
+    return rt.shard(x, "batch", "sp", None), new_cache
+
+
+def _layer(blocks: dict, i: int) -> dict:
+    """Layer i's parameters as views of the stacked leaves."""
+    return tree_map(lambda t: t[i], blocks)
+
+
+def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    x = L.embed(rt, params["embed"], tokens)
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(cfg.dtype)
+
+
+def forward(
+    rt: L.Runtime,
+    cfg: LMConfig,
+    params: dict,
+    tokens: torch.Tensor,                    # (B, S)
+) -> torch.Tensor:
+    """Scoring forward over a whole sequence.  Returns the logits."""
+    params = cast_floats(params, cfg.dtype)
+    x = _embed(rt, cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x, _ = _block(rt, cfg, _layer(params["blocks"], i), x, positions)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return L.unembed(rt, params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with a stacked KV cache
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: LMConfig, batch: int, max_len: int) -> dict:
+    return L.init_kv_cache(cfg.attn(), batch, max_len, cfg.n_layers, cfg.dtype)
+
+
+def _serve(rt, cfg, params, tokens, cache, pos: int) -> tuple[torch.Tensor, dict]:
+    """Run tokens (B, S) at positions pos .. pos+S-1 through the stack,
+    writing their keys and values into the cache; returns the hidden states
+    after the final norm, and the parameters in the compute type."""
+    params = cast_floats(params, cfg.dtype)
+    x = _embed(rt, cfg, params, tokens)
+    positions = pos + torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x, _ = _block(
+            rt, cfg, _layer(params["blocks"], i), x, positions,
+            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
+        )
+    return _apply_norm(cfg, params["final_norm"], x), params
+
+
+def prefill(
+    rt: L.Runtime,
+    cfg: LMConfig,
+    params: dict,
+    tokens: torch.Tensor,       # (B, S)
+    cache: dict,                # {"k","v"}: (L, B, Smax, K, Dh), written in place
+) -> tuple[torch.Tensor, dict]:
+    """Populate the cache positions [0, S); return last-token logits."""
+    x, params = _serve(rt, cfg, params, tokens, cache, 0)
+    return L.unembed(rt, params["embed"], x[:, -1:]), cache
+
+
+def decode_step(
+    rt: L.Runtime,
+    cfg: LMConfig,
+    params: dict,
+    tokens: torch.Tensor,       # (B, 1) the newest token ids
+    cache: dict,
+    pos: int,                   # current write position
+) -> tuple[torch.Tensor, dict]:
+    """One autoregressive step against a populated cache."""
+    x, params = _serve(rt, cfg, params, tokens, cache, int(pos))
+    return L.unembed(rt, params["embed"], x), cache

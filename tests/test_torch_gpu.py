@@ -1,0 +1,46 @@
+"""Tests of the port that need an NVIDIA GPU and nvcc: the CUDA kernels
+themselves.  They skip on a machine without a card; run them on one with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports only torch and the port, so it runs where JAX is absent.
+``chip_smoke.py`` makes the same comparison over more shapes."""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel cannot run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False     # full-fp32 plain version
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,q_start,window,prefix_len", [
+    (256, 256, 0, None, 0), (100, 100, 0, 32, 16), (77, 203, 126, None, 0), (1, 200, 199, None, 0),
+])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_kernel_matches_plain(cuda, D, Sq, Sk, q_start, window, prefix_len, dtype):
+    """Scores of standard deviation 3 and values of standard deviation 1: each
+    row rests on a few keys chosen by q, and the outputs are of order 1.
+    float32 within 2e-5 (sums in another order); bfloat16 within one bf16 ulp
+    of each element (2^-7 |r|: both round the same fp32 result once) plus 1e-5."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (
+        (torch.randn(s, generator=gen, device=cuda) * scale).to(dtype)
+        for s, scale in [((2, 2, 3, Sq, D), 2.0), ((2, 2, Sk, D), 1.5), ((2, 2, Sk, D), 1.0)])
+    kw = dict(causal=True, window=window, prefix_len=prefix_len, q_start=q_start)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    r = flash_attention_plain(q, k, v, **kw).float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()

@@ -1,0 +1,161 @@
+"""The port's flash attention (its plain version: no GPU here) against the
+reference's Pallas kernel (interpret mode) and the reference's oracles.
+
+Tolerances as tests/test_kernels.py: float32 2e-5 (sums in another order),
+bfloat16 2e-2 (one rounding of the output, |out| < 1)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops, ref as ref_ref
+from repro.models import layers as ref_layers
+from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.models import layers
+
+from _torch_parity import both, max_err, rand
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def qkv(seed, B, K, G, Sq, Sk, D, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rand(rng, (B, K, G, Sq, D)), rand(rng, (B, K, Sk, D)), rand(rng, (B, K, Sk, D))]
+    j, t = zip(*(both(a, dtype) for a in arrs))
+    return j, t
+
+
+@pytest.mark.parametrize("B,K,G,S,D", [
+    (1, 1, 1, 128, 64),
+    (2, 2, 3, 256, 64),
+    (1, 4, 2, 256, 128),
+    (2, 1, 8, 128, 32),     # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shapes_dtypes(B, K, G, S, D, dtype):
+    j, t = qkv(42, B, K, G, S, S, D, dtype)
+    o = ops.flash_attention_bkgsd(*t, causal=True)
+    assert o.dtype == t[0].dtype and o.shape == t[0].shape
+    tol = TOL[dtype]
+    assert max_err(o, ref_ops.flash_attention_bkgsd(*j, causal=True)) <= tol   # Pallas, interpret
+    assert max_err(o, ref_ref.attention_ref(*j, causal=True)) <= tol
+    assert max_err(o, ref.attention_ref(*t, causal=True)) <= tol               # the port's own oracle
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(causal=True, window=64),
+    dict(causal=True, prefix_len=48),
+    dict(causal=False),
+    dict(causal=True, window=32, prefix_len=16),
+])
+def test_masks(kwargs):
+    j, t = qkv(43, 2, 2, 2, 256, 256, 64, "float32")
+    o = ops.flash_attention_bkgsd(*t, **kwargs)
+    assert max_err(o, ref_ops.flash_attention_bkgsd(*j, **kwargs)) <= 2e-5
+    assert max_err(o, ref_ref.attention_ref(*j, **kwargs)) <= 2e-5
+    assert max_err(ref.attention_ref(*t, **kwargs), ref_ref.attention_ref(*j, **kwargs)) <= 2e-5
+
+
+@pytest.mark.parametrize("Sq,Sk,q_start,window,prefix_len", [
+    (100, 100, 0, None, 0),        # ragged, no multiple of any tile
+    (77, 203, 126, None, 0),       # a continuation: rows 126..202 over 203 keys
+    (45, 300, 255, 70, 0),         # sliding window at an offset
+    (1, 200, 199, None, 0),        # a decode step over the cache
+    (1, 131, 130, 64, 0),
+    (1, 97, 96, 16, 8),
+    (5, 60, 55, 16, 8),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_and_q_start_vs_sdpa(Sq, Sk, q_start, window, prefix_len, dtype):
+    """what the reference has no kernel for: held against the port's sdpa with
+    the mask bias at the rows' global positions"""
+    B, K, G, D = 2, 2, 3, 32
+    _, (q, k, v) = qkv(44, B, K, G, Sq, Sk, D, dtype)
+    o = flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len, q_start=q_start)
+    bias = layers._mask_bias(
+        q_start + torch.arange(Sq), torch.arange(Sk), True, window, prefix_len)
+    r = layers.sdpa(q.permute(0, 3, 1, 2, 4), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), bias)
+    assert max_err(o, r.permute(0, 2, 3, 1, 4)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("Sq,Sk,q_start,causal,window,prefix_len", [
+    (100, 100, 0, True, None, 0),
+    (77, 203, 126, True, None, 0),
+    (45, 300, 255, True, 70, 0),
+    (1, 97, 96, True, 16, 8),
+    (5, 60, 55, True, 16, 24),       # the prefix reaches into the window
+    (33, 65, 0, False, 8, 0),        # a window without the causal limit
+])
+def test_oracle_is_independent_of_the_plain_version(Sq, Sk, q_start, causal, window, prefix_len):
+    """attention_ref works out each row's keys as index ranges and takes the
+    softmax over them alone in float64; the plain version masks with -1e30 in
+    fp32.  They agree to fp32 rounding (2e-5), q_start and ragged lengths
+    included, which the reference's oracle cannot be asked."""
+    _, (q, k, v) = qkv(49, 2, 2, 3, Sq, Sk, 32, "float32")
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
+    assert max_err(flash_attention_plain(q, k, v, **kw), ref.attention_ref(q, k, v, **kw)) <= 2e-5
+
+
+def test_keys_past_the_rows_change_nothing():
+    """prefill over a longer cache: the keys the causal mask hides have
+    probability exactly 0, so cutting them off is the same function"""
+    _, (q, k, v) = qkv(45, 1, 2, 2, 40, 64, 32, "float32")
+    full = flash_attention(q, k, v, causal=True)
+    cut = flash_attention(q, k[:, :, :40], v[:, :, :40], causal=True)
+    assert torch.equal(full, cut)
+
+
+def test_model_layout_wrapper():
+    rng = np.random.default_rng(46)
+    B, S, N, K, D = 2, 128, 8, 2, 64
+    (jq, tq), (jk, tk), (jv, tv) = (
+        both(rand(rng, s), "float32") for s in [(B, S, N, D), (B, S, K, D), (B, S, K, D)])
+    o = ops.flash_attention_bsnd(tq, tk, tv, causal=True)
+    bias = ref_layers._mask_bias(jnp.arange(S), jnp.arange(S), True, None)
+    r = ref_layers.sdpa(jq.reshape(B, S, K, N // K, D), jk, jv, bias).reshape(B, S, N, D)
+    assert max_err(o, r) <= 2e-5
+    assert max_err(o, ref_ops.flash_attention_bsnd(jq, jk, jv, causal=True)) <= 2e-5
+    # strided views in, as the model hands them over: a slice of a longer cache
+    cache_k = torch.cat([tk, torch.zeros(B, 9, K, D)], dim=1)
+    cache_v = torch.cat([tv, torch.zeros(B, 9, K, D)], dim=1)
+    o2 = ops.flash_attention_bsnd(tq, cache_k[:, :S], cache_v[:, :S], causal=True)
+    assert torch.equal(o, o2)
+
+
+def test_finite_fill_keeps_masked_tiles_finite():
+    """a sliding window masks whole stretches of keys: -1e30, not -inf"""
+    _, (q, k, v) = qkv(47, 1, 1, 2, 256, 256, 32, "bfloat16")
+    o = flash_attention(q, k, v, causal=True, window=8)
+    assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed", "shape", "rank", "device"])
+def test_wrapper_raises(bad):
+    q, k, v = torch.zeros(1, 2, 2, 8, 32), torch.zeros(1, 2, 8, 32), torch.zeros(1, 2, 8, 32)
+    if bad == "head_dim":
+        q, k, v = (torch.zeros(*t.shape[:-1], 48) for t in (q, k, v))
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        k = k.bfloat16()
+    elif bad == "shape":
+        k = torch.zeros(1, 3, 8, 32)
+        v = k
+    elif bad == "rank":
+        q = q[0]
+    elif bad == "device":
+        # a tensor that is neither on the CPU nor on a CUDA device never
+        # reaches the plain version
+        q, k, v = (torch.empty(t.shape, device="meta") for t in (q, k, v))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+
+
+def test_launch_count_untouched_on_cpu():
+    reset_launch_counts()
+    _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
+    flash_attention(q, k, v)
+    assert launch_counts() == {"flash_attention": 0}     # no kernel ran: CPU tensors
+    assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
