@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — granite-8b served at full width and depth
-through ``repro_torch.launch.serve.run`` — and holds every hand-written kernel
-of that path against its plain PyTorch version on the card.  Phases, one JSON
-line each:
+Drives the port's two serving paths through ``repro_torch.launch.serve.run``
+— granite-8b at full width and depth (attention through the flash-attention
+kernel) and mixtral-8x22b at full width and 8 of its 56 layers (attention,
+and every MoE layer's dispatch through the moe-dispatch kernel) — and holds
+every hand-written kernel of those paths against its plain PyTorch version on
+the card.  Phases, one JSON line each:
 
 1. ``device``   torch version, device name, ``nvidia-smi`` name and power limit
-2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+                one process per source, all at once
 3. ``kernels``  each kernel vs its plain version over the test shapes and at the
-                main path's shapes, with times (CUDA events), the least time
+                main paths' shapes, with times (CUDA events), the least time
                 the card could take (``bound_ms``) and one library call as a
                 yardstick (``library_ms``; the port never calls it)
-4. ``slice``    granite-8b smoke config: kernel path vs plain path, fp32 and bf16
-5. ``serve``    granite-8b, 36 layers, bf16, batch 4, prompt 512, 16 tokens, greedy,
-                then the same batch through the plain path, logits and ids compared
+4. ``slice``    granite-8b and mixtral-8x22b smoke configs: kernel path vs plain
+                path, fp32 and bf16
+5. ``serve``    granite-8b (36 layers), then mixtral-8x22b (8 layers; granite's
+                weights released first), bf16, batch 4, prompt 512, 16 tokens,
+                greedy; each batch again through the plain path, logits and ids
+                compared; each path's kernel launches counted from 0
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -25,6 +31,7 @@ before printing any result.  ``--phases`` runs a subset while debugging.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -40,8 +47,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_ULP = 2.0 ** -7     # one bf16 ulp of x is at most 2^-7 |x|
 
-# The main path: granite-8b at full width and depth.
+# The main paths: granite-8b at full width and depth; mixtral-8x22b at full
+# width and 8 of its 56 layers (56 would take 281 GB of bf16 weights).
 SERVE = dict(arch="granite-8b", batch=4, prompt_len=512, gen=16, seed=0)
+MIXTRAL = dict(SERVE, arch="mixtral-8x22b", n_layers=8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -102,7 +111,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention"])
+    libs = _build.build(["flash_attention", "moe_dispatch"])
     seconds = time.perf_counter() - t0
     # ptxas -v: registers and spills of every instantiation
     log = "".join(p.with_suffix(".log").read_text() for p in libs.values())
@@ -185,16 +194,13 @@ def _flash_bound_ms(q, k, v, mask_kw) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels() -> list[dict]:
+def _flash_row(gen) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.ref import attention_ref
 
-    # fp32 comparisons need full-fp32 products in the plain version
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_of_limit = dict(worst)
     cases = _flash_cases()
@@ -265,7 +271,7 @@ def phase_kernels() -> list[dict]:
             "bound_by": bound_by,
             "library_ms": time_ms(library)[0],
         }
-    return [{
+    return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -277,114 +283,305 @@ def phase_kernels() -> list[dict]:
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
                                   "bfloat16": worst_of_limit[torch.bfloat16]},
-    }]
+    }
 
 
-def phase_slice() -> None:
-    """granite-8b smoke config on the card, same weights: the kernel path
-    (use_kernels=True) against the plain path (sdpa + mask bias)."""
-    from repro_torch.configs import load
-    from repro_torch.launch import serve
-    from repro_torch.models.layers import Runtime
-    from repro_torch.models.param import tree_init
+def _one_hot_disp(gen, B, T, E, C, dtype) -> torch.Tensor:
+    """Random routing as the reference's kernel test draws it: each token to
+    one expert, in arrival order, overflow beyond C dropped."""
+    idx = torch.randint(0, E, (B, T), generator=gen, device="cuda")
+    onehot = torch.nn.functional.one_hot(idx, E)                      # (B, T, E)
+    pos = torch.cumsum(onehot, dim=1) - onehot                        # slot in the expert
+    slot = (pos * onehot).sum(-1)                                     # (B, T)
+    disp = torch.zeros((B, T, E, C), device="cuda", dtype=dtype)
+    b, t = torch.nonzero(slot < C, as_tuple=True)
+    disp[b, t, idx[b, t], slot[b, t]] = 1
+    return disp
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    args = serve.build_parser().parse_args(["--prompt-len", "24", "--gen", "5", "--batch", "2"])
-    out = {}
-    # fp32: only the order of sums differs, 2e-4 absolute.  bf16: the kernel
-    # keeps fp32 scores and probabilities where sdpa rounds both to bf16, so
-    # each path lies a few bf16 ulps of the largest logit (ulp 0.031 at 4) from
-    # the fp32 result: 3e-2 of the largest |logit|, at least 3e-2.
-    for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
-        h = load("granite-8b", smoke=True).clone(dtype=dt)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        params = tree_init(h.param_specs(), gen, dt, "cuda")
-        res = {
-            uk: serve.run(args, harness=h, params=params, rt=Runtime(use_kernels=uk))
-            for uk in (True, False)
+
+def _moe_cases():
+    """(B, T, E, C, D, dtype, dense) over the reference's hypothesis shapes
+    (E in {2, 4, 8, 16}, C in [16, 64], T = 128, D = 32), ragged T, the
+    batched form, and dense weights (the general contract)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for E in (2, 4, 8, 16):
+        for C in (16, 40, 64):
+            for dt in (f32, bf16):
+                cases.append((1, 128, E, C, 32, dt, False))
+    for T in (1, 77, 200):
+        for dt in (f32, bf16):
+            cases.append((1, T, 8, 24, 32, dt, False))
+            cases.append((4, T, 8, 20, 128, dt, False))
+    for B, T, E, C, D in [(1, 128, 8, 32, 32), (4, 77, 4, 16, 128), (2, 200, 8, 40, 6144), (3, 1, 8, 1, 96)]:
+        for dt in (f32, bf16):
+            cases.append((B, T, E, C, D, dt, True))
+    return cases
+
+
+def _moe_row(gen) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_plain
+    from repro_torch.kernels.ref import moe_dispatch_ref
+    from repro_torch.models import moe
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_of_limit = dict(worst)
+    cases = _moe_cases()
+    for B, T, E, C, D, dt, dense in cases:
+        x = _rand(gen, (B, T, D), dt, 1.0)
+        # dense: weights of size 1/sqrt(T), so the outputs are of order 1
+        disp = _rand(gen, (B, T, E, C), dt, T ** -0.5) if dense else _one_hot_disp(gen, B, T, E, C, dt)
+        args = (disp[0], x[0]) if B == 1 else (disp, x)      # the reference's 3-D form, and batched
+        o = ops.moe_dispatch(*args)
+        torch.cuda.synchronize()
+        r = moe_dispatch_plain(*args)
+        torch.cuda.synchronize()
+        oracle = moe_dispatch_ref(*args)
+        if dense:
+            err, of_limit = _excess(o, r, dt)
+            _, ref_of_limit = _excess(r, oracle, dt)
+            bad = not max(of_limit, ref_of_limit) <= 1.0
+        else:
+            # one term times 1.0, then zeros: the same bits, oracle included
+            err, of_limit = _excess(o, r, dt)
+            bad = not (torch.equal(o, r) and torch.equal(r, oracle))
+        if bad or not torch.isfinite(o.float()).all():
+            raise SystemExit(f"moe_dispatch disagrees with its plain version or the float64 oracle: "
+                             f"{(B, T, E, C, D, dt, dense)} max_abs_err={err} ({of_limit} of its limit)")
+        worst[dt] = max(worst[dt], err)
+        worst_of_limit[dt] = max(worst_of_limit[dt], of_limit)
+
+    # the main path's shapes: the routing of mixtral's MoE layers (8 experts,
+    # top-2, capacity factor 1.25) on random activations and router
+    cfg = moe.MoEConfig(n_experts=8, topk=2, d_ff=16384, strategy="expert_tp")
+    B, D, dt = MIXTRAL["batch"], 6144, torch.bfloat16
+    router = _rand(gen, (D, cfg.n_experts), dt, D ** -0.5)
+    rows = {}
+    for name, S in (("prefill", MIXTRAL["prompt_len"]), ("decode", 1)):
+        x = _rand(gen, (B, S, D), dt, 1.0)
+        C = cfg.capacity(S)
+        disp, _ = moe.dispatch_tensors(moe.route(x, router, cfg), C, dt)
+        o = ops.moe_dispatch(disp, x)
+        torch.cuda.synchronize()
+        r = moe_dispatch_plain(disp, x)
+
+        def library():
+            return torch.einsum("bsec,bsd->ebcd", disp, x)
+
+        if not (torch.equal(o, r) and torch.equal(o, library()) and torch.equal(o, moe_dispatch_ref(disp, x))):
+            raise SystemExit(f"moe_dispatch at the {name} shape is not bit-equal to its plain "
+                             f"version, the library call and the float64 oracle: max_abs_err="
+                             f"{(o.float() - r.float()).abs().max().item()}")
+        # bytes: disp and x read once, out written once; operations: one
+        # multiply-add per nonzero weight and column
+        nbytes = (disp.numel() + x.numel() + o.numel()) * x.element_size()
+        flops = 2 * int((disp != 0).sum()) * D
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        ms, call_ms = time_ms(lambda: ops.moe_dispatch(disp, x))
+        rows[name] = {
+            "shape": f"disp{tuple(disp.shape)} x{tuple(x.shape)} {str(dt).split('.')[-1]}",
+            "max_abs_err": (o.float() - r.float()).abs().max().item(),
+            "kept_slots": int((disp != 0).sum()), "dropped": int(B * S * cfg.topk - (disp != 0).sum()),
+            "ms": ms,
+            "call_ms": call_ms,
+            "plain_ms": time_ms(lambda: moe_dispatch_plain(disp, x))[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(library)[0],
         }
-        if res[True]["launches"]["flash_attention"] != h.cfg.n_layers * args.gen:
-            raise SystemExit(f"slice check: kernel path launched {res[True]['launches']}")
-        if res[False]["launches"]["flash_attention"] != 0:
-            raise SystemExit("slice check: the plain path launched the kernel")
-        same = bool((res[True]["tokens"] == res[False]["tokens"]).all())
-        # logits are comparable while both paths were fed the same tokens
-        n = args.gen if same else 1
-        kern, plain = res[True]["logits"][:, :n], res[False]["logits"][:, :n]
-        err, scale = float(abs(kern - plain).max()), float(abs(plain).max())
-        bound = tol if dt == torch.float32 else tol * max(1.0, scale)
-        if not err <= bound or (dt == torch.float32 and not same):
-            raise SystemExit(f"slice check {dt}: max_abs_err={err} (bound {bound}), same ids={same}")
-        out[str(dt).split(".")[-1]] = {
-            "max_abs_err": err, "bound": bound, "max_abs_logit": scale,
-            "same_ids": same, "steps_compared": n}
-    emit("slice", config="granite-8b smoke", **out)
+    return {
+        "name": "moe_dispatch",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+        "replaces": "src/repro/kernels/moe_dispatch.py:61",
+        "launches": None,            # filled in from the serve phase's run
+        **rows["prefill"],
+        "decode": rows["decode"],
+        "test_cases": len(cases),
+        "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
+        "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
+                                  "bfloat16": worst_of_limit[torch.bfloat16]},
+    }
 
 
-def phase_serve() -> dict:
+def phase_kernels() -> list[dict]:
+    # fp32 comparisons need full-fp32 products in the plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [_flash_row(gen), _moe_row(gen)]
+
+
+def _expected_launches(cfg, gen: int) -> dict[str, int]:
+    """Every layer's attention goes through the flash kernel and every MoE
+    layer's dispatch through the dispatch kernel, once in prefill and once
+    in each of the gen - 1 decode steps."""
+    per_layer = cfg.n_layers * gen
+    return {"flash_attention": per_layer, "moe_dispatch": per_layer if cfg.moe is not None else 0}
+
+
+@contextlib.contextmanager
+def _routing(replay: list | None = None):
+    """Watches the routing of the port's MoE layers over one served batch.
+    Yields a list with one entry a layer call: (its own top-k choices, its
+    router logits).  With ``replay`` (such a list from another run), each
+    call routes by the recorded choices instead of its own."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def watched(x, router, cfg, gate_idx=None):
+        own = route(x, router, cfg)
+        calls.append((own.gate_idx, (x @ router).float()))
+        return own if replay is None else route(x, router, cfg, gate_idx=replay[len(calls) - 1][0])
+
+    moe.route = watched
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[str, int], dict]:
+    """One batch through the kernel path (use_kernels=True), every launch
+    count set to 0 just before and read just after, then the same batch and
+    weights through the plain path (sdpa + mask bias, the dispatch einsum).
+
+    Logits are comparable over the steps both paths were fed the same ids:
+    up to and including the first step at which their greedy ids differ.
+    float32: 2e-4 absolute (only the order of sums differs), and the ids must
+    agree.  bfloat16: the flash kernel keeps fp32 scores and probabilities
+    where sdpa rounds both to bf16, so each path lies a few bf16 ulps of the
+    largest logit (ulp 0.031 at 4) from the fp32 result: 3e-2 of the largest
+    |logit|, at least 3e-2; at every compared step the token the kernel path
+    chose must be, by the plain path's logits, within that limit of the best.
+
+    Routing, like a greedy id, is a discrete choice that a near-tie and a
+    rounding apart can flip, and one token routed to another expert moves
+    its output by O(1).  So the plain path is routed by the kernel path's
+    choices, as it is fed ids, and holds its router logits under that
+    routing to the same limits; how many choices of its own would have
+    differed is reported beside them."""
     import numpy as np
 
     from repro_torch import kernels
-    from repro_torch.configs import load
     from repro_torch.launch import serve
     from repro_torch.models.layers import Runtime
+
+    cfg = harness.cfg
+    kernels.reset_launch_counts()
+    with _routing() as kern_calls:
+        res = serve.run(args, harness=harness, params=params)
+    counts = kernels.launch_counts()
+    if counts != _expected_launches(cfg, args.gen):
+        raise SystemExit(f"{where}: the kernel path launched {counts}, expected "
+                         f"{_expected_launches(cfg, args.gen)}")
+    kernels.reset_launch_counts()
+    with _routing(replay=kern_calls) as plain_calls:
+        ref = serve.run(args, harness=harness, params=params, rt=Runtime(use_kernels=False))
+    if any(kernels.launch_counts().values()):
+        raise SystemExit(f"{where}: the plain path launched {kernels.launch_counts()}")
+
+    tok = res["tokens"]
+    differ = np.flatnonzero((tok != ref["tokens"]).any(axis=0))
+    n = int(differ[0]) + 1 if differ.size else args.gen
+    kern_lg, ref_lg = res["logits"][:, :n], ref["logits"][:, :n]
+
+    def limit(values) -> float:
+        return 2e-4 if dt == torch.float32 else 3e-2 * max(1.0, values)
+
+    scale = float(np.abs(ref_lg).max())
+    err = float(np.abs(kern_lg - ref_lg).max())
+    chosen = np.take_along_axis(ref_lg, tok[:, :n, None].astype(np.int64), axis=2)[..., 0]
+    regret = float((ref_lg.max(axis=2) - chosen).max())
+    out = {"steps_compared": n, "same_ids": bool(differ.size == 0), "max_abs_err": err,
+           "limit": limit(scale), "max_abs_logit": scale, "chosen_short_of_best": regret}
+    # the MoE layer calls of the compared steps: prefill's, then each decode step's
+    calls = list(zip(kern_calls, plain_calls))[:n * cfg.n_layers] if cfg.moe is not None else []
+    if calls:
+        r_err = max(float((k[1] - p[1]).abs().max()) for k, p in calls)
+        r_scale = max(float(p[1].abs().max()) for _, p in calls)
+        flips = sum(int((k[0] != p[0]).any(-1).sum()) for k, p in calls)
+        out["router"] = {"calls": len(calls), "max_abs_err": r_err, "limit": limit(r_scale),
+                         "max_abs_logit": r_scale, "own_choices_differ": flips,
+                         "decisions": sum(int(k[0][..., 0].numel()) for k, _ in calls)}
+        if not r_err <= limit(r_scale):
+            raise SystemExit(f"{where}: router logits under the same routing differ by {r_err} "
+                             f"(limit {limit(r_scale)})")
+    if not err <= limit(scale) or not regret <= limit(scale) or (dt == torch.float32 and differ.size):
+        raise SystemExit(f"{where}: kernel path vs plain path over {n} steps: logits differ by {err}, "
+                         f"chosen tokens fall {regret} short of the best (limit {limit(scale)}), "
+                         f"same ids {differ.size == 0}")
+    return res, counts, {**out, "plain_prefill_ms": ref["prefill_s"] * 1e3,
+                         "plain_decode_ms_per_token": ref["decode_s_per_token"] * 1e3}
+
+
+def phase_slice() -> None:
+    """The smoke configs on the card, same weights: the kernel path against
+    the plain path in fp32 and bf16.  mixtral's prompt is longer than its
+    smoke window of 64, so the sliding window bites."""
+    from repro_torch.configs import load
+    from repro_torch.launch import serve
+    from repro_torch.models.param import tree_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, argv in (("granite-8b", ["--prompt-len", "24", "--gen", "5", "--batch", "2"]),
+                       ("mixtral-8x22b", ["--prompt-len", "80", "--gen", "5", "--batch", "2"])):
+        args = serve.build_parser().parse_args(["--arch", arch, *argv])
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            h = load(arch, smoke=True).clone(dtype=dt)
+            params = tree_init(h.param_specs(), torch.Generator(device="cuda").manual_seed(1), dt, "cuda")
+            name = str(dt).split(".")[-1]
+            _, _, out[name] = _kernel_vs_plain(args, h, params, dt, f"slice check {arch} {name}")
+        emit("slice", config=f"{arch} smoke", batch=args.batch, prompt_len=args.prompt_len,
+             gen=args.gen, window=h.cfg.window, **out)
+
+
+def _serve_path(spec: dict) -> dict[str, int]:
+    """One main path: a batch served at full width through the kernel path,
+    then through the plain path, same weights.  A kernel that is wrong only
+    at these sizes shows here as a wrong token.  Returns the kernel path's
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import load
+    from repro_torch.launch import serve
     from repro_torch.models.param import tree_init
 
     args = serve.build_parser().parse_args([
-        "--arch", SERVE["arch"], "--no-smoke", "--batch", str(SERVE["batch"]),
-        "--prompt-len", str(SERVE["prompt_len"]), "--gen", str(SERVE["gen"]),
-        "--seed", str(SERVE["seed"]),
+        "--arch", spec["arch"], "--no-smoke", "--batch", str(spec["batch"]),
+        "--prompt-len", str(spec["prompt_len"]), "--gen", str(spec["gen"]),
+        "--seed", str(spec["seed"]),
     ])
     harness = load(args.arch, smoke=False)
+    if "n_layers" in spec:
+        harness = harness.clone(n_layers=spec["n_layers"])
     cfg = harness.cfg
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # the weights are drawn once, so that the plain path below serves the same model
-    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(SERVE["seed"]),
+    # the weights are drawn once, so that the plain path serves the same model
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
-    kernels.reset_launch_counts()
-    res = serve.run(args, harness=harness, params=params)
-    counts = kernels.launch_counts()
-    want = cfg.n_layers * (1 + args.gen - 1)
-    if counts["flash_attention"] != want:
-        raise SystemExit(f"serve: flash_attention launched {counts} times, expected {want}")
+    res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}")
+    peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
     tok, lg = res["tokens"], res["logits"]
     if tok.shape != (args.batch, args.gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
-        raise SystemExit(f"serve: bad token ids, shape {tok.shape}")
+        raise SystemExit(f"serve {args.arch}: bad token ids, shape {tok.shape}")
     if lg.shape != (args.batch, args.gen, cfg.vocab_size) or not np.isfinite(lg).all():
-        raise SystemExit(f"serve: logits of shape {lg.shape} not finite")
-    peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # The same batch through the plain path (sdpa + mask bias) at full width
-    # and depth: a kernel that is wrong only at these sizes shows here as a
-    # wrong token.  Both paths are bf16, and sdpa rounds scores and
-    # probabilities where the kernel keeps fp32, so logits are held to 3e-2 of
-    # the largest |logit| (about 4 bf16 ulps of it), over the steps both paths
-    # were fed the same tokens: up to and including the first step at which
-    # their ids differ.  At every such step the token the kernel path chose
-    # must be, by the plain path's logits, within that limit of the best.
-    ref = serve.run(args, harness=harness, params=params, rt=Runtime(use_kernels=False))
-    if kernels.launch_counts() != counts:
-        raise SystemExit("serve: the plain path launched a kernel")
-    differ = np.flatnonzero((tok != ref["tokens"]).any(axis=0))
-    n = int(differ[0]) + 1 if differ.size else args.gen
-    kern_lg, ref_lg = lg[:, :n], ref["logits"][:, :n]
-    scale = float(np.abs(ref_lg).max())
-    err, limit = float(np.abs(kern_lg - ref_lg).max()), 3e-2 * max(1.0, scale)
-    chosen = np.take_along_axis(ref_lg, tok[:, :n, None].astype(np.int64), axis=2)[..., 0]
-    regret = float((ref_lg.max(axis=2) - chosen).max())
-    if not err <= limit or not regret <= limit:
-        raise SystemExit(f"serve: kernel path vs plain path over {n} steps: logits differ by {err}, "
-                         f"chosen tokens fall {regret} short of the best (limit {limit})")
+        raise SystemExit(f"serve {args.arch}: logits of shape {lg.shape} not finite")
     emit("serve", arch=args.arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
          params=cfg.param_count, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
          prefill_ms=res["prefill_s"] * 1e3, decode_ms_per_token=res["decode_s_per_token"] * 1e3,
          peak_memory_gb=peak_memory_gb, launches=counts, first_row=tok[0].tolist(),
-         vs_plain_path={"steps_compared": n, "same_ids": bool(differ.size == 0),
-                        "max_abs_err": err, "limit": limit, "max_abs_logit": scale,
-                        "chosen_short_of_best": regret,
-                        "plain_prefill_ms": ref["prefill_s"] * 1e3,
-                        "plain_decode_ms_per_token": ref["decode_s_per_token"] * 1e3})
+         vs_plain_path=vs_plain)
     return counts
+
+
+def phase_serve() -> dict[str, dict[str, int]]:
+    """granite-8b, then mixtral-8x22b; granite's weights are released when
+    its path returns.  Returns each path's launch counts."""
+    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL)}
 
 
 def main() -> int:
@@ -403,11 +600,12 @@ def main() -> int:
     kernel_rows = phase_kernels() if "kernels" in phases else []
     if "slice" in phases:
         phase_slice()
-    counts = phase_serve() if "serve" in phases else {}
+    by_path = phase_serve() if "serve" in phases else {}
     for row in kernel_rows:
-        row["launches"] = counts.get(row["name"], 0)
+        row["launches_by_path"] = {arch: c[row["name"]] for arch, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         if "serve" in phases and row["launches"] < 1:
-            raise SystemExit(f"the main path never launched {row['name']}")
+            raise SystemExit(f"the main paths never launched {row['name']}")
     print(device["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     ok = phases == ["device", "build", "kernels", "slice", "serve"]

@@ -1,5 +1,6 @@
 """Kernels of the port, written by hand for Hopper (reference:
-``repro/kernels/``, Pallas for the TPU).
+``repro/kernels/``, Pallas for the TPU): ``flash_attention`` carries every
+layer's attention, ``moe_dispatch`` every MoE layer's dispatch.
 
 Each kernel module holds the CUDA kernel's wrapper, a plain PyTorch version of
 the same function, and a launch count on the wrapper.  ``launch_counts`` and
@@ -10,8 +11,9 @@ can show which kernels its path went through.
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .moe_dispatch import moe_dispatch
 
-KERNELS = {"flash_attention": flash_attention}
+KERNELS = {"flash_attention": flash_attention, "moe_dispatch": moe_dispatch}
 
 
 def launch_counts() -> dict[str, int]:

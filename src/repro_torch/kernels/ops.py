@@ -1,10 +1,13 @@
 """Public wrappers for the kernels — port of ``repro/kernels/ops.py`` (the two
-flash-attention adapters; the other kernels' wrappers come with them).
+flash-attention adapters and ``moe_dispatch``; the other kernels' wrappers
+come with them).
 
 Each validates shapes and adapts the model layers' layout to the kernel's.
 Where the reference transposes (and so copies) q, k and v, the port hands the
 kernel strided views: the kernel takes element strides, so the model's
 ``(B, S, heads, Dh)`` tensors and a slice of the KV cache are read in place.
+``moe_dispatch`` takes the reference's ``(T, E, C)`` form and the model's
+batched ``(B, T, E, C)`` one, so an MoE layer's dispatch is one launch.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention
+from .moe_dispatch import moe_dispatch  # noqa: F401  (checks both forms itself)
 
 
 def flash_attention_bkgsd(

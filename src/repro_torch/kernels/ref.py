@@ -1,12 +1,15 @@
 """Plain PyTorch oracles in the kernels' layouts — port of
-``repro/kernels/ref.py`` (``attention_ref``; the other oracles come with their
-kernels).
+``repro/kernels/ref.py`` (``attention_ref``, ``moe_gather_matmul_ref``; the
+other oracles come with their kernels).
 
-The oracle shares nothing with the kernel modules, neither code nor method, so
-a kernel and its plain version can both be held against it: where they build a
-boolean mask and fill with a large negative constant, it walks the query rows
-one by one, works out each row's visible keys as index ranges, and takes the
-softmax over those keys alone, in float64."""
+Each oracle shares nothing with the kernel modules, neither code nor method,
+so a kernel and its plain version can both be held against it, and works in
+float64.  ``attention_ref``: where the kernel modules build a boolean mask
+and fill with a large negative constant, it walks the query rows one by one,
+works out each row's visible keys as index ranges, and takes the softmax over
+those keys alone.  ``moe_dispatch_ref``: where the kernel modules contract
+the token axis in one product, it adds the tokens' contributions one token at
+a time."""
 
 from __future__ import annotations
 
@@ -42,3 +45,32 @@ def attention_ref(
         p = torch.softmax(s, dim=-1)
         rows.append(torch.einsum("bkgs,bksd->bkgd", p, v64[:, :, idx]))
     return torch.stack(rows, dim=3).to(q.dtype)
+
+
+def moe_dispatch_ref(
+    disp: torch.Tensor,         # (T, E, C) or (B, T, E, C)
+    x: torch.Tensor,            # (T, D) or (B, T, D)
+) -> torch.Tensor:
+    """Expert inputs ``out[e, c, :] = sum_t disp[t, e, c] * x[t, :]``:
+    (E, C, D), or (E, B, C, D) for the batched form, in x's type."""
+    batched = disp.ndim == 4
+    d64 = (disp if batched else disp[None]).double()
+    x64 = (x if batched else x[None]).double()
+    B, T, E, C = d64.shape
+    out = torch.zeros((E, B, C, x64.shape[-1]), dtype=torch.float64, device=x.device)
+    for t in range(T):
+        # token t's row of x, weighted into every (expert, slot) of every row
+        out += d64[:, t].permute(1, 0, 2)[..., None] * x64[None, :, t, None, :]
+    return (out if batched else out[:, 0]).to(x.dtype)
+
+
+def moe_gather_matmul_ref(
+    disp: torch.Tensor,         # (T, E, C)
+    x: torch.Tensor,            # (T, D)
+    w: torch.Tensor,            # (E, D, F)
+) -> torch.Tensor:
+    """Dispatch, then each expert's product with its weight: (E, C, F) in
+    x's type.  The expert inputs stay float64 (unrounded) in between."""
+    ein = moe_dispatch_ref(disp.double(), x.double())            # (E, C, D)
+    out = torch.stack([ein[e] @ w[e].double() for e in range(w.shape[0])])
+    return out.to(x.dtype)

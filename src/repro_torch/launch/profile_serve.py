@@ -7,7 +7,13 @@ wall times, as one JSON object::
         --no-smoke --batch 4 --prompt-len 512 --gen 16
 
 Takes the flags of ``repro_torch.launch.serve`` plus ``--top`` (kernels
-listed).  The device's idle share is 1 - (summed kernel time / wall time) of
+listed) and ``--n-layers``, which serves the config at that depth with its
+widths unchanged, for an arch whose full depth does not fit one card::
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x22b \\
+        --no-smoke --n-layers 8 --batch 4 --prompt-len 512 --gen 16
+
+The device's idle share is 1 - (summed kernel time / wall time) of
 the profiled run's prefill and decode; the profiler's own cost on the host is
 inside that wall time, so the unprofiled run's times are printed beside it.
 """
@@ -28,18 +34,22 @@ from . import serve
 def main(argv: list[str] | None = None) -> None:
     ap = serve.build_parser()
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="serve at this depth, widths unchanged (default: the config's)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type != "cuda":
         raise SystemExit("profile_serve measures the GPU: run it with --device cuda")
 
     # one set of weights for all three runs, drawn outside the profiled one
     harness = load(args.arch, smoke=args.smoke)
+    if args.n_layers is not None:
+        harness = harness.clone(n_layers=args.n_layers)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = tree_init(harness.param_specs(), gen, torch.bfloat16, args.device)
-    serve.run(args, params=params)                    # warm-up: builds, library set-up
-    plain = serve.run(args, params=params)
+    serve.run(args, harness=harness, params=params)   # warm-up: builds, library set-up
+    plain = serve.run(args, harness=harness, params=params)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced = serve.run(args, params=params)
+        traced = serve.run(args, harness=harness, params=params)
 
     # device-side events only: a host operator's row repeats its kernels' time
     rows = [
@@ -58,7 +68,7 @@ def main(argv: list[str] | None = None) -> None:
     ).stdout.strip()
     print(json.dumps({
         "card": smi,
-        "arch": args.arch, "smoke": args.smoke, "batch": args.batch,
+        "arch": args.arch, "smoke": args.smoke, "n_layers": harness.cfg.n_layers, "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
         "unprofiled": {"prefill_ms": plain["prefill_s"] * 1e3,
                        "decode_ms_per_token": plain["decode_s_per_token"] * 1e3},

@@ -74,7 +74,7 @@ class Harness:
 
 
 class TransformerHarness(Harness):
-    """Dense decoder-only transformers."""
+    """Dense and MoE decoder-only transformers."""
 
     def __init__(
         self,
@@ -88,6 +88,7 @@ class TransformerHarness(Harness):
         self.cfg = cfg
         self.family = family
         self.long_context_ok = long_context_ok
+        self.moe_strategy = cfg.moe.strategy if cfg.moe else None
 
     def param_specs(self):
         return transformer.lm_specs(self.cfg)

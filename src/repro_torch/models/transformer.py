@@ -1,8 +1,8 @@
 """Unified decoder-only LM — port of ``repro/models/transformer.py``.
 
 One config class parameterizes GQA/MQA attention (RoPE, optional sliding
-window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP and a
-gemma-style sqrt(d) embedding scale.
+window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP or an MoE
+layer (``models/moe.py``), and a gemma-style sqrt(d) embedding scale.
 
 Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
 ``cache_specs``, ``prefill``, ``decode_step`` and ``forward`` (without
@@ -10,7 +10,10 @@ rematerialization, which comes with training).  Where the reference scans over
 the stacked layer dim, the port loops in Python and indexes views of the
 stacked leaves: no per-layer copy.  The KV cache is written in place
 (``layers.attention``), so ``prefill`` and ``decode_step`` return the cache
-they were given.  MoE layers and the modality prefix come with their slices.
+they were given.  ``_block`` returns an MoE layer's router aux loss beside the
+cache, as the reference's does; ``prefill``, ``decode_step`` and ``forward``
+return no aux loss (the reference's ``forward`` does: ``loss_fn``, which
+consumes it, comes with training).  The modality prefix comes with its slice.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any
 import torch
 
 from . import layers as L
+from .moe import MoEConfig, moe_apply, moe_specs
 from .param import cast_floats, param_count, round_up, stack_specs, tree_map
 
 
@@ -40,7 +44,7 @@ class LMConfig:
     window: int | None = None      # sliding-window attention
     rope_theta: float = 10000.0
     qkv_bias: bool = False
-    moe: Any = None                # MoE config: not ported yet, must be None
+    moe: MoEConfig | None = None
     prefix_len: int = 0            # VLM/audio stub prefix (train/prefill)
     embed_scale: bool = False      # gemma: x *= sqrt(d_model)
     remat_policy: str = "nothing"  # kept for field parity; used by training
@@ -71,14 +75,6 @@ class LMConfig:
         return param_count(lm_specs(self))
 
 
-def _no_moe(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE layers (models/moe.py, kernels/moe_dispatch.py) are not ported "
-            "yet: they come with the MoE slice"
-        )
-
-
 # ---------------------------------------------------------------------------
 # parameter specs
 # ---------------------------------------------------------------------------
@@ -95,13 +91,14 @@ def _apply_norm(cfg: LMConfig, p: Any, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_specs(cfg: LMConfig) -> dict:
-    _no_moe(cfg)
     specs = {
         "ln1": _norm_specs(cfg),
         "attn": L.attn_specs(cfg.attn()),
         "ln2": _norm_specs(cfg),
     }
-    if cfg.act == "swiglu":
+    if cfg.moe is not None:
+        specs["moe"] = moe_specs(cfg.d_model, cfg.moe)
+    elif cfg.act == "swiglu":
         specs["mlp"] = L.swiglu_specs(cfg.d_model, cfg.d_ff)
     else:
         specs["mlp"] = L.gelu_mlp_specs(cfg.d_model, cfg.d_ff)
@@ -130,19 +127,21 @@ def _block(
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_pos: int | None = None,
 ):
-    _no_moe(cfg)
     h = _apply_norm(cfg, p["ln1"], x)
     a, new_cache = L.attention(
         rt, p["attn"], h, cfg.attn(), positions, cache, cache_pos
     )
     x = x + a
     h = _apply_norm(cfg, p["ln2"], x)
-    if cfg.act == "swiglu":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe is not None:
+        m, aux = moe_apply(rt, p["moe"], h, cfg.moe)
+    elif cfg.act == "swiglu":
         m = L.swiglu(rt, p["mlp"], h)
     else:
         m = L.gelu_mlp(rt, p["mlp"], h)
     x = x + m
-    return rt.shard(x, "batch", "sp", None), new_cache
+    return rt.shard(x, "batch", "sp", None), new_cache, aux
 
 
 def _layer(blocks: dict, i: int) -> dict:
@@ -168,7 +167,7 @@ def forward(
     x = _embed(rt, cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _block(rt, cfg, _layer(params["blocks"], i), x, positions)
+        x, _, _ = _block(rt, cfg, _layer(params["blocks"], i), x, positions)
     x = _apply_norm(cfg, params["final_norm"], x)
     return L.unembed(rt, params["embed"], x)
 
@@ -190,7 +189,7 @@ def _serve(rt, cfg, params, tokens, cache, pos: int) -> tuple[torch.Tensor, dict
     x = _embed(rt, cfg, params, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _block(
+        x, _, _ = _block(
             rt, cfg, _layer(params["blocks"], i), x, positions,
             cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
         )

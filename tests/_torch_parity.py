@@ -6,6 +6,8 @@ or the reference's ``tree_init``), exported as float32 numpy arrays (exact for
 bfloat16, which numpy lacks) and handed to both sides.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,3 +48,35 @@ def max_err(port, ref) -> float:
     p, r = to_np(port), to_np(ref)
     assert p.shape == r.shape, (p.shape, r.shape)
     return float(np.max(np.abs(p - r))) if p.size else 0.0
+
+
+BF16_ULP = 2.0 ** -7     # one bf16 ulp of l is at most 2^-7 |l|
+
+
+def routing_margin_ulps(logits, k: int) -> float:
+    """Smallest gap between neighbouring choices among the top k + 1 router
+    logits of any token (the order of the top k, and the k-th against the
+    next), in bf16 ulps of the larger of the two.  Below a few ulps, two
+    frameworks that round the bf16 logits apart may route the token apart."""
+    top = -np.sort(-np.asarray(to_np(logits), np.float64), axis=-1)[..., :k + 1]
+    gaps = (top[..., :-1] - top[..., 1:]) / (BF16_ULP * np.abs(top[..., :-1]))
+    return float(gaps.min())
+
+
+@contextlib.contextmanager
+def routing_margins():
+    """Collects ``routing_margin_ulps`` of every routing the port's MoE
+    layers do inside the block (a list, one entry a layer call)."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def recording(x, router, cfg):
+        seen.append(routing_margin_ulps((x @ router).float(), cfg.topk))
+        return route(x, router, cfg)
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route

@@ -44,3 +44,38 @@ def test_flash_attention_kernel_matches_plain(cuda, D, Sq, Sk, q_start, window, 
     r = flash_attention_plain(q, k, v, **kw).float()
     limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
     assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,E,C,D,dense", [
+    (1, 128, 8, 16, 32, False), (4, 77, 8, 20, 128, False), (4, 1, 8, 1, 6144, False),
+    (2, 200, 4, 24, 96, True),
+])
+def test_moe_dispatch_kernel_matches_plain(cuda, B, T, E, C, D, dense, dtype):
+    """One-hot weights (the model's): bit-equal, one term times 1.0 and the
+    zeros skipped.  Dense weights of size 1/sqrt(T), outputs of order 1:
+    float32 within 2e-5 (sums in another order); bfloat16 within one bf16 ulp
+    of each element plus 1e-5 (both round one fp32 sum once)."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((B, T, D), generator=gen, device=cuda).to(dtype)
+    if dense:
+        disp = (torch.randn((B, T, E, C), generator=gen, device=cuda) / T ** 0.5).to(dtype)
+    else:
+        # token t to expert t % E, slot t // E while there is room
+        t = torch.arange(T, device=cuda)
+        keep = t // E < C
+        disp = torch.zeros((B, T, E, C), device=cuda, dtype=dtype)
+        disp[:, t[keep], t[keep] % E, t[keep] // E] = 1
+    before = moe_dispatch.launches
+    o = moe_dispatch(disp, x)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches == before + 1
+    r = moe_dispatch_plain(disp, x)
+    if not dense:
+        assert torch.equal(o, r)
+        return
+    o, r = o.float(), r.float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()

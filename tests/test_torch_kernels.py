@@ -1,18 +1,21 @@
-"""The port's flash attention (its plain version: no GPU here) against the
-reference's Pallas kernel (interpret mode) and the reference's oracles.
+"""The port's kernels (their plain versions: no GPU here) against the
+reference's Pallas kernels (interpret mode) and the reference's oracles.
 
-Tolerances as tests/test_kernels.py: float32 2e-5 (sums in another order),
-bfloat16 2e-2 (one rounding of the output, |out| < 1)."""
+Tolerances as tests/test_kernels.py: flash attention float32 2e-5 (sums in
+another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); MoE
+dispatch 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as ref_ops, ref as ref_ref
+from _hypothesis_compat import given, settings, st  # hypothesis or skip-shim
+from repro.kernels import moe_dispatch as ref_moe, ops as ref_ops, ref as ref_ref
 from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
 from repro_torch.models import layers
 
 from _torch_parity import both, max_err, rand
@@ -157,5 +160,126 @@ def test_launch_count_untouched_on_cpu():
     reset_launch_counts()
     _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
     flash_attention(q, k, v)
-    assert launch_counts() == {"flash_attention": 0}     # no kernel ran: CPU tensors
+    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch: the reference's TestMoEDispatch restated, and what the port adds
+# ---------------------------------------------------------------------------
+
+
+def one_hot_disp(rng, T, E, C):
+    """Random routing as tests/test_kernels.py draws it: each token to one
+    expert, in arrival order, overflow beyond C dropped."""
+    idx = rng.integers(0, E, T)
+    disp = np.zeros((T, E, C), np.float32)
+    cnt = np.zeros(E, int)
+    for t in range(T):
+        e = idx[t]
+        if cnt[e] < C:
+            disp[t, e, cnt[e]] = 1.0
+            cnt[e] += 1
+    return disp
+
+
+class TestMoEDispatch:
+    @given(st.integers(1, 4), st.integers(16, 64))
+    @settings(max_examples=8, deadline=None)
+    def test_property_random_routing(self, e_pow, c):
+        E = 2 ** e_pow
+        T, D = 128, 32
+        rng = np.random.default_rng(E * 100 + c)
+        disp = one_hot_disp(rng, T, E, c)
+        x = rand(rng, (T, D))
+        out = ops.moe_dispatch(torch.from_numpy(disp), torch.from_numpy(x))
+        assert out.shape == (E, c, D) and out.dtype == torch.float32
+        expect = np.einsum("tec,td->ecd", disp, x)
+        np.testing.assert_allclose(out.numpy(), expect, atol=1e-5)
+        pallas = ref_ops.moe_dispatch(jnp.asarray(disp), jnp.asarray(x), block_t=64)
+        np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=1e-5)
+        np.testing.assert_allclose(
+            out.numpy(), ref.moe_dispatch_ref(torch.from_numpy(disp), torch.from_numpy(x)).numpy(),
+            atol=1e-5)
+
+    @pytest.mark.parametrize("T", [1, 77, 200])
+    def test_ragged_tokens(self, T):
+        """any T, where the reference asserts whole token blocks"""
+        rng = np.random.default_rng(T)
+        disp, x = one_hot_disp(rng, T, 8, 16), rand(rng, (T, 32))
+        out = moe_dispatch(torch.from_numpy(disp), torch.from_numpy(x))
+        np.testing.assert_allclose(out.numpy(), np.einsum("tec,td->ecd", disp, x), atol=1e-5)
+        assert torch.equal(out, ref.moe_dispatch_ref(torch.from_numpy(disp), torch.from_numpy(x)))
+
+    def test_batched_form_is_each_row(self):
+        """disp (B,T,E,C), x (B,T,D) -> (E,B,C,D): row b is the 3-D form on
+        row b's tokens"""
+        rng = np.random.default_rng(5)
+        B, T, E, C, D = 3, 40, 4, 12, 32
+        disp = torch.from_numpy(np.stack([one_hot_disp(rng, T, E, C) for _ in range(B)]))
+        x = torch.from_numpy(rand(rng, (B, T, D)))
+        out = ops.moe_dispatch(disp, x)
+        assert out.shape == (E, B, C, D)
+        for b in range(B):
+            assert torch.equal(out[:, b], ops.moe_dispatch(disp[b], x[b]))
+        assert torch.equal(out, torch.einsum("bsec,bsd->ebcd", disp, x))   # the model's einsum
+        assert torch.equal(out, ref.moe_dispatch_ref(disp, x))
+
+    def test_dense_weights(self):
+        """the general contract, not only one-hot: every weight counts"""
+        rng = np.random.default_rng(6)
+        T, E, C, D = 96, 4, 16, 32
+        disp = torch.from_numpy(rand(rng, (2, T, E, C), scale=1 / np.sqrt(T)))
+        x = torch.from_numpy(rand(rng, (2, T, D), scale=1.0))
+        out = moe_dispatch(disp, x)
+        assert max_err(out, ref.moe_dispatch_ref(disp, x)) <= 1e-5
+        assert max_err(out[:, 0], ref_ops.moe_dispatch(jnp.asarray(disp[0].numpy()),
+                                                        jnp.asarray(x[0].numpy()), block_t=32)) <= 1e-5
+
+    def test_bfloat16_one_hot_is_exact(self):
+        rng = np.random.default_rng(7)
+        disp = one_hot_disp(rng, 64, 4, 20)
+        (jd, td), (jx, tx) = both(disp, "bfloat16"), both(rand(rng, (64, 32)), "bfloat16")
+        out = moe_dispatch(td, tx)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, ref.moe_dispatch_ref(td, tx))          # one term times 1.0
+        np.testing.assert_array_equal(
+            out.float().numpy(), np.asarray(ref_ops.moe_dispatch(jd, jx, block_t=64), np.float32))
+
+    def test_gather_matmul_matches_reference(self):
+        rng = np.random.default_rng(8)
+        T, E, C, D, F = 64, 4, 20, 32, 48
+        disp, x, w = one_hot_disp(rng, T, E, C), rand(rng, (T, D)), rand(rng, (E, D, F))
+        out = moe_gather_matmul(*(torch.from_numpy(a) for a in (disp, x, w)))
+        assert out.shape == (E, C, F)
+        j = [jnp.asarray(a) for a in (disp, x, w)]
+        assert max_err(out, ref_ref.moe_gather_matmul_ref(*j)) <= 1e-5
+        assert max_err(out, ref_moe.moe_gather_matmul(*j)) <= 1e-5           # Pallas, interpret
+        assert max_err(out, ref.moe_gather_matmul_ref(*(torch.from_numpy(a) for a in (disp, x, w)))) <= 1e-5
+
+    def test_plain_version_is_the_wrapper_on_cpu(self):
+        reset_launch_counts()
+        rng = np.random.default_rng(9)
+        disp, x = torch.from_numpy(one_hot_disp(rng, 16, 2, 8)), torch.from_numpy(rand(rng, (16, 32)))
+        assert torch.equal(moe_dispatch(disp, x), moe_dispatch_plain(disp, x))
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0}
+
+    @pytest.mark.parametrize("bad", ["rank", "tokens", "batch", "dtype", "mixed", "empty", "device"])
+    def test_wrapper_raises(self, bad):
+        disp, x = torch.zeros(2, 8, 4, 3), torch.zeros(2, 8, 16)
+        if bad == "rank":
+            x = x[0]
+        elif bad == "tokens":
+            x = torch.zeros(2, 9, 16)
+        elif bad == "batch":
+            x = torch.zeros(3, 8, 16)
+        elif bad == "dtype":
+            disp, x = disp.half(), x.half()
+        elif bad == "mixed":
+            x = x.bfloat16()
+        elif bad == "empty":
+            disp, x = torch.zeros(2, 8, 4, 0), torch.zeros(2, 8, 16)
+        elif bad == "device":
+            disp, x = torch.empty(disp.shape, device="meta"), torch.empty(x.shape, device="meta")
+        with pytest.raises(ValueError):
+            ops.moe_dispatch(disp, x)

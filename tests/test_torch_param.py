@@ -16,7 +16,8 @@ from repro_torch.models import param as P
 
 from _torch_parity import carry, to_np
 
-ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b"]
+ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b",
+         "mixtral_8x22b", "dbrx_132b"]
 
 
 def test_registry():
@@ -24,7 +25,7 @@ def test_registry():
     assert set(ARCHS) <= set(ref_configs.ARCH_IDS)
     assert port_configs.CANONICAL == {a.replace("_", "-"): a for a in ARCHS}
     with pytest.raises(ValueError, match="not ported"):
-        port_configs.load("mixtral-8x22b")
+        port_configs.load("zamba2-1.2b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -38,13 +39,16 @@ def test_param_count_full_config(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_fields(arch, smoke):
     rh, ph = ref_configs.load(arch, smoke=smoke), port_configs.load(arch, smoke=smoke)
-    assert (ph.arch_id, ph.family, ph.long_context_ok) == (rh.arch_id, rh.family, rh.long_context_ok)
+    assert (ph.arch_id, ph.family, ph.long_context_ok, ph.moe_strategy) == (
+        rh.arch_id, rh.family, rh.long_context_ok, rh.moe_strategy)
     names = [f.name for f in dataclasses.fields(rh.cfg)]
     assert names == [f.name for f in dataclasses.fields(ph.cfg)]
     for n in names:
         r, p = getattr(rh.cfg, n), getattr(ph.cfg, n)
         if n == "dtype":
             r, p = jnp.dtype(r).name, str(p).split(".")[-1]
+        if n == "moe" and r is not None:        # two MoEConfig classes: field by field
+            r, p = dataclasses.asdict(r), dataclasses.asdict(p)
         assert r == p, (n, r, p)
     assert ph.cfg.vocab_padded == rh.cfg.vocab_padded
     assert ph.skip_reason("long_500k") == rh.skip_reason("long_500k")

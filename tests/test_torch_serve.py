@@ -1,6 +1,7 @@
-"""The slice as a whole: ``repro_torch.launch.serve.run`` (prefill + greedy
-KV-cache decode) on the granite-8b smoke config against the reference's
-prefill + decode loop, from the same carried weights and the same prompts."""
+"""The slices as a whole: ``repro_torch.launch.serve.run`` (prefill + greedy
+KV-cache decode) on the granite-8b and mixtral-8x22b smoke configs against
+the reference's prefill + decode loop, from the same carried weights and the
+same prompts."""
 
 import argparse
 
@@ -32,11 +33,11 @@ def args_for(**over):
     return args
 
 
-def reference_loop(dtype, feed=None):
+def reference_loop(dtype, feed=None, arch="granite-8b"):
     """The reference's serving loop (tests/test_e2e.py::TestServing shape) on
     the prompts ``serve.run`` draws from the seed.  ``feed`` (batch, gen)
     replaces the greedy ids that are fed back, for comparing logits."""
-    h = ref_configs.load("granite-8b", smoke=True).clone(dtype=JDT[dtype])
+    h = ref_configs.load(arch, smoke=True).clone(dtype=JDT[dtype])
     params = ref_param.tree_init(h.param_specs(), jax.random.PRNGKey(1))
     vocab = h.cfg.vocab_size
     prompts = np.random.default_rng(SEED).integers(0, vocab, size=(BATCH, PROMPT), dtype=np.int32)
@@ -67,8 +68,21 @@ def test_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     # float32, the same arithmetic in another order of sums
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0}        # CPU: the plain version
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0}   # CPU: plain versions
     assert res["prefill_s"] > 0 and res["decode_s_per_token"] > 0
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_mixtral_greedy_ids_equal_reference_fp32(use_kernels):
+    """the MoE slice: every layer's attention and expert dispatch, prefill
+    and decode (C = 1 a step), float32 as above"""
+    params, ref_ids, ref_logits = reference_loop("float32", arch="mixtral-8x22b")
+    h = port_configs.load("mixtral-8x22b", smoke=True).clone(dtype=torch.float32)
+    res = serve.run(args_for(arch="mixtral-8x22b"), harness=h, params=carry(params),
+                    rt=Runtime(use_kernels=use_kernels))
+    np.testing.assert_array_equal(res["tokens"], ref_ids)
+    np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -99,7 +113,8 @@ def test_draws_its_own_weights_and_samples():
     assert a["logits"].shape == (BATCH, GEN, vocab) and np.isfinite(a["logits"]).all()
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-3-2b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-3-2b", "starcoder2-7b",
+                                  "mixtral-8x22b", "dbrx-132b"])
 def test_other_archs_serve(arch):
     res = serve.run(args_for(arch=arch))
     assert res["tokens"].shape == (BATCH, GEN) and np.isfinite(res["logits"]).all()

@@ -1,6 +1,7 @@
-"""Port of models/transformer.py against the reference: the four dense smoke
-configs, same carried weights, prefill + 4 decode steps; and the reference's
-three transformer invariants restated for the port.
+"""Port of models/transformer.py against the reference: the four dense and
+the two MoE smoke configs, same carried weights, prefill + 4 decode steps;
+and the reference's three transformer invariants restated for the port, with
+causality and prefill -> decode consistency also for mixtral.
 
 Tolerances.  cfg.dtype float32: 2e-4 on logits (the same arithmetic, sums in
 another order, through 2 layers).  cfg.dtype bfloat16: 3e-2 of the largest
@@ -12,6 +13,7 @@ kernel path (use_kernels=True) scores and probabilities also stay float32
 where the reference rounds them to bf16; measured, each path lies 0.03..0.05
 from the float32 result at logits up to 4."""
 
+import dataclasses
 import functools
 
 import jax
@@ -31,10 +33,12 @@ from repro_torch.models.api import ShapeCell
 from repro_torch.models.layers import Runtime
 from repro_torch.models.param import tree_init
 
-from _torch_parity import JDT, TDT, carry, to_np
+from _torch_parity import JDT, TDT, carry, routing_margins, to_np
 
-ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b"]
+ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b",
+         "mixtral_8x22b", "dbrx_132b"]
 B, S, SMAX, STEPS = 2, 12, 20, 4
+MOE_SEED = 9
 RRT = RefRuntime(rules=None)
 
 
@@ -43,12 +47,19 @@ def harnesses(arch, dtype):
             port_configs.load(arch, smoke=True).clone(dtype=TDT[dtype]))
 
 
+# The MoE archs' weights: the dense archs' seed (7) leaves a bf16 routing
+# decision within 2.3 ulps of a tie; this one keeps every decision more than
+# 4.3 ulps clear on both paths.
+PARAM_SEED = {"mixtral_8x22b": MOE_SEED, "dbrx_132b": MOE_SEED}
+MIN_MARGIN_ULPS = 4
+
+
 @functools.lru_cache(maxsize=None)
 def reference_run(arch, dtype):
     """The reference's prefill + STEPS decode steps on fixed tokens; returns
     the weights and every output as numpy."""
     rh, _ = harnesses(arch, dtype)
-    params = ref_param.tree_init(rh.param_specs(), jax.random.PRNGKey(7))
+    params = ref_param.tree_init(rh.param_specs(), jax.random.PRNGKey(PARAM_SEED.get(arch, 7)))
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, rh.cfg.vocab_size, (B, S + STEPS), dtype=np.int32)
     cache = ref_param.tree_init(rh.serve_state_specs(RefCell("t", "decode", SMAX, B)), jax.random.PRNGKey(0))
@@ -77,19 +88,28 @@ def test_prefill_and_decode_match_reference(arch, dtype, use_kernels):
     scale = max(1.0, max(np.abs(l).max() for l in [ref["prefill_logits"], *ref["decode_logits"]]))
     tol = 2e-4 if dtype == "float32" else 3e-2 * scale
 
-    with torch.no_grad():
+    with torch.no_grad(), routing_margins() as margins:
         logits, cache2 = ph.prefill(rt)(params, cache, tokens[:, :S])
-        assert cache2 is cache                                     # written in place
-        assert logits.shape == (B, 1, ph.cfg.vocab_padded) and logits.dtype == TDT[dtype]
-        np.testing.assert_allclose(to_np(logits), ref["prefill_logits"], atol=tol, rtol=0)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(to_np(cache[name]), ref["prefill_cache"][name], atol=tol, rtol=0)
-            assert not cache[name][:, :, S:].any()                 # only [0, S) written
+        prefill_cache = {n: to_np(t).copy() for n, t in cache.items()}   # decode writes on
+        decode_logits = []
         for i in range(STEPS):
-            logits, cache = ph.decode(rt)(params, cache, tokens[:, S + i:S + i + 1], S + i)
-            np.testing.assert_allclose(to_np(logits), ref["decode_logits"][i], atol=tol, rtol=0)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(to_np(cache[name]), ref["final_cache"][name], atol=tol, rtol=0)
+            lg, cache = ph.decode(rt)(params, cache, tokens[:, S + i:S + i + 1], S + i)
+            decode_logits.append(to_np(lg))
+    if dtype == "bfloat16" and ph.cfg.moe is not None:
+        # the port's router logits, which agree with the reference's to bf16 rounding
+        assert min(margins) > MIN_MARGIN_ULPS, (
+            f"a routing decision lies {min(margins):.2f} bf16 ulps from a tie at this seed: "
+            "the two frameworks may route it apart")
+    assert cache2 is cache                                     # written in place
+    assert logits.shape == (B, 1, ph.cfg.vocab_padded) and logits.dtype == TDT[dtype]
+    np.testing.assert_allclose(to_np(logits), ref["prefill_logits"], atol=tol, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(prefill_cache[name], ref["prefill_cache"][name], atol=tol, rtol=0)
+        assert not prefill_cache[name][:, :, S:].any()         # only [0, S) written
+    for i in range(STEPS):
+        np.testing.assert_allclose(decode_logits[i], ref["decode_logits"][i], atol=tol, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(to_np(cache[name]), ref["final_cache"][name], atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -101,13 +121,6 @@ def test_forward_matches_reference(arch):
     with torch.no_grad():
         p = PT.forward(Runtime(), ph.cfg, carry(ref["params"]), torch.from_numpy(tokens))
     np.testing.assert_allclose(to_np(p), to_np(r), atol=2e-4, rtol=0)
-
-
-def test_moe_config_raises():
-    cfg = PT.LMConfig(name="x", n_layers=1, d_model=32, n_heads=1, n_kv_heads=1,
-                      head_dim=32, d_ff=64, vocab_size=64, moe=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        PT.lm_specs(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +155,55 @@ def test_prefill_decode_consistency(use_kernels):
     rt = Runtime(use_kernels=use_kernels)
     n = 8
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, n + 1)).astype(np.int32))
+    cache = tree_init(h.serve_state_specs(ShapeCell("t", "decode", n + 4, 2)),
+                      torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        _, cache = PT.prefill(rt, h.cfg, params, tokens[:, :n], cache)
+        lg_dec, _ = PT.decode_step(rt, h.cfg, params, tokens[:, n:], cache, n)
+        lg_full = PT.forward(rt, h.cfg, params, tokens)
+    np.testing.assert_allclose(
+        lg_dec[:, -1].float().numpy(), lg_full[:, -1].float().numpy(),
+        atol=3e-2,  # bf16 cache
+    )
+
+
+def moe_params(seed=42):
+    """mixtral smoke with room for every token in every expert: capacity
+    factor E / K makes C = S, so no token is dropped"""
+    h, params = port_params("mixtral_8x22b", seed)
+    moe = h.cfg.moe
+    return h.clone(moe=dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.topk)), params
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_causality_moe(use_kernels):
+    """perturbing a future token must not change earlier logits.  Only with
+    no token dropped: the capacity positions are handed out k-major (the
+    k-th choices of all tokens, then the next k), so with drops a later
+    token's first choice can take an earlier token's second slot, in the
+    reference as here"""
+    h, params = moe_params()
+    assert h.cfg.moe.capacity(16) == 16
+    rt = Runtime(use_kernels=use_kernels)
+    tok1 = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (1, 16)).astype(np.int32))
+    tok2 = tok1.clone()
+    tok2[0, 12] = (tok2[0, 12] + 9) % 512
+    with torch.no_grad():
+        lg1 = PT.forward(rt, h.cfg, params, tok1).float()
+        lg2 = PT.forward(rt, h.cfg, params, tok2).float()
+    np.testing.assert_allclose(lg1[:, :12].numpy(), lg2[:, :12].numpy(), atol=1e-5)
+    assert not np.allclose(lg1[:, 12:].numpy(), lg2[:, 12:].numpy())
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_prefill_decode_consistency_moe(use_kernels):
+    """prefill(S tokens) then decode == forward(S+1 tokens) logits, with no
+    token dropped in either (a decode step has C = 1 and its K choices go
+    to K different experts)"""
+    h, params = moe_params()
+    rt = Runtime(use_kernels=use_kernels)
+    n = 8
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, n + 1)).astype(np.int32))
     cache = tree_init(h.serve_state_specs(ShapeCell("t", "decode", n + 4, 2)),
                       torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
