@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths through ``repro_torch.launch.serve.run``
+Drives the port's three serving paths through ``repro_torch.launch.serve.run``
 — granite-8b at full width and depth (attention through the flash-attention
-kernel) and mixtral-8x22b at full width and 8 of its 56 layers (attention,
-and every MoE layer's dispatch through the moe-dispatch kernel) — and holds
-every hand-written kernel of those paths against its plain PyTorch version on
-the card.  Phases, one JSON line each:
+kernel), mixtral-8x22b at full width and 8 of its 56 layers (attention, and
+every MoE layer's dispatch through the moe-dispatch kernel) and zamba2-1.2b
+at full width and depth (every Mamba2 layer's prefill scan through the
+ssd-scan kernel, the shared attention block through the flash kernel) — and
+holds every hand-written kernel of those paths against its plain PyTorch
+version on the card.  Phases, one JSON line each:
 
 1. ``device``   torch version, device name, ``nvidia-smi`` name and power limit
 2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -17,12 +19,13 @@ the card.  Phases, one JSON line each:
                 main paths' shapes, with times (CUDA events), the least time
                 the card could take (``bound_ms``) and one library call as a
                 yardstick (``library_ms``; the port never calls it)
-4. ``slice``    granite-8b and mixtral-8x22b smoke configs: kernel path vs plain
-                path, fp32 and bf16
-5. ``serve``    granite-8b (36 layers), then mixtral-8x22b (8 layers; granite's
-                weights released first), bf16, batch 4, prompt 512, 16 tokens,
-                greedy; each batch again through the plain path, logits and ids
-                compared; each path's kernel launches counted from 0
+4. ``slice``    granite-8b, mixtral-8x22b and zamba2-1.2b smoke configs: kernel
+                path vs plain path, fp32 and bf16
+5. ``serve``    granite-8b (36 layers), then mixtral-8x22b (8 layers), then
+                zamba2-1.2b (38 layers), each after the last one's weights are
+                released, bf16, batch 4, prompt 512, 16 tokens, greedy; each
+                batch again through the plain path, logits and ids compared;
+                each path's kernel launches counted from 0
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -47,10 +50,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_ULP = 2.0 ** -7     # one bf16 ulp of x is at most 2^-7 |x|
 
-# The main paths: granite-8b at full width and depth; mixtral-8x22b at full
-# width and 8 of its 56 layers (56 would take 281 GB of bf16 weights).
+# The main paths: granite-8b and zamba2-1.2b at full width and depth;
+# mixtral-8x22b at full width and 8 of its 56 layers (56 would take 281 GB of
+# bf16 weights).
 SERVE = dict(arch="granite-8b", batch=4, prompt_len=512, gen=16, seed=0)
 MIXTRAL = dict(SERVE, arch="mixtral-8x22b", n_layers=8)
+ZAMBA = dict(SERVE, arch="zamba2-1.2b")
 
 
 def emit(phase: str, **fields) -> None:
@@ -111,7 +116,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention", "moe_dispatch"])
+    libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan"])
     seconds = time.perf_counter() - t0
     # ptxas -v: registers and spills of every instantiation
     log = "".join(p.with_suffix(".log").read_text() for p in libs.values())
@@ -135,10 +140,11 @@ def _qkv(gen, q_shape, kv_shape, dtype):
             _rand(gen, kv_shape, dtype, 1.0))
 
 
-def _excess(o, r, dtype, ulps: int = 1, of_row: bool = False) -> tuple[float, float]:
+def _excess(o, r, dtype, ulps: int = 1, of_row: bool = False,
+            f32_limit: float = 2e-5) -> tuple[float, float]:
     """(max |o - r|, the largest ratio of |o - r| to its limit) of a kernel's
-    output against the plain version's, element by element.  float32: 2e-5
-    absolute on outputs of order 1 (sums in another order).  bfloat16: both
+    output against the plain version's, element by element.  float32:
+    ``f32_limit`` absolute on outputs of order 1 (sums in another order).  bfloat16: both
     round the same fp32 result once, so they differ by at most ``ulps`` bf16
     ulps of that element (2^-7 |r| each), plus 1e-5 for the order of the fp32
     sums beneath.  ``of_row`` takes the ulp of the largest element of the
@@ -147,7 +153,7 @@ def _excess(o, r, dtype, ulps: int = 1, of_row: bool = False) -> tuple[float, fl
     o, r = o.float(), r.float()
     diff = (o - r).abs()
     size = r.abs().amax(dim=-1, keepdim=True) if of_row else r.abs()
-    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else ulps * BF16_ULP * size + 1e-5
+    limit = torch.full_like(r, f32_limit) if dtype == torch.float32 else ulps * BF16_ULP * size + 1e-5
     return diff.max().item(), (diff / limit).max().item()
 
 
@@ -405,19 +411,140 @@ def _moe_row(gen) -> dict:
     }
 
 
+def _ssd_cases():
+    """(B, S, H, P, N, chunk, dtype, kind) over the reference's test shapes,
+    the strong-decay case, ragged S, a given initial state and the smoke
+    widths; kind "strong": log_l = -13, "h0": with an initial state."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dt in (f32, bf16):
+        for B, S, H, P, N, chunk in [(1, 128, 2, 16, 16, 64), (2, 256, 4, 32, 16, 128),
+                                     (1, 256, 1, 64, 64, 32)]:
+            cases.append((B, S, H, P, N, chunk, dt, "randn"))
+        cases.append((1, 256, 2, 16, 16, 128, dt, "strong"))
+        for S in (1, 77, 200):
+            cases.append((2, S, 3, 32, 16, 128, dt, "randn"))
+            cases.append((1, S, 2, 64, 64, 64, dt, "h0"))
+        cases.append((2, 256, 4, 32, 16, 128, dt, "h0"))
+        cases.append((2, 256, 4, 64, 16, 128, dt, "randn"))     # zamba2 smoke: P 64, N 16, H 4
+    return cases
+
+
+def _ssd_inputs(gen, B, S, H, P, N, dt, kind):
+    """As the reference's test draws them: x, B, C of scale 0.5 and
+    log_l = -softplus(randn) in fp32 (-13 for "strong")."""
+    xh, Bm, Cm = (_rand(gen, s, dt, 0.5) for s in [(B, S, H, P), (B, S, N), (B, S, N)])
+    if kind == "strong":
+        log_l = torch.full((B, S, H), -13.0, device="cuda")
+    else:
+        log_l = -torch.nn.functional.softplus(_rand(gen, (B, S, H), torch.float32, 1.0))
+    h0 = _rand(gen, (B, H, P, N), torch.float32, 0.5) if kind == "h0" else None
+    return xh, log_l, Bm, Cm, h0
+
+
+def _ssd_row(gen) -> dict:
+    """The kernel against ``ssd_scan_plain``: y and h in fp32 within 5e-5
+    (the reference test's tolerance), y in bf16 within one ulp of the element
+    (both are fp32 inside and round once), h of bf16 runs within 5e-5; the
+    plain version held to the float64 oracle ``ssd_scan_ref`` alike."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    def excess(y, h, yr, hr, dt):
+        ey, ry = _excess(y, yr, dt, f32_limit=5e-5)
+        eh, rh = _excess(h, hr, torch.float32, f32_limit=5e-5)
+        return max(ey, eh), max(ry, rh)
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_of_limit = dict(worst)
+    cases = _ssd_cases()
+    for B, S, H, P, N, chunk, dt, kind in cases:
+        xh, log_l, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, N, dt, kind)
+        y, h = ops.ssd_scan(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        yp, hp = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+        err, of_limit = excess(y, h, yp, hp, dt)
+        ref_err, ref_of_limit = excess(yp, hp, *ssd_scan_ref(xh, log_l, Bm, Cm, h0=h0), dt)
+        finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
+        if not max(of_limit, ref_of_limit) <= 1.0 or not finite:
+            raise SystemExit(f"ssd_scan disagrees with its plain version: {(B, S, H, P, N, chunk, dt, kind)} "
+                             f"max_abs_err={err}, {of_limit} of its limit, finite {finite}; plain vs "
+                             f"the float64 oracle {ref_err}, {ref_of_limit} of its limit")
+        worst[dt] = max(worst[dt], err)
+        worst_of_limit[dt] = max(worst_of_limit[dt], of_limit)
+
+    # the main path's shape, in the model's layout: xh the dt-weighted heads,
+    # Bm and Cm slices of the (B, S, d_inner + 2N) conv output, read in place
+    B, S, H, P, N, dt = ZAMBA["batch"], ZAMBA["prompt_len"], 64, 64, 64, torch.bfloat16
+    xh = _rand(gen, (B, S, H, P), dt, 0.5)
+    conv = _rand(gen, (B, S, H * P + 2 * N), dt, 0.5)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    log_l = -torch.nn.functional.softplus(_rand(gen, (B, S, H), torch.float32, 1.0))
+    y, h = ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128)
+    torch.cuda.synchronize()
+    yp, hp = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128)
+    err, of_limit = excess(y, h, yp, hp, dt)
+    ref_err, ref_of_limit = excess(y, h, *ssd_scan_ref(xh, log_l, Bm, Cm), dt)
+    if not max(of_limit, ref_of_limit) <= 1.0:
+        raise SystemExit(f"ssd_scan at the main path's shape: max_abs_err={err} vs plain ({of_limit} "
+                         f"of its limit), {ref_err} vs the float64 oracle ({ref_of_limit})")
+    # bytes: x, log_l, B, C read once, y and h written once; operations: the
+    # causal pairs' scores once a batch row, att x, C h^T and the state update
+    nbytes = sum(t.numel() * t.element_size() for t in (xh, log_l, Bm, Cm, y, h))
+    pairs = sum(q * (q + 1) // 2 for q in [min(128, S - s0) for s0 in range(0, S, 128)])
+    flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
+    design_flops = flops + 2 * B * (H - 1) * pairs * N      # C B^T again in every head's block
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128))
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:81",
+        "launches": None,            # filled in from the serve phase's run
+        "shape": f"xh{tuple(xh.shape)} log_l{tuple(log_l.shape)} B/C{tuple(Bm.shape)} chunk 128 bf16",
+        "max_abs_err": err,
+        "err_of_limit": of_limit,
+        "max_abs_plain": yp.float().abs().max().item(),
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": time_ms(lambda: ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128))[0],
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "flops": flops,
+        "ops_ms_fp32_cores": design_flops / PEAK_FLOPS[torch.float32] * 1e3,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a chunked scan with a carried state",
+        "test_cases": len(cases),
+        "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
+        "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
+                                  "bfloat16": worst_of_limit[torch.bfloat16]},
+    }
+
+
 def phase_kernels() -> list[dict]:
     # fp32 comparisons need full-fp32 products in the plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return [_flash_row(gen), _moe_row(gen)]
+    return [_flash_row(gen), _moe_row(gen), _ssd_row(gen)]
 
 
 def _expected_launches(cfg, gen: int) -> dict[str, int]:
-    """Every layer's attention goes through the flash kernel and every MoE
-    layer's dispatch through the dispatch kernel, once in prefill and once
-    in each of the gen - 1 decode steps."""
+    """A transformer's attention goes through the flash kernel and an MoE
+    layer's dispatch through the dispatch kernel in every layer, once in
+    prefill and once in each of the gen - 1 decode steps.  A hybrid's
+    Mamba2 layers go through the scan kernel in prefill only (decode is the
+    plain recurrence) and its shared attention block through the flash
+    kernel at each of its calls, in prefill and every decode step."""
+    if hasattr(cfg, "share_every"):
+        return {"flash_attention": cfg.n_shared_calls * gen, "moe_dispatch": 0,
+                "ssd_scan": cfg.n_layers}
     per_layer = cfg.n_layers * gen
-    return {"flash_attention": per_layer, "moe_dispatch": per_layer if cfg.moe is not None else 0}
+    return {"flash_attention": per_layer,
+            "moe_dispatch": per_layer if getattr(cfg, "moe", None) is not None else 0,
+            "ssd_scan": 0}
 
 
 @contextlib.contextmanager
@@ -442,10 +569,14 @@ def _routing(replay: list | None = None):
         moe.route = route
 
 
-def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[str, int], dict]:
+def _kernel_vs_plain(args, harness, params, dt, where: str,
+                     hold_logits: bool = True) -> tuple[dict, dict[str, int], dict]:
     """One batch through the kernel path (use_kernels=True), every launch
     count set to 0 just before and read just after, then the same batch and
-    weights through the plain path (sdpa + mask bias, the dispatch einsum).
+    weights through the plain path (sdpa + mask bias, the dispatch einsum,
+    the ``ssd_chunked`` twin).  ``hold_logits`` False reports the logits'
+    agreement below without holding it to a limit (``_layers_vs_plain``
+    says where that is the right check).
 
     Logits are comparable over the steps both paths were fed the same ids:
     up to and including the first step at which their greedy ids differ.
@@ -497,7 +628,8 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
     out = {"steps_compared": n, "same_ids": bool(differ.size == 0), "max_abs_err": err,
            "limit": limit(scale), "max_abs_logit": scale, "chosen_short_of_best": regret}
     # the MoE layer calls of the compared steps: prefill's, then each decode step's
-    calls = list(zip(kern_calls, plain_calls))[:n * cfg.n_layers] if cfg.moe is not None else []
+    moe = getattr(cfg, "moe", None) is not None
+    calls = list(zip(kern_calls, plain_calls))[:n * cfg.n_layers] if moe else []
     if calls:
         r_err = max(float((k[1] - p[1]).abs().max()) for k, p in calls)
         r_scale = max(float(p[1].abs().max()) for _, p in calls)
@@ -508,7 +640,8 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
         if not r_err <= limit(r_scale):
             raise SystemExit(f"{where}: router logits under the same routing differ by {r_err} "
                              f"(limit {limit(r_scale)})")
-    if not err <= limit(scale) or not regret <= limit(scale) or (dt == torch.float32 and differ.size):
+    if hold_logits and (not err <= limit(scale) or not regret <= limit(scale)
+                        or (dt == torch.float32 and differ.size)):
         raise SystemExit(f"{where}: kernel path vs plain path over {n} steps: logits differ by {err}, "
                          f"chosen tokens fall {regret} short of the best (limit {limit(scale)}), "
                          f"same ids {differ.size == 0}")
@@ -516,17 +649,84 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
                          "plain_decode_ms_per_token": ref["decode_s_per_token"] * 1e3}
 
 
+def _layers_vs_plain(args, harness, params) -> dict:
+    """A hybrid's prefill layer by layer, at the served batch's prompts and
+    weights: every Mamba2 layer and every shared-block call is given the SAME
+    input on both paths (the plain path's hidden state entering it), and its
+    output, and a Mamba2 layer's final scan state, are held to granite's
+    bf16 limit, 3e-2 of the largest |value| (at least 3e-2).
+
+    End to end, the two paths of a randomly drawn zamba2 cannot be held to
+    that limit: such a model amplifies a perturbation of its hidden state
+    layer after layer, so one bf16 rounding apart in the first layer (the
+    twin rounds att and the carried state to bf16, the kernel does not)
+    grows to O(1) over 38 layers.  The kernel path's hidden state, run free
+    beside the plain path's, is reported after each layer to show that
+    growth."""
+    import numpy as np
+
+    from repro_torch.models import hybrid
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.mamba2 import mamba2_apply
+    from repro_torch.models.param import cast_floats, tree_map
+
+    cfg = harness.cfg
+    p = cast_floats(params, cfg.dtype)
+    kern, plain = Runtime(use_kernels=True), Runtime(use_kernels=False)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(args.batch, args.prompt_len), dtype=np.int32)
+
+    def of_limit(o, r):
+        return ((o.float() - r.float()).abs().max() / (3e-2 * max(1.0, r.float().abs().max().item()))).item()
+
+    worst = {"mamba_y": 0.0, "mamba_h": 0.0, "shared": 0.0}
+    free = []
+    with torch.no_grad():
+        x = L.embed(plain, p["embed"], torch.from_numpy(prompts).cuda()).to(cfg.dtype)
+        x_free = x
+        positions = torch.arange(x.shape[1], device=x.device)
+        done = 0
+        while done < cfg.n_layers:
+            for i in range(done, min(done + cfg.share_every, cfg.n_layers)):
+                lp = tree_map(lambda t: t[i], p["mamba_blocks"])
+                h_in = L.rmsnorm(lp["norm"], x)
+                yk, sk = mamba2_apply(kern, lp["mamba"], h_in, cfg.mamba)
+                yp, sp = mamba2_apply(plain, lp["mamba"], h_in, cfg.mamba)
+                worst["mamba_y"] = max(worst["mamba_y"], of_limit(yk, yp))
+                worst["mamba_h"] = max(worst["mamba_h"], of_limit(sk["h"], sp["h"]))
+                x = (x + yp).to(cfg.dtype)
+                y_free, _ = mamba2_apply(kern, lp["mamba"], L.rmsnorm(lp["norm"], x_free), cfg.mamba)
+                x_free = (x_free + y_free).to(cfg.dtype)
+                free.append((x_free.float() - x.float()).abs().max().item())
+            done = min(done + cfg.share_every, cfg.n_layers)
+            if done % cfg.share_every == 0 and done < cfg.n_layers:
+                xk, _ = hybrid._shared_block(kern, cfg, p["shared"], x, positions)
+                xp, _ = hybrid._shared_block(plain, cfg, p["shared"], x, positions)
+                worst["shared"] = max(worst["shared"], of_limit(xk, xp))
+                x = xp
+                x_free, _ = hybrid._shared_block(kern, cfg, p["shared"], x_free, positions)
+    if not max(worst.values()) <= 1.0:
+        raise SystemExit(f"serve {harness.arch_id}: a layer's kernel path vs plain path on the same "
+                         f"input exceeds the limit: {worst} of it")
+    return {"max_err_of_limit": worst, "layers": cfg.n_layers,
+            "shared_calls": cfg.n_shared_calls, "free_running_hidden_max_abs_diff": free}
+
+
 def phase_slice() -> None:
     """The smoke configs on the card, same weights: the kernel path against
     the plain path in fp32 and bf16.  mixtral's prompt is longer than its
-    smoke window of 64, so the sliding window bites."""
+    smoke window of 64, so the sliding window bites; zamba2's is two chunks
+    of 128, so the scan carries its state across a chunk boundary (and the
+    plain twin's whole-chunk assertion holds)."""
     from repro_torch.configs import load
     from repro_torch.launch import serve
     from repro_torch.models.param import tree_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for arch, argv in (("granite-8b", ["--prompt-len", "24", "--gen", "5", "--batch", "2"]),
-                       ("mixtral-8x22b", ["--prompt-len", "80", "--gen", "5", "--batch", "2"])):
+                       ("mixtral-8x22b", ["--prompt-len", "80", "--gen", "5", "--batch", "2"]),
+                       ("zamba2-1.2b", ["--prompt-len", "256", "--gen", "5", "--batch", "2"])):
         args = serve.build_parser().parse_args(["--arch", arch, *argv])
         out = {}
         for dt in (torch.float32, torch.bfloat16):
@@ -535,7 +735,7 @@ def phase_slice() -> None:
             name = str(dt).split(".")[-1]
             _, _, out[name] = _kernel_vs_plain(args, h, params, dt, f"slice check {arch} {name}")
         emit("slice", config=f"{arch} smoke", batch=args.batch, prompt_len=args.prompt_len,
-             gen=args.gen, window=h.cfg.window, **out)
+             gen=args.gen, window=getattr(h.cfg, "window", None), **out)
 
 
 def _serve_path(spec: dict) -> dict[str, int]:
@@ -547,7 +747,7 @@ def _serve_path(spec: dict) -> dict[str, int]:
 
     from repro_torch.configs import load
     from repro_torch.launch import serve
-    from repro_torch.models.param import tree_init
+    from repro_torch.models.param import param_count, tree_init
 
     args = serve.build_parser().parse_args([
         "--arch", spec["arch"], "--no-smoke", "--batch", str(spec["batch"]),
@@ -563,15 +763,20 @@ def _serve_path(spec: dict) -> dict[str, int]:
     # the weights are drawn once, so that the plain path serves the same model
     params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
-    res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}")
+    hybrid = hasattr(cfg, "share_every")
+    res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}",
+                                             hold_logits=not hybrid)
     peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    if hybrid:
+        vs_plain["held"] = False
+        vs_plain["layers_vs_plain"] = _layers_vs_plain(args, harness, params)
     tok, lg = res["tokens"], res["logits"]
     if tok.shape != (args.batch, args.gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise SystemExit(f"serve {args.arch}: bad token ids, shape {tok.shape}")
     if lg.shape != (args.batch, args.gen, cfg.vocab_size) or not np.isfinite(lg).all():
         raise SystemExit(f"serve {args.arch}: logits of shape {lg.shape} not finite")
     emit("serve", arch=args.arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         params=cfg.param_count, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+         params=param_count(harness.param_specs()), batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
          prefill_ms=res["prefill_s"] * 1e3, decode_ms_per_token=res["decode_s_per_token"] * 1e3,
          peak_memory_gb=peak_memory_gb, launches=counts, first_row=tok[0].tolist(),
          vs_plain_path=vs_plain)
@@ -579,9 +784,9 @@ def _serve_path(spec: dict) -> dict[str, int]:
 
 
 def phase_serve() -> dict[str, dict[str, int]]:
-    """granite-8b, then mixtral-8x22b; granite's weights are released when
-    its path returns.  Returns each path's launch counts."""
-    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL)}
+    """granite-8b, then mixtral-8x22b, then zamba2-1.2b; each path's weights
+    are released when it returns.  Returns each path's launch counts."""
+    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA)}
 
 
 def main() -> int:

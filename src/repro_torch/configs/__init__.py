@@ -1,8 +1,8 @@
 """Architecture registry — port of ``repro/configs/__init__.py``.
 
 ``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists the
-architectures ported so far (the four dense decoder-only ones and the two
-MoE ones), in the reference's order.
+architectures ported so far (the four dense decoder-only ones, the zamba2
+hybrid and the two MoE ones), in the reference's order.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ ARCH_IDS = [
     "phi4_mini_3_8b",
     "granite_3_2b",
     "starcoder2_7b",
+    "zamba2_1_2b",
     "mixtral_8x22b",
     "dbrx_132b",
 ]

@@ -1,13 +1,15 @@
 """Public wrappers for the kernels — port of ``repro/kernels/ops.py`` (the two
-flash-attention adapters and ``moe_dispatch``; the other kernels' wrappers
-come with them).
+flash-attention adapters, ``ssd_scan`` and ``moe_dispatch``; the other
+kernels' wrappers come with them).
 
 Each validates shapes and adapts the model layers' layout to the kernel's.
 Where the reference transposes (and so copies) q, k and v, the port hands the
 kernel strided views: the kernel takes element strides, so the model's
 ``(B, S, heads, Dh)`` tensors and a slice of the KV cache are read in place.
-``moe_dispatch`` takes the reference's ``(T, E, C)`` form and the model's
-batched ``(B, T, E, C)`` one, so an MoE layer's dispatch is one launch.
+``ssd_scan`` reads the model's ``Bm``/``Cm`` slices of the conv output in
+place the same way, and takes any S and an initial state.  ``moe_dispatch``
+takes the reference's ``(T, E, C)`` form and the model's batched
+``(B, T, E, C)`` one, so an MoE layer's dispatch is one launch.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .moe_dispatch import moe_dispatch  # noqa: F401  (checks both forms itself)
+from .ssd_scan import ssd_scan as _ssd
 
 
 def flash_attention_bkgsd(
@@ -45,3 +48,9 @@ def flash_attention_bsnd(
         causal=causal, window=window, prefix_len=prefix_len, q_start=q_start,
     )
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, D)
+
+
+def ssd_scan(xh, log_l, Bm, Cm, *, chunk=128, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """xh (B,S,H,P), log_l (B,S,H), Bm/Cm (B,S,N) -> (y (B,S,H,P), h (B,H,P,N)
+    float32), in chunks of ``min(chunk, S)`` rows; ``h0`` the initial state."""
+    return _ssd(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)

@@ -1,15 +1,16 @@
 """Plain PyTorch oracles in the kernels' layouts — port of
-``repro/kernels/ref.py`` (``attention_ref``, ``moe_gather_matmul_ref``; the
-other oracles come with their kernels).
+``repro/kernels/ref.py`` (``attention_ref``, ``ssd_scan_ref``,
+``moe_gather_matmul_ref``; the other oracles come with their kernels).
 
 Each oracle shares nothing with the kernel modules, neither code nor method,
 so a kernel and its plain version can both be held against it, and works in
 float64.  ``attention_ref``: where the kernel modules build a boolean mask
 and fill with a large negative constant, it walks the query rows one by one,
 works out each row's visible keys as index ranges, and takes the softmax over
-those keys alone.  ``moe_dispatch_ref``: where the kernel modules contract
-the token axis in one product, it adds the tokens' contributions one token at
-a time."""
+those keys alone.  ``ssd_scan_ref``: where the kernel modules work chunk by
+chunk with cumulative decays, it runs the state recurrence one token at a
+time.  ``moe_dispatch_ref``: where the kernel modules contract the token axis
+in one product, it adds the tokens' contributions one token at a time."""
 
 from __future__ import annotations
 
@@ -45,6 +46,28 @@ def attention_ref(
         p = torch.softmax(s, dim=-1)
         rows.append(torch.einsum("bkgs,bksd->bkgd", p, v64[:, :, idx]))
     return torch.stack(rows, dim=3).to(q.dtype)
+
+
+def ssd_scan_ref(
+    xh: torch.Tensor,           # (B, S, H, P)
+    log_l: torch.Tensor,        # (B, S, H)
+    Bm: torch.Tensor,           # (B, S, N)
+    Cm: torch.Tensor,           # (B, S, N)
+    h0: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-level SSD recurrence ``h <- h * exp(l_t) + x_t B_t^T``,
+    ``y_t = h C_t``, any S: y (B,S,H,P) in xh's type, the final state
+    (B,H,P,N) in float32."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    x64, l64, b64, c64 = xh.double(), log_l.double(), Bm.double(), Cm.double()
+    h = (torch.zeros((B, H, P, N), dtype=torch.float64, device=xh.device) if h0 is None
+         else h0.double())
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(l64[:, t])[:, :, None, None] + x64[:, t, :, :, None] * b64[:, t, None, None, :]
+        ys.append((h * c64[:, t, None, None, :]).sum(-1))
+    return torch.stack(ys, dim=1).to(xh.dtype), h.float()
 
 
 def moe_dispatch_ref(

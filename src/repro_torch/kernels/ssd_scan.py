@@ -1,0 +1,154 @@
+"""Mamba2 chunked SSD scan — port of ``repro/kernels/ssd_scan.py``
+(``_ssd_kernel`` / ``ssd_scan``, a Pallas kernel for the TPU).
+
+``ssd_scan`` is the wrapper: on CUDA tensors it launches the CUDA C++ kernel
+of ``csrc/ssd_scan.cu`` (built at first use, see ``_build.py``) or raises; on
+CPU tensors, and only there, it computes the same function with
+``ssd_scan_plain``.  There is no fallback from the kernel to the plain
+version.  ``ssd_scan.launches`` counts kernel launches.
+
+The function is the reference's: ``xh (B,S,H,P)``, ``log_l (B,S,H) <= 0``,
+``Bm, Cm (B,S,N)`` give ``y (B,S,H,P)`` in xh's type and the final state
+``h (B,H,P,N)`` in float32, chunk by chunk of ``Q = min(chunk, S)`` rows, in
+float32 inside.  Two additions, both with a precedent in the reference's
+model code (``ssd_chunked``, ``ssd_scan_ref``): an initial state ``h0``, and
+any S, the last chunk partial.  A partial chunk is the same as one padded
+with ``x = 0``, ``B = 0`` and ``log_l = 0`` rows, which add nothing to the
+state and do not decay it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 128          # rows of a chunk the kernel holds in shared memory
+MAX_WIDTH = 64           # head_dim P and state size N
+
+
+def ssd_scan_plain(
+    xh: torch.Tensor,           # (B, S, H, P)
+    log_l: torch.Tensor,        # (B, S, H)
+    Bm: torch.Tensor,           # (B, S, N)
+    Cm: torch.Tensor,           # (B, S, N)
+    *,
+    chunk: int = 128,
+    h0: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel's function, with the Pallas
+    kernel's arithmetic: inputs widened to fp32, per chunk the cumulative log
+    decay, the decay masked before its exponential, ``y_intra + y_inter``,
+    then the state update.  A partial last chunk is a shorter one."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    x, ll, bm, cm = xh.float(), log_l.float(), Bm.float(), Cm.float()
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device) if h0 is None
+         else h0.float())
+    ys = []
+    for s0 in range(0, S, Q):
+        xq, lq, bq, cq = x[:, s0:s0 + Q], ll[:, s0:s0 + Q], bm[:, s0:s0 + Q], cm[:, s0:s0 + Q]
+        q = xq.shape[1]
+        cum = torch.cumsum(lq, dim=1)                                  # (B,q,H)
+        scores = torch.einsum("bin,bjn->bij", cq, bq)                  # (B,q,q)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]                # (B,q,q,H)
+        causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
+        att = scores[..., None] * torch.exp(
+            torch.where(causal[None, :, :, None], decay, -torch.inf))
+        y_intra = torch.einsum("bijh,bjhp->bihp", att, xq)
+        y_inter = torch.einsum("bin,bhpn->bihp", cq, h) * torch.exp(cum)[..., None]
+        ys.append(y_intra + y_inter)
+        tail = torch.exp(cum[:, -1:, :] - cum)                          # (B,q,H)
+        dh = torch.einsum("bjhp,bjn,bjh->bhpn", xq, bq, tail)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + dh
+    return torch.cat(ys, dim=1).to(xh.dtype), h
+
+
+def _check(xh, log_l, Bm, Cm, chunk, h0) -> None:
+    if xh.ndim != 4 or log_l.ndim != 3 or Bm.ndim != 3 or Cm.shape != Bm.shape:
+        raise ValueError(
+            f"expected xh (B,S,H,P), log_l (B,S,H), Bm/Cm (B,S,N); got {tuple(xh.shape)}, "
+            f"{tuple(log_l.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    if tuple(log_l.shape) != (B, S, H) or tuple(Bm.shape[:2]) != (B, S):
+        raise ValueError(f"xh {tuple(xh.shape)}, log_l {tuple(log_l.shape)} and Bm "
+                         f"{tuple(Bm.shape)} do not agree")
+    if min(B, S, H, P, N) < 1:
+        raise ValueError(f"empty dimension: xh {tuple(xh.shape)}, Bm {tuple(Bm.shape)}")
+    if h0 is not None and tuple(h0.shape) != (B, H, P, N):
+        raise ValueError(f"h0 of shape {tuple(h0.shape)}, expected {(B, H, P, N)}")
+    tensors = (xh, log_l, Bm, Cm) + (() if h0 is None else (h0,))
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs on different devices: {[str(t.device) for t in tensors]}")
+    if not (xh.dtype == Bm.dtype == Cm.dtype) or xh.dtype not in _DTYPES:
+        raise ValueError(f"xh, Bm, Cm must share one type of {list(_DTYPES)}; got "
+                         f"{xh.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if log_l.dtype not in _DTYPES:
+        raise ValueError(f"log_l of type {log_l.dtype}, expected one of {list(_DTYPES)}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not supported (1..{MAX_CHUNK})")
+    if P > MAX_WIDTH or N > MAX_WIDTH or P % 4 or N % 4:
+        raise ValueError(f"head_dim {P} and state size {N} must be multiples of 4, at most "
+                         f"{MAX_WIDTH}")
+
+
+def _launch(xh, log_l, Bm, Cm, chunk, h0) -> tuple[torch.Tensor, torch.Tensor]:
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_scan_fwd
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), vp]
+        fn.restype = ci
+        lib.ssd_scan_error_string.argtypes = [ci]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+
+    for name, t in (("xh", xh), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd_scan needs {name} with innermost stride 1; got strides {t.stride()}")
+    log_l = log_l.float()                 # exact for bfloat16; no copy for float32
+    if h0 is not None:
+        h0 = h0.float().contiguous()
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    strides = [*xh.stride()[:3], *log_l.stride(), *Bm.stride()[:2], *Cm.stride()[:2]]
+    with torch.cuda.device(xh.device):
+        err = fn(
+            xh.data_ptr(), log_l.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            0 if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+            B, S, H, P, N, min(chunk, S), _DTYPES[xh.dtype],
+            (ctypes.c_longlong * 10)(*strides),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan kernel launch failed: {msg} (cudaError {err})")
+    ssd_scan.launches += 1
+    return y, h
+
+
+def ssd_scan(
+    xh: torch.Tensor,           # (B, S, H, P)
+    log_l: torch.Tensor,        # (B, S, H)
+    Bm: torch.Tensor,           # (B, S, N)
+    Cm: torch.Tensor,           # (B, S, N)
+    *,
+    chunk: int = 128,
+    h0: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y (B,S,H,P) in xh's type, final state (B,H,P,N) float32)``."""
+    _check(xh, log_l, Bm, Cm, chunk, h0)
+    if xh.device.type == "cpu":
+        return ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {xh.device}")
+    return _launch(xh, log_l, Bm, Cm, chunk, h0)
+
+
+ssd_scan.launches = 0

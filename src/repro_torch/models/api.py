@@ -1,12 +1,17 @@
 """Unified model harness — port of ``repro/models/api.py`` (``ShapeCell``,
-``SHAPES``, ``Harness``, ``TransformerHarness``).
+``SHAPES``, ``Harness``, ``TransformerHarness``, ``HybridHarness``).
 
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
-callables), ``serve_state_specs(cell)`` (KV-cache spec tree),
-``serve_input_specs(cell)`` and ``skip_reason(shape)``.  The training half
-(``loss``, ``train_input_specs``) and the other model families come with
-their slices.
+callables), ``serve_state_specs(cell)`` (KV-cache or recurrent-state spec
+tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``.  The training
+half (``loss``, ``train_input_specs``) and the other model families come
+with their slices.
+
+``HybridHarness.prefill`` differs from the reference's on purpose: it
+returns the state the prompt leaves (``hybrid.prefill``), where the
+reference's returns the state it was given, so that its decode would start
+from a zero state and ignore the prompt.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import transformer
+from . import hybrid, transformer
 from .layers import Runtime
 from .param import ParamSpec
 
@@ -120,5 +125,45 @@ class TransformerHarness(Harness):
     def decode(self, rt: Runtime):
         def fn(params, cache, tokens, pos):
             return transformer.decode_step(rt, self.cfg, params, tokens, cache, pos)
+
+        return fn
+
+
+class HybridHarness(Harness):
+    """Zamba2: a Mamba2 backbone with a shared attention block."""
+
+    family = "hybrid"
+    long_context_ok = True
+
+    def __init__(self, arch_id: str, cfg: hybrid.HybridConfig):
+        self.arch_id = arch_id
+        self.cfg = cfg
+
+    def param_specs(self):
+        return hybrid.lm_specs(self.cfg)
+
+    # -- serving ------------------------------------------------------------
+    def serve_state_specs(self, cell: ShapeCell):
+        # the shared attention block's KV grows with context; capped per shape
+        return hybrid.state_specs(self.cfg, cell.global_batch, cell.seq_len)
+
+    def serve_input_specs(self, cell: ShapeCell) -> dict:
+        B = cell.global_batch
+        if cell.kind == "prefill":
+            return {"tokens": _tok((B, cell.seq_len), ("batch", "sp"))}
+        return {
+            "tokens": _tok((B, 1), ("batch", None)),
+            "pos": ParamSpec((), (), init="zeros", dtype=POS),
+        }
+
+    def prefill(self, rt: Runtime):
+        def fn(params, state, tokens):
+            return hybrid.prefill(rt, self.cfg, params, tokens, state)
+
+        return fn
+
+    def decode(self, rt: Runtime):
+        def fn(params, state, tokens, pos):
+            return hybrid.decode_step(rt, self.cfg, params, tokens, state, pos)
 
         return fn

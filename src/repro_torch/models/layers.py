@@ -14,9 +14,11 @@ Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 One thing differs from the reference on purpose: ``Runtime.use_kernels`` is
 honoured (the reference never reads it).  When it is set, ``attention`` goes
 through the hand-written flash-attention kernel, in prefill and in every
-decode step, and an MoE layer's dispatch (``models/moe.py``) through the
-hand-written moe-dispatch kernel; when it is not, they go through ``sdpa`` +
-``_mask_bias`` and the dispatch einsum exactly as the reference does.
+decode step, an MoE layer's dispatch (``models/moe.py``) through the
+hand-written moe-dispatch kernel, and a Mamba2 layer's chunked scan in
+prefill (``models/mamba2.py``) through the hand-written ssd-scan kernel; when
+it is not, they go through ``sdpa`` + ``_mask_bias``, the dispatch einsum and
+the ``ssd_chunked`` twin exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ class Runtime:
     """Context threaded through every layer."""
 
     rules: Any = None            # sharding rules: None until the distribution slice
-    use_kernels: bool = True     # attention and MoE dispatch through the hand-written kernels
+    use_kernels: bool = True     # attention, MoE dispatch, SSD scan through the hand-written kernels
 
     def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
         if self.rules is not None:

@@ -47,6 +47,37 @@ def test_flash_attention_kernel_matches_plain(cuda, D, Sq, Sk, q_start, window, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [
+    (1, 128, 2, 16, 16, 64, False), (2, 256, 4, 32, 16, 128, False), (1, 256, 1, 64, 64, 32, False),
+    (2, 200, 4, 64, 16, 128, True), (2, 1, 3, 32, 16, 128, True), (4, 512, 64, 64, 64, 128, False),
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, with_h0, dtype):
+    """x, B, C of scale 0.5 and log_l = -softplus(randn), as the reference's
+    test draws them.  y and h in float32 within 5e-5 (the reference test's
+    tolerance); y in bfloat16 within one bf16 ulp of each element plus 1e-5
+    (both are fp32 inside and round once); h of bf16 runs within 5e-5."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw(shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    xh, Bm, Cm = (draw(s).to(dtype) for s in [(B, S, H, P), (B, S, N), (B, S, N)])
+    log_l = -torch.nn.functional.softplus(draw((B, S, H), 1.0))
+    h0 = draw((B, H, P, N)) if with_h0 else None
+    before = ssd_scan.launches
+    y, h = ssd_scan(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, hr = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    y, yr = y.float(), yr.float()
+    limit = torch.full_like(yr, 5e-5) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + 1e-5
+    assert ((y - yr).abs() <= limit).all()
+    assert ((h - hr).abs() <= 5e-5).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,E,C,D,dense", [
     (1, 128, 8, 16, 32, False), (4, 77, 8, 20, 128, False), (4, 1, 8, 1, 6144, False),
     (2, 200, 4, 24, 96, True),

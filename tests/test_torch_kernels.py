@@ -2,8 +2,8 @@
 reference's Pallas kernels (interpret mode) and the reference's oracles.
 
 Tolerances as tests/test_kernels.py: flash attention float32 2e-5 (sums in
-another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); MoE
-dispatch 1e-5."""
+another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); SSD
+scan 5e-5 on y and the final state; MoE dispatch 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,9 +16,10 @@ from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import both, max_err, rand
+from _torch_parity import BF16_ULP, TDT, both, max_err, rand, to_np
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -160,8 +161,161 @@ def test_launch_count_untouched_on_cpu():
     reset_launch_counts()
     _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
     flash_attention(q, k, v)
-    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0}   # CPU tensors
+    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# SSD scan: the reference's TestSSDScan restated, and what the port adds
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(seed, B, S, H, P, N, log_l=None):
+    """As tests/test_kernels.py draws them: x, B, C of scale 0.5, and
+    log_l = -softplus(randn) unless given."""
+    rng = np.random.default_rng(seed)
+    xh, Bm, Cm = rand(rng, (B, S, H, P)), rand(rng, (B, S, N)), rand(rng, (B, S, N))
+    if log_l is None:
+        log_l = -np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+    else:
+        log_l = np.full((B, S, H), log_l, np.float32)
+    return xh, log_l, Bm, Cm
+
+
+def torch_of(arrays, dtype="float32"):
+    """x, B, C in ``dtype``; log_l stays float32, as the model hands it over."""
+    xh, ll, Bm, Cm = arrays
+    return (torch.from_numpy(xh).to(TDT[dtype]), torch.from_numpy(ll),
+            torch.from_numpy(Bm).to(TDT[dtype]), torch.from_numpy(Cm).to(TDT[dtype]))
+
+
+def bf16_excess(o, r) -> float:
+    """Largest |o - r| over its limit, one bf16 ulp of the element (2^-7 |r|)
+    plus 1e-5: both round one fp32 result once."""
+    o, r = to_np(o).astype(np.float64), to_np(r).astype(np.float64)
+    return float(np.max(np.abs(o - r) / (BF16_ULP * np.abs(r) + 1e-5)))
+
+
+class TestSSDScan:
+    @pytest.mark.parametrize("B,S,H,P,N,chunk", [
+        (1, 128, 2, 16, 16, 64),
+        (2, 256, 4, 32, 16, 128),
+        (1, 256, 1, 64, 64, 32),
+    ])
+    def test_matches_recurrence(self, B, S, H, P, N, chunk):
+        arrays = ssd_inputs(50, B, S, H, P, N)
+        y, h = ssd_scan_plain(*torch_of(arrays), chunk=chunk)
+        assert y.shape == (B, S, H, P) and y.dtype == torch.float32
+        assert h.shape == (B, H, P, N) and h.dtype == torch.float32
+        j = [jnp.asarray(a) for a in arrays]
+        yp, hp = ref_ops.ssd_scan(*j, chunk=chunk)                  # Pallas, interpret
+        yr, hr = ref_ref.ssd_scan_ref(*j)
+        for port, ref_ in ((y, yp), (h, hp), (y, yr), (h, hr)):
+            assert max_err(port, ref_) <= 5e-5
+        yo, ho = ref.ssd_scan_ref(*torch_of(arrays))                # the port's own oracle
+        assert max_err(y, yo) <= 5e-5 and max_err(h, ho) <= 5e-5
+        yw, hw = ops.ssd_scan(*torch_of(arrays), chunk=chunk)       # the wrapper, on the CPU
+        assert torch.equal(yw, y) and torch.equal(hw, h)
+
+    def test_strong_decay_is_stable(self):
+        """the failure mode that NaN'd the factored form"""
+        arrays = ssd_inputs(51, 1, 256, 2, 16, 16, log_l=-13.0)
+        y, h = ssd_scan(*torch_of(arrays), chunk=128)
+        assert torch.isfinite(y).all() and torch.isfinite(h).all()
+        yr, hr = ref_ref.ssd_scan_ref(*(jnp.asarray(a) for a in arrays))
+        assert max_err(y, yr) <= 5e-5 and max_err(h, hr) <= 5e-5
+
+    @pytest.mark.parametrize("S", [1, 77, 200])
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_ragged_and_initial_state(self, S, with_h0):
+        """any S (a partial last chunk) and an initial state, where the
+        reference's kernel asserts whole chunks and takes none: against the
+        reference's token-level recurrence, which takes both"""
+        B, H, P, N = 2, 3, 16, 16
+        arrays = ssd_inputs(52 + S, B, S, H, P, N)
+        h0 = rand(np.random.default_rng(S), (B, H, P, N)) if with_h0 else None
+        y, h = ssd_scan(*torch_of(arrays), chunk=64,
+                        h0=None if h0 is None else torch.from_numpy(h0))
+        yr, hr = ref_ref.ssd_scan_ref(*(jnp.asarray(a) for a in arrays),
+                                      h0=None if h0 is None else jnp.asarray(h0))
+        assert max_err(y, yr) <= 5e-5 and max_err(h, hr) <= 5e-5
+
+    @pytest.mark.parametrize("S,with_h0", [(128, False), (77, True)])
+    def test_oracle_matches_reference_oracle(self, S, with_h0):
+        arrays = ssd_inputs(53, 2, S, 2, 32, 16)
+        h0 = rand(np.random.default_rng(1), (2, 2, 32, 16)) if with_h0 else None
+        yo, ho = ref.ssd_scan_ref(*torch_of(arrays), h0=None if h0 is None else torch.from_numpy(h0))
+        yr, hr = ref_ref.ssd_scan_ref(*(jnp.asarray(a) for a in arrays),
+                                      h0=None if h0 is None else jnp.asarray(h0))
+        assert max_err(yo, yr) <= 5e-5 and max_err(ho, hr) <= 5e-5
+
+    def test_partial_chunk_is_zero_padding(self):
+        """a partial last chunk computes what a chunk padded with x = 0,
+        B = 0, log_l = 0 rows computes"""
+        xh, ll, Bm, Cm = torch_of(ssd_inputs(54, 2, 100, 2, 16, 16))
+        y, h = ssd_scan_plain(xh, ll, Bm, Cm, chunk=64)
+        pad = [torch.cat([t, torch.zeros((2, 28, *t.shape[2:]))], dim=1) for t in (xh, ll, Bm, Cm)]
+        yp, hp = ssd_scan_plain(*pad, chunk=64)
+        assert max_err(y, yp[:, :100]) <= 1e-6 and max_err(h, hp) <= 1e-6
+
+    def test_bfloat16(self):
+        """x, B, C in bf16 (log_l float32, as the model's): y within one bf16
+        ulp of the Pallas kernel's, which also works in fp32 inside; the
+        float32 state within 5e-5"""
+        arrays = ssd_inputs(55, 2, 256, 4, 32, 16)
+        y, h = ssd_scan(*torch_of(arrays, "bfloat16"), chunk=128)
+        assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+        j = [jnp.asarray(a) for a in arrays]
+        j = [j[0].astype(jnp.bfloat16), j[1], j[2].astype(jnp.bfloat16), j[3].astype(jnp.bfloat16)]
+        yp, hp = ref_ops.ssd_scan(*j, chunk=128)
+        assert bf16_excess(y, yp) <= 1.0 and max_err(h, hp) <= 5e-5
+        assert bf16_excess(y, ref.ssd_scan_ref(*torch_of(arrays, "bfloat16"))[0]) <= 1.0
+
+    def test_plain_version_is_the_wrapper_on_cpu(self):
+        reset_launch_counts()
+        args = torch_of(ssd_inputs(56, 1, 40, 2, 16, 16))
+        y, h = ssd_scan(*args, chunk=16)
+        yp, hp = ssd_scan_plain(*args, chunk=16)
+        assert torch.equal(y, yp) and torch.equal(h, hp)
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+
+    def test_strided_inputs(self):
+        """B and C as the model hands them over: slices of one conv output"""
+        xh, ll, Bm, Cm = torch_of(ssd_inputs(57, 2, 64, 2, 16, 16))
+        conv = torch.cat([torch.zeros(2, 64, 8), Bm, Cm], dim=-1)
+        y, h = ops.ssd_scan(xh, ll, conv[..., 8:24], conv[..., 24:], chunk=32)
+        y0, h0 = ops.ssd_scan(xh, ll, Bm, Cm, chunk=32)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+
+    @pytest.mark.parametrize("bad", ["rank", "seq", "heads", "dtype", "mixed", "log_dtype",
+                                     "chunk", "width", "h0", "empty", "device"])
+    def test_wrapper_raises(self, bad):
+        xh, ll, Bm, Cm = torch.zeros(2, 8, 4, 16), torch.zeros(2, 8, 4), torch.zeros(2, 8, 16), torch.zeros(2, 8, 16)
+        h0 = None
+        if bad == "rank":
+            xh = xh[0]
+        elif bad == "seq":
+            Bm = Cm = torch.zeros(2, 9, 16)
+        elif bad == "heads":
+            ll = torch.zeros(2, 8, 3)
+        elif bad == "dtype":
+            xh, Bm, Cm = xh.half(), Bm.half(), Cm.half()
+        elif bad == "mixed":
+            Bm = Bm.bfloat16()
+        elif bad == "log_dtype":
+            ll = ll.double()
+        elif bad == "chunk":
+            pass                               # chunk=256 below: more rows than the kernel holds
+        elif bad == "width":
+            xh = torch.zeros(2, 8, 4, 18)
+        elif bad == "h0":
+            h0 = torch.zeros(2, 4, 16, 15)
+        elif bad == "empty":
+            xh, ll, Bm, Cm = torch.zeros(2, 0, 4, 16), torch.zeros(2, 0, 4), torch.zeros(2, 0, 16), torch.zeros(2, 0, 16)
+        elif bad == "device":
+            xh, ll, Bm, Cm = (torch.empty(t.shape, device="meta") for t in (xh, ll, Bm, Cm))
+        with pytest.raises(ValueError):
+            ops.ssd_scan(xh, ll, Bm, Cm, chunk=256 if bad == "chunk" else 8, h0=h0)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +416,7 @@ class TestMoEDispatch:
         rng = np.random.default_rng(9)
         disp, x = torch.from_numpy(one_hot_disp(rng, 16, 2, 8)), torch.from_numpy(rand(rng, (16, 32)))
         assert torch.equal(moe_dispatch(disp, x), moe_dispatch_plain(disp, x))
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
 
     @pytest.mark.parametrize("bad", ["rank", "tokens", "batch", "dtype", "mixed", "empty", "device"])
     def test_wrapper_raises(self, bad):

@@ -17,7 +17,7 @@ from repro_torch.models import param as P
 from _torch_parity import carry, to_np
 
 ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b",
-         "mixtral_8x22b", "dbrx_132b"]
+         "zamba2_1_2b", "mixtral_8x22b", "dbrx_132b"]
 
 
 def test_registry():
@@ -25,14 +25,21 @@ def test_registry():
     assert set(ARCHS) <= set(ref_configs.ARCH_IDS)
     assert port_configs.CANONICAL == {a.replace("_", "-"): a for a in ARCHS}
     with pytest.raises(ValueError, match="not ported"):
-        port_configs.load("zamba2-1.2b")
+        port_configs.load("rwkv6-1.6b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_count_full_config(arch):
-    ref = ref_configs.load(arch).cfg.param_count
-    assert port_configs.load(arch).cfg.param_count == ref
-    assert P.param_bytes(port_configs.load(arch).param_specs()) == 2 * ref
+    """counted from the spec trees (the reference's HybridConfig has no
+    param_count property; its LMConfig's counts the same tree)"""
+    ref = ref_param.param_count(ref_configs.load(arch).param_specs())
+    port = port_configs.load(arch)
+    assert P.param_count(port.param_specs()) == ref
+    if hasattr(port.cfg, "param_count"):
+        assert port.cfg.param_count == ref == ref_configs.load(arch).cfg.param_count
+    assert P.param_bytes(port.param_specs()) == 2 * ref
+    if arch == "zamba2_1_2b":
+        assert ref == 1_170_473_856
 
 
 @pytest.mark.parametrize("smoke", [True, False])
@@ -51,6 +58,12 @@ def test_config_fields(arch, smoke):
             r, p = dataclasses.asdict(r), dataclasses.asdict(p)
         assert r == p, (n, r, p)
     assert ph.cfg.vocab_padded == rh.cfg.vocab_padded
+    if rh.family == "hybrid":                   # the derived Mamba2 config and the shared calls
+        assert dataclasses.asdict(ph.cfg.mamba) == dataclasses.asdict(rh.cfg.mamba)
+        assert ph.cfg.mamba.n_heads == rh.cfg.mamba.n_heads
+        assert ph.cfg.n_shared_calls == rh.cfg.n_shared_calls
+        ra, pa = dataclasses.asdict(rh.cfg.attn), dataclasses.asdict(ph.cfg.attn)
+        assert all(pa[k] == v for k, v in ra.items()), (ra, pa)
     assert ph.skip_reason("long_500k") == rh.skip_reason("long_500k")
 
 

@@ -1,7 +1,12 @@
 """The slices as a whole: ``repro_torch.launch.serve.run`` (prefill + greedy
-KV-cache decode) on the granite-8b and mixtral-8x22b smoke configs against
-the reference's prefill + decode loop, from the same carried weights and the
-same prompts."""
+KV-cache or recurrent decode) on the granite-8b, mixtral-8x22b and zamba2
+smoke configs against the reference's prefill + decode loop, from the same
+carried weights and the same prompts.
+
+For zamba2 the reference's loop does not use its ``HybridHarness.prefill``,
+which returns the state it was given (tests/test_torch_hybrid.py): its
+prefill is the last logits of ``forward`` and the state its ``decode_step``
+reaches fed the prompt one token at a time."""
 
 import argparse
 
@@ -45,7 +50,12 @@ def reference_loop(dtype, feed=None, arch="granite-8b"):
     cache = ref_param.tree_init(h.serve_state_specs(cell), jax.random.PRNGKey(0))
     rt = RefRuntime(rules=None)
     prefill, decode = jax.jit(h.prefill(rt)), jax.jit(h.decode(rt))
-    logits, cache = prefill(params, cache, jnp.asarray(prompts))
+    if h.family == "hybrid":
+        for t in range(PROMPT):
+            _, cache = decode(params, cache, jnp.asarray(prompts[:, t:t + 1]), jnp.asarray(t, jnp.int32))
+        logits = h.prefill(rt)(params, cache, jnp.asarray(prompts))[0]   # forward's last logits
+    else:
+        logits, cache = prefill(params, cache, jnp.asarray(prompts))
     ids, all_logits = [], []
     for i in range(GEN):
         lg = logits[:, -1, :vocab].astype(jnp.float32)
@@ -68,7 +78,7 @@ def test_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     # float32, the same arithmetic in another order of sums
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0}   # CPU: plain versions
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}   # CPU: plain versions
     assert res["prefill_s"] > 0 and res["decode_s_per_token"] > 0
 
 
@@ -82,7 +92,35 @@ def test_mixtral_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_zamba2_greedy_ids_equal_reference_fp32(use_kernels):
+    """the hybrid slice: every Mamba2 layer's scan in prefill and its
+    recurrence in decode, the shared block's cache, float32 as above"""
+    params, ref_ids, ref_logits = reference_loop("float32", arch="zamba2-1.2b")
+    h = port_configs.load("zamba2-1.2b", smoke=True).clone(dtype=torch.float32)
+    res = serve.run(args_for(arch="zamba2-1.2b"), harness=h, params=carry(params),
+                    rt=Runtime(use_kernels=use_kernels))
+    np.testing.assert_array_equal(res["tokens"], ref_ids)
+    np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_zamba2_logits_close_to_reference_bf16(use_kernels):
+    """bf16, the reference fed the port's ids: 3e-2 of the largest |logit|
+    plus the distance of the reference's bf16 logits from its float32 ones
+    (tests/test_torch_hybrid.py says why this model needs the second term)"""
+    h = port_configs.load("zamba2-1.2b", smoke=True)
+    params, _, _ = reference_loop("bfloat16", arch="zamba2-1.2b")
+    res = serve.run(args_for(arch="zamba2-1.2b"), harness=h, params=carry(params, torch.bfloat16),
+                    rt=Runtime(use_kernels=use_kernels))
+    _, _, ref_logits = reference_loop("bfloat16", feed=res["tokens"], arch="zamba2-1.2b")
+    _, _, ref32 = reference_loop("float32", feed=res["tokens"], arch="zamba2-1.2b")
+    tol = 3e-2 * max(1.0, np.abs(ref_logits).max()) + np.abs(ref_logits - ref32).max()
+    np.testing.assert_allclose(res["logits"], ref_logits, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -114,7 +152,7 @@ def test_draws_its_own_weights_and_samples():
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-3-2b", "starcoder2-7b",
-                                  "mixtral-8x22b", "dbrx-132b"])
+                                  "zamba2-1.2b", "mixtral-8x22b", "dbrx-132b"])
 def test_other_archs_serve(arch):
     res = serve.run(args_for(arch=arch))
     assert res["tokens"].shape == (BATCH, GEN) and np.isfinite(res["logits"]).all()
