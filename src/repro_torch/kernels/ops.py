@@ -18,7 +18,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .moe_dispatch import moe_dispatch  # noqa: F401  (checks both forms itself)
-from .ssd_scan import ssd_scan as _ssd
+from .ssd_scan import ssd_scan  # noqa: F401  (checks shapes, types and devices itself)
 
 
 def flash_attention_bkgsd(
@@ -49,8 +49,3 @@ def flash_attention_bsnd(
     )
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, D)
 
-
-def ssd_scan(xh, log_l, Bm, Cm, *, chunk=128, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """xh (B,S,H,P), log_l (B,S,H), Bm/Cm (B,S,N) -> (y (B,S,H,P), h (B,H,P,N)
-    float32), in chunks of ``min(chunk, S)`` rows; ``h0`` the initial state."""
-    return _ssd(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)

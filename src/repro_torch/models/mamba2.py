@@ -74,6 +74,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     return y + b, new_state
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as the reference's framework computes it, x · 1/(1 + exp(−x)),
+    each operation rounded to x's type.  ``F.silu`` rounds once and, in
+    bfloat16, lies one ulp away in about 40 % of the elements; the scan
+    carries such differences from layer to layer."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def ssd_chunked(
     xh: torch.Tensor,       # (B, S, H, P)   dt-weighted inputs
     log_l: torch.Tensor,    # (B, S, H)      log decay per token (dt * A, <= 0)
@@ -141,7 +149,7 @@ def mamba2_apply(
     conv_out, conv_state = _causal_conv(
         conv_in, p["conv_w"], p["conv_b"], None if state is None else state["conv"]
     )
-    conv_out = F.silu(conv_out)
+    conv_out = _silu(conv_out)
     xc, Bm, Cm = torch.split(conv_out, [DI, N, N], dim=-1)
 
     a = -torch.exp(p["A_log"].float())                           # (H,)
@@ -171,7 +179,7 @@ def mamba2_apply(
 
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, DI)
-    y = rmsnorm(p["out_norm"], y) * F.silu(z)
+    y = rmsnorm(p["out_norm"], y) * _silu(z)
     out = y @ p["out_proj"]
     return rt.shard(out, "batch", None, None), new_state
 

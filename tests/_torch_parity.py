@@ -80,3 +80,41 @@ def routing_margins():
         yield seen
     finally:
         moe.route = route
+
+
+@contextlib.contextmanager
+def reference_scan(kernel: bool):
+    """With ``kernel``, the reference's ``mamba2_apply`` runs its prefill scan
+    through its own Pallas ``ssd_scan`` (interpret mode on the CPU) in place
+    of its model twin ``ssd_chunked``: fp32 inside, as the port's kernel
+    path, where the twin rounds ``att`` and the carried state to the inputs'
+    type.  The port's kernel path is held against that reference."""
+    import repro.models.mamba2 as RM
+    from repro.kernels import ops
+
+    twin = RM.ssd_chunked
+    if kernel:
+        RM.ssd_chunked = lambda xh, log_l, Bm, Cm, chunk, h0=None, unroll=False: ops.ssd_scan(
+            xh, log_l, Bm, Cm, chunk=chunk)
+    try:
+        yield
+    finally:
+        RM.ssd_chunked = twin
+
+
+def reference_scan_inputs(p, x, cfg):
+    """The reference's ``mamba2_apply`` up to the scan (mamba2.py:146-162),
+    which it computes and does not return: the conv input, and the scan's
+    xdt, log_l, Bm, Cm."""
+    import repro.models.mamba2 as RM
+
+    DI, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    zxbcdt = jnp.einsum("bsd,dp->bsp", x, p["in_proj"])
+    _, xc, Bm, Cm, dt = jnp.split(zxbcdt, [DI, 2 * DI, 2 * DI + N, 2 * DI + 2 * N], axis=-1)
+    conv_in = jnp.concatenate([xc, Bm, Cm], axis=-1)
+    conv_out = jax.nn.silu(RM._causal_conv(conv_in, p["conv_w"], p["conv_b"])[0])
+    xc, Bm, Cm = jnp.split(conv_out, [DI, DI + N], axis=-1)
+    dt = jax.nn.softplus(dt.astype(jnp.float32) + p["dt_bias"])
+    log_l = dt * -jnp.exp(p["A_log"].astype(jnp.float32))
+    xh = xc.reshape(x.shape[0], x.shape[1], H, P)
+    return conv_in, (xh * dt[..., None].astype(xh.dtype), log_l, Bm, Cm)

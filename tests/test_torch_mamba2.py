@@ -4,10 +4,9 @@ inputs (numpy, carried to both), float32 and bfloat16, kernels on and off.
 Tolerances.  float32: 5e-5 on the scan (the reference kernel test's), 2e-4
 on a block's output (the same arithmetic, sums in another order, through
 the projections).  bfloat16: 3e-2 of the largest |value| (at least 3e-2),
-as for the port's logits: the two frameworks round at other places (XLA on
-the CPU may keep a fused bf16 product in fp32), and on the kernel path the
-scan keeps ``att`` and the carried state in fp32 where the reference's twin
-rounds both to bf16."""
+as for the port's logits: the two frameworks may sum in another order, and
+on the kernel path the scan keeps ``att`` and the carried state in fp32
+where the reference's twin rounds both to bf16."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +21,7 @@ from repro_torch.models import mamba2 as PM
 from repro_torch.models.layers import Runtime
 
 from _torch_parity import JDT, TDT, carry, max_err, rand, to_np
+from _torch_parity import reference_scan_inputs as ref_scan_inputs
 
 RRT = RefRuntime(rules=None)
 # two chunks of 16 in a sequence of 32: the state crosses a chunk boundary
@@ -51,21 +51,6 @@ def both_params(w, dtype):
     return ref_param.cast_floats(jax.tree.map(jnp.asarray, w), JDT[dtype]), carry(w, TDT[dtype])
 
 
-def ref_scan_inputs(p, x, cfg):
-    """The reference's ``mamba2_apply`` up to the scan (mamba2.py:146-162):
-    the conv input, and the scan's xdt, log_l, Bm, Cm."""
-    DI, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    zxbcdt = jnp.einsum("bsd,dp->bsp", x, p["in_proj"])
-    _, xc, Bm, Cm, dt = jnp.split(zxbcdt, [DI, 2 * DI, 2 * DI + N, 2 * DI + 2 * N], axis=-1)
-    conv_in = jnp.concatenate([xc, Bm, Cm], axis=-1)
-    conv_out = jax.nn.silu(RM._causal_conv(conv_in, p["conv_w"], p["conv_b"])[0])
-    xc, Bm, Cm = jnp.split(conv_out, [DI, DI + N], axis=-1)
-    dt = jax.nn.softplus(dt.astype(jnp.float32) + p["dt_bias"])
-    log_l = dt * -jnp.exp(p["A_log"].astype(jnp.float32))
-    xh = xc.reshape(x.shape[0], x.shape[1], H, P)
-    return conv_in, (xh * dt[..., None].astype(xh.dtype), log_l, Bm, Cm)
-
-
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_causal_conv(dtype, with_state):
@@ -82,6 +67,22 @@ def test_causal_conv(dtype, with_state):
     assert py.dtype == TDT[dtype] and ps.dtype == TDT[dtype]
     assert max_err(py, ry) <= tol(dtype, ry, 1e-6)
     assert max_err(ps, rs) == 0.0                          # the last rows of [state | x]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_rounds_as_the_reference(dtype):
+    """the block's SiLU rounds as the reference's: the same bits in bf16,
+    where a SiLU rounded once (``F.silu``) lies an ulp away in many
+    elements; in fp32 within the frameworks' exp (a few ulps)"""
+    x = rand(np.random.default_rng(6), (4096,), 3.0)
+    r = jax.nn.silu(jnp.asarray(x).astype(JDT[dtype]))
+    p = PM._silu(torch.from_numpy(x).to(TDT[dtype]))
+    assert p.dtype == TDT[dtype]
+    if dtype == "float32":
+        np.testing.assert_allclose(to_np(p), to_np(r), rtol=1e-6, atol=1e-7)
+    else:
+        np.testing.assert_array_equal(to_np(p), to_np(r))
+        assert max_err(torch.nn.functional.silu(torch.from_numpy(x).bfloat16()), r) > 0
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
