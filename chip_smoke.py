@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three serving paths through ``repro_torch.launch.serve.run``
+Drives the port's four serving paths through ``repro_torch.launch.serve.run``
 — granite-8b at full width and depth (attention through the flash-attention
 kernel), mixtral-8x22b at full width and 8 of its 56 layers (attention, and
-every MoE layer's dispatch through the moe-dispatch kernel) and zamba2-1.2b
-at full width and depth (every Mamba2 layer's prefill scan through the
-ssd-scan kernel, the shared attention block through the flash kernel) — and
-holds every hand-written kernel of those paths against its plain PyTorch
-version on the card.  Phases, one JSON line each:
+every MoE layer's dispatch through the moe-dispatch kernel), zamba2-1.2b at
+full width and depth (every Mamba2 layer's prefill scan through the ssd-scan
+kernel, the shared attention block through the flash kernel) and rwkv6-1.6b
+at full width and depth (every layer's prefill scan through the rwkv6-scan
+kernel) — and holds every hand-written kernel of those paths against its
+plain PyTorch version on the card.  Phases, one JSON line each:
 
 1. ``device``   torch version, device name, ``nvidia-smi`` name and power limit
 2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -19,16 +20,17 @@ version on the card.  Phases, one JSON line each:
                 main paths' shapes, with times (CUDA events), the least time
                 the card could take (``bound_ms``) and one library call as a
                 yardstick (``library_ms``; the port never calls it)
-4. ``slice``    granite-8b, mixtral-8x22b and zamba2-1.2b smoke configs: kernel
-                path vs plain path, fp32 and bf16
+4. ``slice``    granite-8b, mixtral-8x22b, zamba2-1.2b and rwkv6-1.6b smoke
+                configs: kernel path vs plain path, fp32 and bf16
 5. ``serve``    granite-8b (36 layers), then mixtral-8x22b (8 layers), then
-                zamba2-1.2b (38 layers), each after the last one's weights are
-                released, bf16, batch 4, prompt 512, 16 tokens, greedy; each
-                batch again through the plain path, logits and ids compared;
-                each path's kernel launches counted from 0.  zamba2's plain
-                path runs its scan through the kernel's plain version, beside
-                the model's twin, is held within how far the model carries a
-                one-ulp move of its prompt, and is held layer by layer
+                zamba2-1.2b (38 layers), then rwkv6-1.6b (24 layers), each
+                after the last one's weights are released, bf16, batch 4,
+                prompt 512, 16 tokens, greedy; each batch again through the
+                plain path, logits and ids compared; each path's kernel
+                launches counted from 0.  zamba2's and rwkv6's plain paths
+                run their scans through the kernels' plain versions, beside
+                the models' twins, are held within how far the model carries
+                a one-ulp move of its prompt, and are held layer by layer
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -52,13 +54,17 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_ULP = 2.0 ** -7     # one bf16 ulp of x is at most 2^-7 |x|
+# ex2 on the special-function units: 16 an SM a clock (CUDA C++ programming
+# guide, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock.
+MUFU_EX2_PER_S = 16 * 132 * 1.98e9
 
-# The main paths: granite-8b and zamba2-1.2b at full width and depth;
-# mixtral-8x22b at full width and 8 of its 56 layers (56 would take 281 GB of
-# bf16 weights).
+# The main paths: granite-8b, zamba2-1.2b and rwkv6-1.6b at full width and
+# depth; mixtral-8x22b at full width and 8 of its 56 layers (56 would take
+# 281 GB of bf16 weights).
 SERVE = dict(arch="granite-8b", batch=4, prompt_len=512, gen=16, seed=0)
 MIXTRAL = dict(SERVE, arch="mixtral-8x22b", n_layers=8)
 ZAMBA = dict(SERVE, arch="zamba2-1.2b")
+RWKV = dict(SERVE, arch="rwkv6-1.6b")
 
 
 def emit(phase: str, **fields) -> None:
@@ -119,15 +125,17 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan"])
+    libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan"])
     seconds = time.perf_counter() - t0
-    # ptxas -v: registers and spills of every instantiation
-    log = "".join(p.with_suffix(".log").read_text() for p in libs.values())
-    registers = [int(w.split()[0]) for w in log.split("Used")[1:]]
-    spills = [int(w.split()[-1]) for w in log.split(" bytes spill stores")[:-1]]
+    # ptxas -v: registers and spills of every instantiation, by library
+    ptxas = {}
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log").read_text()
+        ptxas[name] = {"max_registers": max((int(w.split()[0]) for w in log.split("Used")[1:]), default=None),
+                       "spill_store_bytes": sum(int(w.split()[-1])
+                                                for w in log.split(" bytes spill stores")[:-1])}
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
-         libraries={n: str(p) for n, p in libs.items()},
-         max_registers=max(registers, default=None), spill_store_bytes=sum(spills))
+         libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas)
 
 
 def _rand(gen, shape, dtype, scale):
@@ -144,19 +152,19 @@ def _qkv(gen, q_shape, kv_shape, dtype):
 
 
 def _excess(o, r, dtype, ulps: int = 1, of_row: bool = False,
-            f32_limit: float = 2e-5) -> tuple[float, float]:
+            f32_limit: float = 2e-5, bf16_abs: float = 1e-5) -> tuple[float, float]:
     """(max |o - r|, the largest ratio of |o - r| to its limit) of a kernel's
     output against the plain version's, element by element.  float32:
     ``f32_limit`` absolute on outputs of order 1 (sums in another order).  bfloat16: both
     round the same fp32 result once, so they differ by at most ``ulps`` bf16
-    ulps of that element (2^-7 |r| each), plus 1e-5 for the order of the fp32
-    sums beneath.  ``of_row`` takes the ulp of the largest element of the
+    ulps of that element (2^-7 |r| each), plus ``bf16_abs`` for the order of
+    the fp32 sums beneath.  ``of_row`` takes the ulp of the largest element of the
     output row instead: for a version that rounds the probabilities, whose
     error in an element goes with the row's values and not with the element's."""
     o, r = o.float(), r.float()
     diff = (o - r).abs()
     size = r.abs().amax(dim=-1, keepdim=True) if of_row else r.abs()
-    limit = torch.full_like(r, f32_limit) if dtype == torch.float32 else ulps * BF16_ULP * size + 1e-5
+    limit = torch.full_like(r, f32_limit) if dtype == torch.float32 else ulps * BF16_ULP * size + bf16_abs
     return diff.max().item(), (diff / limit).max().item()
 
 
@@ -533,28 +541,164 @@ def _ssd_row(gen) -> dict:
     }
 
 
+def _rwkv_cases():
+    """(B, S, H, N, chunk, dtype, kind) over the reference's test shapes, the
+    extreme-decay case, ragged S, a given initial state and the smoke widths
+    (head_dim 32, chunk 16); kind "extreme": w = 1e-6, "s0": with an initial
+    state."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dt in (f32, bf16):
+        for B, S, H, N, chunk in [(1, 64, 1, 16, 32), (2, 128, 2, 32, 32), (1, 256, 4, 64, 128)]:
+            cases.append((B, S, H, N, chunk, dt, "randn"))
+        cases.append((1, 128, 1, 16, 64, dt, "extreme"))
+        cases.append((1, 128, 1, 16, 128, dt, "extreme"))       # one chunk: cum reaches -1768
+        for S in (1, 77, 200):
+            cases.append((2, S, 3, 32, 128, dt, "randn"))
+            cases.append((1, S, 2, 64, 64, dt, "s0"))
+        cases.append((2, 256, 4, 32, 128, dt, "s0"))
+        cases.append((2, 256, 4, 32, 16, dt, "randn"))          # rwkv6 smoke: N 32, chunk 16
+    return cases
+
+
+def _rwkv_inputs(gen, B, S, H, N, dt, kind):
+    """As the reference's test draws them: r, k, v of scale 0.5, w =
+    0.98 sigmoid(randn) + 0.01 in fp32 (1e-6 for "extreme"), u of scale 0.3."""
+    r, k, v = (_rand(gen, (B, S, H, N), dt, 0.5) for _ in range(3))
+    if kind == "extreme":
+        w = torch.full((B, S, H, N), 1e-6, device="cuda")
+    else:
+        w = torch.sigmoid(_rand(gen, (B, S, H, N), torch.float32, 1.0)) * 0.98 + 0.01
+    u = _rand(gen, (H, N), dt, 0.3)
+    s0 = _rand(gen, (B, H, N, N), torch.float32, 0.5) if kind == "s0" else None
+    return r, k, v, w, u, s0
+
+
+def _rwkv_row(gen) -> dict:
+    """The kernel against ``rwkv6_scan_plain`` and the float64 oracle
+    ``rwkv6_scan_ref``, each element: y and the state in fp32 within 5e-5
+    (the reference test's tolerance), y in bf16 within one ulp of the
+    element (both are fp32 inside and round once), the state of bf16 runs
+    within 5e-5; the plain version held to the oracle alike.  The bf16 limit's
+    absolute term is the fp32 limit (5e-5), not 1e-5: the outputs reach 15 at
+    head_dim 64, where the fp32 sums beneath differ by up to 5e-5, and an
+    element near zero carries that whole difference.  The extreme decay
+    (w = 1e-6) is held at 5e-4, the reference test's tolerance for it: the
+    plain version keeps the reference's fp32 (cum_i - l_i) - cum_j, whose
+    rounding at |cum| ~ 1768 moves the weight-one terms by ~1e-4."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+
+    def excess(y, s, yr, sr, dt, f32_limit):
+        ey, ry = _excess(y, yr, dt, f32_limit=f32_limit, bf16_abs=f32_limit)
+        es, rs = _excess(s, sr, torch.float32, f32_limit=f32_limit)
+        return max(ey, es), max(ry, rs)
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_of_limit = dict(worst)
+    cases = _rwkv_cases()
+    for B, S, H, N, chunk, dt, kind in cases:
+        r, k, v, w, u, s0 = _rwkv_inputs(gen, B, S, H, N, dt, kind)
+        y, s = ops.rwkv6_scan(r, k, v, w, u, chunk=chunk, s0=s0)
+        torch.cuda.synchronize()
+        yp, sp = rwkv6_scan_plain(r, k, v, w, u, chunk=chunk, s0=s0)
+        yo, so = rwkv6_scan_ref(r, k, v, w, u, s0=s0)
+        lim = 5e-4 if kind == "extreme" else 5e-5
+        err, of_limit = excess(y, s, yp, sp, dt, lim)
+        oracle_err, oracle_of_limit = excess(y, s, yo, so, dt, lim)
+        plain_err, plain_of_limit = excess(yp, sp, yo, so, dt, lim)
+        finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all())
+        if not max(of_limit, oracle_of_limit, plain_of_limit) <= 1.0 or not finite:
+            raise SystemExit(f"rwkv6_scan disagrees: {(B, S, H, N, chunk, dt, kind)} vs plain "
+                             f"max_abs_err={err} ({of_limit} of its limit), vs the float64 oracle "
+                             f"{oracle_err} ({oracle_of_limit}), plain vs the oracle {plain_err} "
+                             f"({plain_of_limit}), finite {finite}")
+        worst[dt] = max(worst[dt], err)
+        worst_of_limit[dt] = max(worst_of_limit[dt], of_limit, oracle_of_limit)
+
+    # the main path's shape, in the model's layout: r, k, v views (B, S, H, N)
+    # of the (B, S, D) projections, w fp32, u (H, N) in the model's type
+    B, S, H, N, Q, dt = RWKV["batch"], RWKV["prompt_len"], 32, 64, 128, torch.bfloat16
+    r, k, v = (_rand(gen, (B, S, H * N), dt, 0.5).view(B, S, H, N) for _ in range(3))
+    w = torch.sigmoid(_rand(gen, (B, S, H, N), torch.float32, 1.0)) * 0.98 + 0.01
+    u = _rand(gen, (H, N), dt, 0.3)
+    y, s = ops.rwkv6_scan(r, k, v, w, u, chunk=Q)
+    torch.cuda.synchronize()
+    yp, sp = rwkv6_scan_plain(r, k, v, w, u, chunk=Q)
+    err, of_limit = excess(y, s, yp, sp, dt, 5e-5)
+    oracle_err, oracle_of_limit = excess(y, s, *rwkv6_scan_ref(r, k, v, w, u), dt, 5e-5)
+    if not max(of_limit, oracle_of_limit) <= 1.0:
+        raise SystemExit(f"rwkv6_scan at the main path's shape: max_abs_err={err} vs plain ({of_limit} "
+                         f"of its limit), {oracle_err} vs the float64 oracle ({oracle_of_limit})")
+    # bytes: r, k, v, w, u read once, y and the state written once.  Operations
+    # of the chunked form: per (i, j < i) pair and channel a decay-weighted
+    # r k (3 flops) and att v (2), per row r' S and the state update (4 N^2)
+    # and the bonus (4 N).  This design's exponentials: one per pair and
+    # channel, and two per row and channel for the decays to the chunk's edges.
+    nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, y, s))
+    chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
+    pairs = sum(q * (q - 1) // 2 for q in chunks)
+    flops = B * H * (5 * N * pairs + S * (4 * N * N + 4 * N))
+    exps = B * H * (N * pairs + 2 * S * N + N * len(chunks))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(lambda: ops.rwkv6_scan(r, k, v, w, u, chunk=Q))
+    return {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:110",
+        "launches": None,            # filled in from the serve phase's run
+        "shape": f"r/k/v{tuple(r.shape)} bf16 w fp32 u{tuple(u.shape)} chunk {Q}",
+        "max_abs_err": err,
+        "err_of_limit": of_limit,
+        "oracle_err_of_limit": oracle_of_limit,
+        "max_abs_plain": yp.float().abs().max().item(),
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": time_ms(lambda: rwkv6_scan_plain(r, k, v, w, u, chunk=Q))[0],
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "flops": flops,
+        "ops_ms_fp32_cores": flops / PEAK_FLOPS[torch.float32] * 1e3,
+        "exponentials": exps,
+        "exp_ms_at_mufu_rate": exps / MUFU_EX2_PER_S * 1e3,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a chunked scan with a carried state",
+        "test_cases": len(cases),
+        "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
+        "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
+                                  "bfloat16": worst_of_limit[torch.bfloat16]},
+    }
+
+
 def phase_kernels() -> list[dict]:
     # fp32 comparisons need full-fp32 products in the plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return [_flash_row(gen), _moe_row(gen), _ssd_row(gen)]
+    return [_flash_row(gen), _moe_row(gen), _ssd_row(gen), _rwkv_row(gen)]
 
 
 def _expected_launches(harness, gen: int) -> dict[str, int]:
     """A transformer's attention goes through the flash kernel and an MoE
     layer's dispatch through the dispatch kernel in every layer, once in
     prefill and once in each of the gen - 1 decode steps.  A hybrid's
-    Mamba2 layers go through the scan kernel in prefill only (decode is the
-    plain recurrence) and its shared attention block through the flash
-    kernel at each of its calls, in prefill and every decode step."""
+    Mamba2 layers go through the SSD scan kernel in prefill only (decode is
+    the plain recurrence) and its shared attention block through the flash
+    kernel at each of its calls, in prefill and every decode step.  An
+    RWKV-6 model's layers go through the RWKV-6 scan kernel in prefill only
+    and launch nothing else."""
     cfg = harness.cfg
+    if harness.family == "ssm":
+        return {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": cfg.n_layers}
     if harness.family == "hybrid":
         return {"flash_attention": cfg.n_shared_calls * gen, "moe_dispatch": 0,
-                "ssd_scan": cfg.n_layers}
+                "ssd_scan": cfg.n_layers, "rwkv6_scan": 0}
     per_layer = cfg.n_layers * gen
     return {"flash_attention": per_layer,
             "moe_dispatch": per_layer if harness.family == "moe" else 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "rwkv6_scan": 0}
 
 
 @contextlib.contextmanager
@@ -581,20 +725,26 @@ def _routing(replay: list | None = None):
 
 @contextlib.contextmanager
 def _scan_without_roundings():
-    """The plain path's Mamba2 prefill scan through ``ssd_scan_plain``, the
-    scan kernel's own plain version (float32 inside, y rounded once), in
-    place of the model's twin ``ssd_chunked``, which rounds ``att`` and the
-    carried state to the inputs' type before their products."""
+    """The plain path's prefill scans through the scan kernels' own plain
+    versions: Mamba2's through ``ssd_scan_plain`` (float32 inside, y rounded
+    once) in place of the model's twin ``ssd_chunked``, which rounds ``att``
+    and the carried state to the inputs' type before their products; and
+    RWKV-6's through ``rwkv6_scan_plain`` in place of the twin
+    ``rwkv6_chunked`` (both float32 inside, y rounded once: the same
+    arithmetic in another order of sums)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    from repro_torch.models import mamba2
+    from repro_torch.models import mamba2, rwkv6
 
-    twin = mamba2.ssd_chunked
+    twins = mamba2.ssd_chunked, rwkv6.rwkv6_chunked
     mamba2.ssd_chunked = lambda xh, log_l, Bm, Cm, chunk, h0=None: ssd_scan_plain(
         xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    rwkv6.rwkv6_chunked = lambda r, k, v, w, u, chunk, s0=None: rwkv6_scan_plain(
+        r, k, v, w, u, chunk=chunk, s0=s0)
     try:
         yield
     finally:
-        mamba2.ssd_chunked = twin
+        mamba2.ssd_chunked, rwkv6.rwkv6_chunked = twins
 
 
 def _moved(x: torch.Tensor, seed: int) -> torch.Tensor:
@@ -650,13 +800,14 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
     A hybrid's twin rounds the scan's ``att`` and carried state to bf16
     where the kernel does not, in every Mamba2 layer: its agreement is
     reported (``twin``), and the plain path held is the one with its scan
-    through the kernel's plain version (``_scan_without_roundings``).  A
-    randomly drawn zamba2 at full depth carries a one-ulp difference in its
-    first layer to O(1) in its logits (``_free_running`` shows where), so
-    the limit is the larger of the above and ``witness``: how far that
-    plain path moves when 1 % of its embedded prompt is moved by one ulp
-    (``_moved_prompt``).  Its layers are held one by one, on the same inputs,
-    at granite's limit (``_layers_vs_plain``)."""
+    through the kernel's plain version (``_scan_without_roundings``); so is
+    an RWKV-6 model's, whose twin sums in another order.  A randomly drawn
+    zamba2 at full depth carries a one-ulp difference in its first layer to
+    O(1) in its logits (``_free_running`` shows where), so for both recurrent
+    families the limit is the larger of the above and ``witness``: how far
+    that plain path moves when 1 % of its embedded prompt is moved by one ulp
+    (``_moved_prompt``).  Their layers are held one by one, on the same
+    inputs, at granite's limit (``_layers_vs_plain``, ``_rwkv_layers``)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -697,7 +848,7 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
 
     ref, plain_calls = plain_run()
     out = agreement(res, ref)
-    if harness.family == "hybrid":
+    if harness.family in ("hybrid", "ssm"):
         twin = out
         with _scan_without_roundings():
             ref, plain_calls = plain_run()
@@ -705,9 +856,13 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
                 moved, _ = plain_run()
         out = agreement(res, ref)
         witness = agreement(moved, ref)
+        if harness.family == "hybrid":
+            free = _free_running(args, harness, params)
+            layers = _layers_vs_plain(args, harness, params, res["tokens"][:, 0], where)
+        else:
+            free, layers = _rwkv_layers(args, harness, params, where)
         out = {**out, "limit": max(out["limit"], witness["max_abs_err"]), "granite_limit": out["limit"],
-               "witness": witness, "twin": twin, "free_running": _free_running(args, harness, params),
-               "layers": _layers_vs_plain(args, harness, params, res["tokens"][:, 0], where)}
+               "witness": witness, "twin": twin, "free_running": free, "layers": layers}
     # the MoE layer calls of the compared steps: prefill's, then each decode step's
     n = out["steps_compared"]
     calls = list(zip(kern_calls, plain_calls))[:n * cfg.n_layers] if harness.family == "moe" else []
@@ -850,12 +1005,94 @@ def _free_running(args, harness, params) -> dict:
             "max_abs_logit": logits["plain"].abs().max().item()}
 
 
+def _rwkv_layers(args, harness, params, where: str) -> tuple[dict, dict]:
+    """An RWKV-6 model's prefill layer by layer, at the served batch's prompts
+    and weights, against the plain path with its scan through
+    ``rwkv6_scan_plain`` (``_scan_without_roundings``).  Returns (free
+    running, layers).  Layers: each block is given the SAME input on both
+    paths (the plain path's hidden state entering it); what it adds to the
+    residual stream and its final scan state are held to 3e-2 of the largest
+    |value| of the plain path's.  Free running, where the paths part: hidden
+    states run through the layers on their own — ``kernel``, the kernel
+    path; ``moved``, the plain path with its embedded prompt moved by
+    ``_moved`` — and are compared with the plain path's after every layer,
+    and the last token's logits at the end.  Decode launches no kernel: its
+    recurrence is the same code on both paths."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv_lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import cast_floats, tree_map
+
+    cfg = harness.cfg
+    p = cast_floats(params, cfg.dtype)
+    device = p["embed"]["tok"].device
+    kern, plain = Runtime(use_kernels=True), Runtime(use_kernels=False)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(args.batch, args.prompt_len), dtype=np.int32)
+    worst = {"block_increment": 0.0, "tm_s": 0.0}
+    with torch.no_grad(), _scan_without_roundings():
+        e = L.embed(plain, p["embed"], torch.from_numpy(prompts).to(device))
+        x = {name: L.layernorm(p["ln_in"], t).to(cfg.dtype)
+             for name, t in (("plain", e), ("kernel", e), ("moved", _moved(e, args.seed)))}
+        after = {"kernel": [], "moved": []}
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda t: t[i], p["blocks"])
+            x_in = x["plain"]
+            out_plain, st_plain = rwkv_lm._block(plain, cfg, lp, x_in)
+            out_kern, st_kern = rwkv_lm._block(kern, cfg, lp, x_in)
+            scale = (out_plain.float() - x_in.float()).abs().max()
+            worst["block_increment"] = max(worst["block_increment"], (
+                (out_kern.float() - out_plain.float()).abs().max() / (3e-2 * scale)).item())
+            worst["tm_s"] = max(worst["tm_s"], (
+                (st_kern["tm_s"] - st_plain["tm_s"]).abs().max() / (3e-2 * st_plain["tm_s"].abs().max())).item())
+            x["plain"] = out_plain
+            x["kernel"] = rwkv_lm._block(kern, cfg, lp, x["kernel"])[0]
+            x["moved"] = rwkv_lm._block(plain, cfg, lp, x["moved"])[0]
+            for name in after:
+                after[name].append((x[name].float() - x["plain"].float()).abs().max().item())
+        logits = {name: L.unembed(plain, p["embed"], L.layernorm(p["final_norm"], h[:, -1:])).float()
+                  for name, h in x.items()}
+    if not max(worst.values()) <= 1.0:
+        raise SystemExit(f"{where}: a layer's kernel path vs plain path on the same input exceeds "
+                         f"3e-2 of the largest value: {worst} of it")
+    free = {"hidden_max_abs_diff_after_each_layer": after,
+            "last_logits_max_abs_diff": {name: (logits[name] - logits["plain"]).abs().max().item()
+                                         for name in after},
+            "max_abs_logit": logits["plain"].abs().max().item()}
+    return free, {"max_err_of_limit": worst, "layers": cfg.n_layers}
+
+
+def _draw_time_mix(harness, params, seed: int) -> None:
+    """An RWKV-6 model's leaves that the reference initialises to zeros —
+    the token-shift mixes ``mu`` of both blocks, the decay's bias ``w0`` and
+    the bonus ``bonus_u`` — drawn non-zero in place: mu ~ U(0, 1),
+    w0 ~ randn - 1, u ~ 0.3 randn.  With zeros the token shift, the bonus and
+    the decay's bias do nothing, and a wrong one would not show."""
+    if harness.family != "ssm":
+        return
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(leaf, uniform: bool, scale: float = 1.0, shift: float = 0.0) -> None:
+        x = (torch.rand if uniform else torch.randn)(leaf.shape, generator=gen, device="cuda")
+        leaf.copy_((x * scale + shift).to(leaf.dtype))
+
+    tm, cm = params["blocks"]["tm"], params["blocks"]["cm"]
+    draw(tm["mu"], True)
+    draw(cm["mu"], True)
+    draw(tm["w0"], False, shift=-1.0)
+    draw(tm["bonus_u"], False, scale=0.3)
+
+
 def phase_slice() -> None:
     """The smoke configs on the card, same weights: the kernel path against
     the plain path in fp32 and bf16.  mixtral's prompt is longer than its
     smoke window of 64, so the sliding window bites; zamba2's is two chunks
-    of 128, so the scan carries its state across a chunk boundary (and the
-    plain twin's whole-chunk assertion holds)."""
+    of 128 and rwkv6's four of 16, so the scans carry their states across
+    chunk boundaries (and the plain twins' whole-chunk assertions hold).
+    rwkv6's zero-initialised mixes, decay bias and bonus are drawn
+    (``_draw_time_mix``)."""
     from repro_torch.configs import load
     from repro_torch.launch import serve
     from repro_torch.models.param import tree_init
@@ -863,12 +1100,14 @@ def phase_slice() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     for arch, argv in (("granite-8b", ["--prompt-len", "24", "--gen", "5", "--batch", "2"]),
                        ("mixtral-8x22b", ["--prompt-len", "80", "--gen", "5", "--batch", "2"]),
-                       ("zamba2-1.2b", ["--prompt-len", "256", "--gen", "5", "--batch", "2"])):
+                       ("zamba2-1.2b", ["--prompt-len", "256", "--gen", "5", "--batch", "2"]),
+                       ("rwkv6-1.6b", ["--prompt-len", "64", "--gen", "5", "--batch", "2"])):
         args = serve.build_parser().parse_args(["--arch", arch, *argv])
         out = {}
         for dt in (torch.float32, torch.bfloat16):
             h = load(arch, smoke=True).clone(dtype=dt)
             params = tree_init(h.param_specs(), torch.Generator(device="cuda").manual_seed(1), dt, "cuda")
+            _draw_time_mix(h, params, 2)
             name = str(dt).split(".")[-1]
             _, _, out[name] = _kernel_vs_plain(args, h, params, dt, f"slice check {arch} {name}")
         emit("slice", config=f"{arch} smoke", batch=args.batch, prompt_len=args.prompt_len,
@@ -900,6 +1139,7 @@ def _serve_path(spec: dict) -> dict[str, int]:
     # the weights are drawn once, so that the plain path serves the same model
     params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
+    _draw_time_mix(harness, params, spec["seed"] + 1)
     res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}")
     tok, lg = res["tokens"], res["logits"]
     if tok.shape != (args.batch, args.gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
@@ -915,9 +1155,10 @@ def _serve_path(spec: dict) -> dict[str, int]:
 
 
 def phase_serve() -> dict[str, dict[str, int]]:
-    """granite-8b, then mixtral-8x22b, then zamba2-1.2b; each path's weights
-    are released when it returns.  Returns each path's launch counts."""
-    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA)}
+    """granite-8b, then mixtral-8x22b, then zamba2-1.2b, then rwkv6-1.6b;
+    each path's weights are released when it returns.  Returns each path's
+    launch counts."""
+    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA, RWKV)}
 
 
 def main() -> int:

@@ -2,7 +2,7 @@
 
 ``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists the
 architectures ported so far (the four dense decoder-only ones, the zamba2
-hybrid and the two MoE ones), in the reference's order.
+hybrid, rwkv6 and the two MoE ones), in the reference's order.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ ARCH_IDS = [
     "granite_3_2b",
     "starcoder2_7b",
     "zamba2_1_2b",
+    "rwkv6_1_6b",
     "mixtral_8x22b",
     "dbrx_132b",
 ]

@@ -1,7 +1,8 @@
 """Kernels of the port, written by hand for Hopper (reference:
 ``repro/kernels/``, Pallas for the TPU): ``flash_attention`` carries every
 layer's attention, ``moe_dispatch`` every MoE layer's dispatch, ``ssd_scan``
-every Mamba2 layer's chunked scan in prefill.
+every Mamba2 layer's chunked scan in prefill, ``rwkv6_scan`` every RWKV-6
+layer's chunked scan in prefill.
 
 Each kernel module holds the CUDA kernel's wrapper, a plain PyTorch version of
 the same function, and a launch count on the wrapper.  ``launch_counts`` and
@@ -13,9 +14,11 @@ from __future__ import annotations
 
 from .flash_attention import flash_attention
 from .moe_dispatch import moe_dispatch
+from .rwkv6_scan import rwkv6_scan
 from .ssd_scan import ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "moe_dispatch": moe_dispatch, "ssd_scan": ssd_scan}
+KERNELS = {"flash_attention": flash_attention, "moe_dispatch": moe_dispatch, "ssd_scan": ssd_scan,
+           "rwkv6_scan": rwkv6_scan}
 
 
 def launch_counts() -> dict[str, int]:

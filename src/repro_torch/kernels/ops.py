@@ -1,13 +1,15 @@
 """Public wrappers for the kernels — port of ``repro/kernels/ops.py`` (the two
-flash-attention adapters, ``ssd_scan`` and ``moe_dispatch``; the other
-kernels' wrappers come with them).
+flash-attention adapters, ``ssd_scan``, ``rwkv6_scan`` and ``moe_dispatch``;
+``ccu_reduce`` comes with its kernel).
 
 Each validates shapes and adapts the model layers' layout to the kernel's.
 Where the reference transposes (and so copies) q, k and v, the port hands the
 kernel strided views: the kernel takes element strides, so the model's
 ``(B, S, heads, Dh)`` tensors and a slice of the KV cache are read in place.
 ``ssd_scan`` reads the model's ``Bm``/``Cm`` slices of the conv output in
-place the same way, and takes any S and an initial state.  ``moe_dispatch``
+place the same way, and takes any S and an initial state; so does
+``rwkv6_scan``, which reads the model's ``(B,S,D) -> (B,S,H,N)`` views of r,
+k, v and w in place.  ``moe_dispatch``
 takes the reference's ``(T, E, C)`` form and the model's batched
 ``(B, T, E, C)`` one, so an MoE layer's dispatch is one launch.
 """
@@ -18,6 +20,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .moe_dispatch import moe_dispatch  # noqa: F401  (checks both forms itself)
+from .rwkv6_scan import rwkv6_scan  # noqa: F401  (checks shapes, types and devices itself)
 from .ssd_scan import ssd_scan  # noqa: F401  (checks shapes, types and devices itself)
 
 

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles in the kernels' layouts — port of
 ``repro/kernels/ref.py`` (``attention_ref``, ``ssd_scan_ref``,
-``moe_gather_matmul_ref``; the other oracles come with their kernels).
+``rwkv6_scan_ref``, ``moe_gather_matmul_ref``; ``ccu_reduce_ref`` comes with
+its kernel).
 
 Each oracle shares nothing with the kernel modules, neither code nor method,
 so a kernel and its plain version can both be held against it, and works in
@@ -9,7 +10,9 @@ and fill with a large negative constant, it walks the query rows one by one,
 works out each row's visible keys as index ranges, and takes the softmax over
 those keys alone.  ``ssd_scan_ref``: where the kernel modules work chunk by
 chunk with cumulative decays, it runs the state recurrence one token at a
-time.  ``moe_dispatch_ref``: where the kernel modules contract the token axis
+time.  ``rwkv6_scan_ref``: where the kernel modules sum log decays per chunk
+and take pairwise exponentials, it multiplies the state by each token's
+decay in turn.  ``moe_dispatch_ref``: where the kernel modules contract the token axis
 in one product, it adds the tokens' contributions one token at a time."""
 
 from __future__ import annotations
@@ -68,6 +71,30 @@ def ssd_scan_ref(
         h = h * torch.exp(l64[:, t])[:, :, None, None] + x64[:, t, :, :, None] * b64[:, t, None, None, :]
         ys.append((h * c64[:, t, None, None, :]).sum(-1))
     return torch.stack(ys, dim=1).to(xh.dtype), h.float()
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor,            # (B, S, H, N)
+    k: torch.Tensor,            # (B, S, H, N)
+    v: torch.Tensor,            # (B, S, H, N)
+    w: torch.Tensor,            # (B, S, H, N) decay in (0, 1)
+    u: torch.Tensor,            # (H, N) bonus
+    s0: torch.Tensor | None = None,   # (B, H, N, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-level RWKV-6 recurrence ``y_t = r_t (S + diag(u) k_t v_t^T)``,
+    ``S <- diag(w_t) S + k_t v_t^T``, any S: y (B,S,H,N) in r's type, the
+    final state (B,H,N,N) in float32."""
+    B, S, H, N = r.shape
+    r64, k64, v64, w64 = r.double(), k.double(), v.double(), w.double()
+    u64 = u.double()
+    s = (torch.zeros((B, H, N, N), dtype=torch.float64, device=r.device) if s0 is None
+         else s0.double())
+    ys = []
+    for t in range(S):
+        kv = k64[:, t, :, :, None] * v64[:, t, :, None, :]              # (B,H,N,N)
+        ys.append((r64[:, t, :, :, None] * (s + u64[None, :, :, None] * kv)).sum(-2))
+        s = s * w64[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s.float()
 
 
 def moe_dispatch_ref(

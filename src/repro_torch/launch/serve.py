@@ -1,5 +1,6 @@
-"""Batched serving: prefill + decode (KV cache, or recurrent state and the
-shared block's cache for zamba2) over the model harness — port of
+"""Batched serving: prefill + decode (KV cache, the recurrent state of rwkv6,
+or recurrent state and the shared block's cache for zamba2) over the model
+harness — port of
 ``main`` in ``repro/launch/serve.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\

@@ -1,5 +1,6 @@
 """Unified model harness — port of ``repro/models/api.py`` (``ShapeCell``,
-``SHAPES``, ``Harness``, ``TransformerHarness``, ``HybridHarness``).
+``SHAPES``, ``Harness``, ``TransformerHarness``, ``RWKVHarness``,
+``HybridHarness``).
 
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
@@ -8,10 +9,11 @@ tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``.  The training
 half (``loss``, ``train_input_specs``) and the other model families come
 with their slices.
 
-``HybridHarness.prefill`` differs from the reference's on purpose: it
-returns the state the prompt leaves (``hybrid.prefill``), where the
-reference's returns the state it was given, so that its decode would start
-from a zero state and ignore the prompt.
+``RWKVHarness.prefill`` and ``HybridHarness.prefill`` differ from the
+reference's on purpose: they return the state the prompt leaves
+(``rwkv_lm.prefill``, ``hybrid.prefill``), where the reference's return the
+state they were given, so that their decode would start from a zero state and
+ignore the prompt.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import hybrid, transformer
+from . import hybrid, rwkv_lm, transformer
 from .layers import Runtime
 from .param import ParamSpec
 
@@ -125,6 +127,50 @@ class TransformerHarness(Harness):
     def decode(self, rt: Runtime):
         def fn(params, cache, tokens, pos):
             return transformer.decode_step(rt, self.cfg, params, tokens, cache, pos)
+
+        return fn
+
+
+class RWKVHarness(Harness):
+    """RWKV-6: attention-free, a recurrent state of fixed size per layer.
+
+    ``prefill`` differs from the reference's (``RWKVHarness.prefill``, which
+    scores the prompt with ``forward`` and returns the state it was given):
+    it returns the state the prompt leaves, so that decode continues from
+    the prompt (``rwkv_lm.prefill``)."""
+
+    family = "ssm"
+    long_context_ok = True
+
+    def __init__(self, arch_id: str, cfg: rwkv_lm.RWKVLMConfig):
+        self.arch_id = arch_id
+        self.cfg = cfg
+
+    def param_specs(self):
+        return rwkv_lm.lm_specs(self.cfg)
+
+    # -- serving ------------------------------------------------------------
+    def serve_state_specs(self, cell: ShapeCell):
+        return rwkv_lm.state_specs(self.cfg, cell.global_batch)
+
+    def serve_input_specs(self, cell: ShapeCell) -> dict:
+        B = cell.global_batch
+        if cell.kind == "prefill":
+            return {"tokens": _tok((B, cell.seq_len), ("batch", None))}
+        return {
+            "tokens": _tok((B, 1), ("batch", None)),
+            "pos": ParamSpec((), (), init="zeros", dtype=POS),
+        }
+
+    def prefill(self, rt: Runtime):
+        def fn(params, state, tokens):
+            return rwkv_lm.prefill(rt, self.cfg, params, tokens, state)
+
+        return fn
+
+    def decode(self, rt: Runtime):
+        def fn(params, state, tokens, pos):
+            return rwkv_lm.decode_step(rt, self.cfg, params, tokens, state, pos)
 
         return fn
 

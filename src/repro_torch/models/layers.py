@@ -9,16 +9,20 @@ Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 ``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention``, ``init_kv_cache``,
 ``swiglu``, ``gelu_mlp``, their ``*_specs``, ``embed_specs``, ``embed``,
 ``unembed``.  ``blocked_sdpa``, ``kv_override`` (cross-attention) and
-``cross_entropy`` come with training and the encoder-decoder models.
+``cross_entropy`` come with training and the encoder-decoder models.  Beside
+them, ``_silu`` and ``_sigmoid``: the reference's framework's SiLU and
+sigmoid as they round in bfloat16, for the Mamba2 and RWKV-6 blocks.
 
 One thing differs from the reference on purpose: ``Runtime.use_kernels`` is
 honoured (the reference never reads it).  When it is set, ``attention`` goes
 through the hand-written flash-attention kernel, in prefill and in every
 decode step, an MoE layer's dispatch (``models/moe.py``) through the
 hand-written moe-dispatch kernel, and a Mamba2 layer's chunked scan in
-prefill (``models/mamba2.py``) through the hand-written ssd-scan kernel; when
-it is not, they go through ``sdpa`` + ``_mask_bias``, the dispatch einsum and
-the ``ssd_chunked`` twin exactly as the reference does.
+prefill (``models/mamba2.py``) through the hand-written ssd-scan kernel and an
+RWKV-6 layer's in prefill (``models/rwkv6.py``) through the hand-written
+rwkv6-scan kernel; when it is not, they go through ``sdpa`` + ``_mask_bias``,
+the dispatch einsum and the ``ssd_chunked`` and ``rwkv6_chunked`` twins exactly
+as the reference does.
 """
 
 from __future__ import annotations
@@ -39,12 +43,32 @@ class Runtime:
     """Context threaded through every layer."""
 
     rules: Any = None            # sharding rules: None until the distribution slice
-    use_kernels: bool = True     # attention, MoE dispatch, SSD scan through the hand-written kernels
+    use_kernels: bool = True     # attention, MoE dispatch, SSD and RWKV-6 scans through the hand-written kernels
 
     def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
         if self.rules is not None:
             raise NotImplementedError("sharding rules come with the distribution slice")
         return x
+
+
+# ---------------------------------------------------------------------------
+# Activations as the reference's framework rounds them
+# ---------------------------------------------------------------------------
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as the reference's framework computes it, x · 1/(1 + exp(−x)),
+    each operation rounded to x's type.  ``F.silu`` rounds once and, in
+    bfloat16, lies one ulp away in about 40 % of the elements; the scans
+    carry such differences from layer to layer."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid as the reference's framework computes it, 1/(1 + exp(−x)),
+    each operation rounded to x's type.  ``torch.sigmoid`` rounds once and,
+    in bfloat16, lies one ulp away in about a third of the elements."""
+    return torch.reciprocal(1 + torch.exp(-x))
 
 
 # ---------------------------------------------------------------------------

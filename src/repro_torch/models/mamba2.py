@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import Runtime, rmsnorm, rmsnorm_spec
+from .layers import Runtime, _silu, rmsnorm, rmsnorm_spec
 from .param import ParamSpec
 
 
@@ -72,14 +72,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
     new_state = xp[:, -(K - 1):, :] if K > 1 else None
     return y + b, new_state
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """SiLU as the reference's framework computes it, x · 1/(1 + exp(−x)),
-    each operation rounded to x's type.  ``F.silu`` rounds once and, in
-    bfloat16, lies one ulp away in about 40 % of the elements; the scan
-    carries such differences from layer to layer."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def ssd_chunked(

@@ -118,3 +118,52 @@ def reference_scan_inputs(p, x, cfg):
     log_l = dt * -jnp.exp(p["A_log"].astype(jnp.float32))
     xh = xc.reshape(x.shape[0], x.shape[1], H, P)
     return conv_in, (xh * dt[..., None].astype(xh.dtype), log_l, Bm, Cm)
+
+
+def draw_time_mix(tm, cm, rng):
+    """An RWKV-6 layer's leaves that the reference initialises to zeros,
+    drawn non-zero in place (numpy trees, stacked or not): the token-shift
+    mixes ``mu`` ~ U(0, 1) of the time-mix ``tm`` and channel-mix ``cm``, the
+    decay's bias ``w0`` ~ randn - 1 and the bonus ``bonus_u`` ~ 0.3 randn.
+    With zeros the token shift, the bonus and the decay's bias do nothing, so
+    a parity test could not see them wrong."""
+    for p in (tm, cm):
+        p["mu"] = rng.uniform(0.0, 1.0, p["mu"].shape).astype(np.float32)
+    tm["w0"] = (rng.standard_normal(tm["w0"].shape) - 1.0).astype(np.float32)
+    tm["bonus_u"] = (0.3 * rng.standard_normal(tm["bonus_u"].shape)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def reference_rwkv_scan(kernel: bool):
+    """With ``kernel``, the reference's ``timemix_apply`` runs its prefill
+    scan through its own Pallas ``rwkv6_scan`` (interpret mode on the CPU) in
+    place of its model twin ``rwkv6_chunked``.  The port's kernel path is
+    held against that reference as well as against the twin."""
+    import repro.models.rwkv6 as RW
+    from repro.kernels import ops
+
+    twin = RW.rwkv6_chunked
+    if kernel:
+        RW.rwkv6_chunked = lambda r, k, v, w, u, chunk, s0=None, unroll=False: ops.rwkv6_scan(
+            r, k, v, w, u, chunk=chunk)
+    try:
+        yield
+    finally:
+        RW.rwkv6_chunked = twin
+
+
+def reference_rwkv_scan_inputs(p, x, cfg):
+    """The reference's ``timemix_apply`` up to the scan (rwkv6.py:172-191),
+    which it computes and does not return: r, k, v, w as (B,S,H,N) and u."""
+    import repro.models.rwkv6 as RW
+
+    B, S, _ = x.shape
+    H, N = cfg.n_heads, cfg.head_dim
+    xprev = RW._token_shift(x, None)
+    mu = p["mu"]
+    r, k, v = (jnp.einsum("bsd,de->bse", RW._lerp(x, xprev, mu[i]), p[n])
+               for i, n in enumerate(("wr", "wk", "wv")))
+    xw = RW._lerp(x, xprev, mu[4])
+    wlog = p["w0"][None, None] + jnp.einsum("bsd,dl,le->bse", xw, p["w_lora_a"], p["w_lora_b"])
+    w = jnp.exp(-jnp.exp(wlog.astype(jnp.float32)))
+    return tuple(t.reshape(B, S, H, N) for t in (r, k, v, w)) + (p["bonus_u"].reshape(H, N),)

@@ -110,3 +110,42 @@ def test_moe_dispatch_kernel_matches_plain(cuda, B, T, E, C, D, dense, dtype):
     o, r = o.float(), r.float()
     limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
     assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N,chunk,kind", [
+    (1, 64, 1, 16, 32, "randn"), (2, 128, 2, 32, 32, "randn"), (1, 256, 4, 64, 128, "randn"),
+    (1, 128, 1, 16, 128, "extreme"), (2, 77, 3, 32, 128, "s0"), (2, 1, 3, 32, 128, "s0"),
+    (2, 256, 4, 32, 16, "randn"), (4, 512, 32, 64, 128, "randn"),
+])
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
+    """r, k, v of scale 0.5, w = 0.98 sigmoid(randn) + 0.01 and u of scale
+    0.3, as the reference's test draws them.  y and the state in float32
+    within 5e-5 (the reference test's tolerance; 5e-4 for the extreme decay
+    w = 1e-6, the reference test's for it); y in bfloat16 within one bf16 ulp
+    of each element plus that limit (both are fp32 inside and round once);
+    the state of bf16 runs within it."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw(shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    r, k, v = (draw((B, S, H, N)).to(dtype) for _ in range(3))
+    if kind == "extreme":
+        w = torch.full((B, S, H, N), 1e-6, device=cuda)
+    else:
+        w = torch.sigmoid(draw((B, S, H, N), 1.0)) * 0.98 + 0.01
+    u = draw((H, N), 0.3).to(dtype)
+    s0 = draw((B, H, N, N)) if kind == "s0" else None
+    before = rwkv6_scan.launches
+    y, s = rwkv6_scan(r, k, v, w, u, chunk=chunk, s0=s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    yr, sr = rwkv6_scan_plain(r, k, v, w, u, chunk=chunk, s0=s0)
+    lim = 5e-4 if kind == "extreme" else 5e-5
+    y, yr = y.float(), yr.float()
+    limit = torch.full_like(yr, lim) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + lim
+    assert torch.isfinite(y).all() and ((y - yr).abs() <= limit).all()
+    assert ((s - sr).abs() <= lim).all()

@@ -5,6 +5,7 @@ Tolerances as tests/test_kernels.py: flash attention float32 2e-5 (sums in
 another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); SSD
 scan 5e-5 on y and the final state; MoE dispatch 1e-5."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +17,11 @@ from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import BF16_ULP, TDT, both, max_err, rand, to_np
+from _torch_parity import BF16_ULP, JDT, TDT, both, max_err, rand, to_np
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -161,7 +163,7 @@ def test_launch_count_untouched_on_cpu():
     reset_launch_counts()
     _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
     flash_attention(q, k, v)
-    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}   # CPU tensors
+    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
 
 
@@ -189,11 +191,12 @@ def torch_of(arrays, dtype="float32"):
             torch.from_numpy(Bm).to(TDT[dtype]), torch.from_numpy(Cm).to(TDT[dtype]))
 
 
-def bf16_excess(o, r) -> float:
+def bf16_excess(o, r, fp32_diff=1e-5) -> float:
     """Largest |o - r| over its limit, one bf16 ulp of the element (2^-7 |r|)
-    plus 1e-5: both round one fp32 result once."""
+    plus ``fp32_diff``, how far the fp32 results beneath may lie apart: both
+    round one fp32 result once."""
     o, r = to_np(o).astype(np.float64), to_np(r).astype(np.float64)
-    return float(np.max(np.abs(o - r) / (BF16_ULP * np.abs(r) + 1e-5)))
+    return float(np.max(np.abs(o - r) / (BF16_ULP * np.abs(r) + fp32_diff)))
 
 
 class TestSSDScan:
@@ -277,7 +280,7 @@ class TestSSDScan:
         y, h = ssd_scan(*args, chunk=16)
         yp, hp = ssd_scan_plain(*args, chunk=16)
         assert torch.equal(y, yp) and torch.equal(h, hp)
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
 
     def test_strided_inputs(self):
         """B and C as the model hands them over: slices of one conv output"""
@@ -316,6 +319,168 @@ class TestSSDScan:
             xh, ll, Bm, Cm = (torch.empty(t.shape, device="meta") for t in (xh, ll, Bm, Cm))
         with pytest.raises(ValueError):
             ops.ssd_scan(xh, ll, Bm, Cm, chunk=256 if bad == "chunk" else 8, h0=h0)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 scan: the reference's TestRWKV6Scan restated, and what the port adds
+# ---------------------------------------------------------------------------
+
+
+def rwkv_inputs(seed, B, S, H, N, w=None, u_scale=0.3):
+    """As tests/test_kernels.py draws them: r, k, v of scale 0.5, the decay
+    w = 0.98 sigmoid(randn) + 0.01 unless given, the bonus u of scale 0.3."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rand(rng, (B, S, H, N)) for _ in range(3))
+    if w is None:
+        w = (0.98 / (1 + np.exp(-rng.standard_normal((B, S, H, N)))) + 0.01).astype(np.float32)
+    else:
+        w = np.full((B, S, H, N), w, np.float32)
+    return r, k, v, w, rand(rng, (H, N), u_scale)
+
+
+def rwkv_torch(arrays, dtype="float32"):
+    """r, k, v and u in ``dtype``; w stays float32, as the model hands it over."""
+    r, k, v, w, u = (torch.from_numpy(a) for a in arrays)
+    return r.to(TDT[dtype]), k.to(TDT[dtype]), v.to(TDT[dtype]), w, u.to(TDT[dtype])
+
+
+def rwkv_jax(arrays, dtype="float32"):
+    r, k, v, w, u = (jnp.asarray(a) for a in arrays)
+    return r.astype(JDT[dtype]), k.astype(JDT[dtype]), v.astype(JDT[dtype]), w, u.astype(JDT[dtype])
+
+
+class TestRWKV6Scan:
+    @pytest.mark.parametrize("B,S,H,N,chunk", [
+        (1, 64, 1, 16, 32),
+        (2, 128, 2, 32, 32),
+        (1, 256, 4, 64, 128),
+    ])
+    def test_matches_recurrence(self, B, S, H, N, chunk):
+        """the plain version against the reference's token recurrence and its
+        Pallas kernel (interpret mode), 5e-5 on y and the state, on the
+        reference test's own inputs (tests/test_kernels.py draws them from
+        jax.random key 42): at (1, 256, 4, 64) the fp32 chunked form lies
+        ~4e-5 from the recurrence, the reference's kernel too, so the limit is
+        held on the data the reference holds its kernel to"""
+        ks = jax.random.split(jax.random.PRNGKey(42), 5)
+        draws = [jax.random.normal(ks[i], (B, S, H, N), jnp.float32) * 0.5 for i in range(3)]
+        w = jax.nn.sigmoid(jax.random.normal(ks[3], (B, S, H, N))) * 0.98 + 0.01
+        j = (*draws, w, jax.random.normal(ks[4], (H, N), jnp.float32) * 0.3)
+        args = [torch.from_numpy(np.array(a)) for a in j]
+        y, s = rwkv6_scan_plain(*args, chunk=chunk)
+        assert y.shape == (B, S, H, N) and y.dtype == torch.float32
+        assert s.shape == (B, H, N, N) and s.dtype == torch.float32
+        yp, sp = ref_ops.rwkv6_scan(*j, chunk=chunk, tile=16)          # Pallas, interpret
+        yr, sr = ref_ref.rwkv6_scan_ref(*j)
+        for port, ref_ in ((y, yp), (s, sp), (y, yr), (s, sr)):
+            assert max_err(port, ref_) <= 5e-5
+        yo, so = ref.rwkv6_scan_ref(*args)                              # the port's own oracle
+        assert max_err(y, yo) <= 5e-5 and max_err(s, so) <= 5e-5
+        yw, sw = ops.rwkv6_scan(*args, chunk=chunk)                     # the wrapper, on the CPU
+        assert torch.equal(yw, y) and torch.equal(sw, s)
+
+    @pytest.mark.parametrize("chunk", [64, 128])
+    def test_extreme_decay_stable(self, chunk):
+        """w = 1e-6: the decays that overflow exp(-cum) in the factored form;
+        finite, and within the reference test's 5e-4 of the recurrence"""
+        arrays = rwkv_inputs(61, 1, 128, 1, 16, w=1e-6, u_scale=0.5)
+        y, s = rwkv6_scan(*rwkv_torch(arrays), chunk=chunk)
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
+        yr, sr = ref_ref.rwkv6_scan_ref(*rwkv_jax(arrays))
+        assert max_err(y, yr) <= 5e-4 and max_err(s, sr) <= 5e-4
+
+    @pytest.mark.parametrize("S", [1, 77, 200])
+    @pytest.mark.parametrize("with_s0", [False, True])
+    def test_ragged_and_initial_state(self, S, with_s0):
+        """any S (a partial last chunk) and an initial state, where the
+        reference's kernel asserts whole chunks and takes none: against the
+        reference's token-level recurrence, which takes both"""
+        B, H, N = 2, 3, 16
+        arrays = rwkv_inputs(62 + S, B, S, H, N)
+        s0 = rand(np.random.default_rng(S), (B, H, N, N)) if with_s0 else None
+        y, s = rwkv6_scan(*rwkv_torch(arrays), chunk=64,
+                          s0=None if s0 is None else torch.from_numpy(s0))
+        yr, sr = ref_ref.rwkv6_scan_ref(*rwkv_jax(arrays), s0=None if s0 is None else jnp.asarray(s0))
+        assert max_err(y, yr) <= 5e-5 and max_err(s, sr) <= 5e-5
+
+    @pytest.mark.parametrize("S,with_s0", [(128, False), (77, True)])
+    def test_oracle_matches_reference_oracle(self, S, with_s0):
+        arrays = rwkv_inputs(63, 2, S, 2, 32)
+        s0 = rand(np.random.default_rng(2), (2, 2, 32, 32)) if with_s0 else None
+        yo, so = ref.rwkv6_scan_ref(*rwkv_torch(arrays), s0=None if s0 is None else torch.from_numpy(s0))
+        yr, sr = ref_ref.rwkv6_scan_ref(*rwkv_jax(arrays), s0=None if s0 is None else jnp.asarray(s0))
+        assert max_err(yo, yr) <= 5e-5 and max_err(so, sr) <= 5e-5
+
+    def test_partial_chunk_is_zero_padding(self):
+        """a partial last chunk computes what a chunk padded with r = k = v = 0
+        and w = 1 rows computes"""
+        r, k, v, w, u = rwkv_torch(rwkv_inputs(64, 2, 100, 2, 16))
+        y, s = rwkv6_scan_plain(r, k, v, w, u, chunk=64)
+        pad = [torch.cat([t, torch.full((2, 28, 2, 16), fill)], dim=1)
+               for t, fill in ((r, 0.0), (k, 0.0), (v, 0.0), (w, 1.0))]
+        yp, sp = rwkv6_scan_plain(*pad, u, chunk=64)
+        assert max_err(y, yp[:, :100]) <= 1e-6 and max_err(s, sp) <= 1e-6
+
+    def test_bfloat16(self):
+        """r, k, v and u in bf16 (w float32, as the model's): y within one
+        bf16 ulp of the Pallas kernel's, which also works in fp32 inside, plus
+        5e-5 (the fp32 tolerance: outputs reach 12 here, and an element near
+        zero carries the fp32 sums' whole difference); the state within 5e-5"""
+        arrays = rwkv_inputs(65, 2, 256, 4, 32)
+        y, s = rwkv6_scan(*rwkv_torch(arrays, "bfloat16"), chunk=128)
+        assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+        yp, sp = ref_ops.rwkv6_scan(*rwkv_jax(arrays, "bfloat16"), chunk=128, tile=16)
+        assert bf16_excess(y, yp, 5e-5) <= 1.0 and max_err(s, sp) <= 5e-5
+        yo, so = ref.rwkv6_scan_ref(*rwkv_torch(arrays, "bfloat16"))
+        assert bf16_excess(y, yo, 5e-5) <= 1.0 and max_err(s, so) <= 5e-5
+
+    def test_plain_version_is_the_wrapper_on_cpu(self):
+        reset_launch_counts()
+        args = rwkv_torch(rwkv_inputs(66, 1, 40, 2, 16))
+        y, s = rwkv6_scan(*args, chunk=16)
+        yp, sp = rwkv6_scan_plain(*args, chunk=16)
+        assert torch.equal(y, yp) and torch.equal(s, sp)
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+
+    def test_strided_inputs(self):
+        """r, k, v as the model hands them over: (B, S, H, N) views of
+        slices of one wider tensor"""
+        r, k, v, w, u = rwkv_torch(rwkv_inputs(67, 2, 64, 2, 16))
+        wide = torch.cat([r, k, v], dim=-1)                    # (B, S, H, 3N)
+        y, s = ops.rwkv6_scan(wide[..., :16], wide[..., 16:32], wide[..., 32:], w, u, chunk=32)
+        y0, s0 = ops.rwkv6_scan(r, k, v, w, u, chunk=32)
+        assert torch.equal(y, y0) and torch.equal(s, s0)
+
+    @pytest.mark.parametrize("bad", ["rank", "seq", "bonus", "dtype", "mixed", "w_dtype",
+                                     "chunk", "width", "s0", "empty", "device"])
+    def test_wrapper_raises(self, bad):
+        r = k = v = w = torch.zeros(2, 8, 4, 16)
+        u, s0 = torch.zeros(4, 16), None
+        if bad == "rank":
+            r = r[0]
+        elif bad == "seq":
+            k = torch.zeros(2, 9, 4, 16)
+        elif bad == "bonus":
+            u = torch.zeros(3, 16)
+        elif bad == "dtype":
+            r, k, v = r.half(), k.half(), v.half()
+        elif bad == "mixed":
+            k = k.bfloat16()
+        elif bad == "w_dtype":
+            w = w.double()
+        elif bad == "chunk":
+            pass                               # chunk=256 below: more rows than the kernel holds
+        elif bad == "width":
+            r = k = v = w = torch.zeros(2, 8, 4, 18)
+            u = torch.zeros(4, 18)
+        elif bad == "s0":
+            s0 = torch.zeros(2, 4, 16, 15)
+        elif bad == "empty":
+            r = k = v = w = torch.zeros(2, 0, 4, 16)
+        elif bad == "device":
+            r, k, v, w, u = (torch.empty(t.shape, device="meta") for t in (r, k, v, w, u))
+        with pytest.raises(ValueError):
+            ops.rwkv6_scan(r, k, v, w, u, chunk=256 if bad == "chunk" else 8, s0=s0)
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +581,7 @@ class TestMoEDispatch:
         rng = np.random.default_rng(9)
         disp, x = torch.from_numpy(one_hot_disp(rng, 16, 2, 8)), torch.from_numpy(rand(rng, (16, 32)))
         assert torch.equal(moe_dispatch(disp, x), moe_dispatch_plain(disp, x))
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
 
     @pytest.mark.parametrize("bad", ["rank", "tokens", "batch", "dtype", "mixed", "empty", "device"])
     def test_wrapper_raises(self, bad):

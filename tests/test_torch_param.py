@@ -17,7 +17,7 @@ from repro_torch.models import param as P
 from _torch_parity import carry, to_np
 
 ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b",
-         "zamba2_1_2b", "mixtral_8x22b", "dbrx_132b"]
+         "zamba2_1_2b", "rwkv6_1_6b", "mixtral_8x22b", "dbrx_132b"]
 
 
 def test_registry():
@@ -25,7 +25,7 @@ def test_registry():
     assert set(ARCHS) <= set(ref_configs.ARCH_IDS)
     assert port_configs.CANONICAL == {a.replace("_", "-"): a for a in ARCHS}
     with pytest.raises(ValueError, match="not ported"):
-        port_configs.load("rwkv6-1.6b")
+        port_configs.load("whisper-base")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -40,6 +40,8 @@ def test_param_count_full_config(arch):
     assert P.param_bytes(port.param_specs()) == 2 * ref
     if arch == "zamba2_1_2b":
         assert ref == 1_170_473_856
+    if arch == "rwkv6_1_6b":
+        assert ref == 1_584_046_080
 
 
 @pytest.mark.parametrize("smoke", [True, False])
@@ -64,6 +66,9 @@ def test_config_fields(arch, smoke):
         assert ph.cfg.n_shared_calls == rh.cfg.n_shared_calls
         ra, pa = dataclasses.asdict(rh.cfg.attn), dataclasses.asdict(ph.cfg.attn)
         assert all(pa[k] == v for k, v in ra.items()), (ra, pa)
+    if rh.family == "ssm":                      # the derived time-mix config
+        assert dataclasses.asdict(ph.cfg.inner) == dataclasses.asdict(rh.cfg.inner)
+        assert ph.cfg.inner.n_heads == rh.cfg.inner.n_heads
     assert ph.skip_reason("long_500k") == rh.skip_reason("long_500k")
 
 

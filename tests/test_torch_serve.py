@@ -1,12 +1,14 @@
 """The slices as a whole: ``repro_torch.launch.serve.run`` (prefill + greedy
-KV-cache or recurrent decode) on the granite-8b, mixtral-8x22b and zamba2
-smoke configs against the reference's prefill + decode loop, from the same
-carried weights and the same prompts.
+KV-cache or recurrent decode) on the granite-8b, mixtral-8x22b, zamba2 and
+rwkv6 smoke configs against the reference's prefill + decode loop, from the
+same carried weights and the same prompts.
 
-For zamba2 the reference's loop does not use its ``HybridHarness.prefill``,
-which returns the state it was given (tests/test_torch_hybrid.py): its
-prefill is the last logits of ``forward`` and the state its ``decode_step``
-reaches fed the prompt one token at a time."""
+For zamba2 and rwkv6 the reference's loop does not use its
+``HybridHarness.prefill`` / ``RWKVHarness.prefill``, which return the state
+they were given (tests/test_torch_hybrid.py, tests/test_torch_rwkv_lm.py):
+its prefill is the last logits of ``forward`` and the state its
+``decode_step`` reaches fed the prompt one token at a time.  rwkv6's
+zero-initialised ``mu``, ``w0`` and ``bonus_u`` are drawn non-zero."""
 
 import argparse
 
@@ -24,7 +26,7 @@ import repro_torch.configs as port_configs
 from repro_torch.launch import serve
 from repro_torch.models.layers import Runtime
 
-from _torch_parity import JDT, TDT, carry, reference_scan, to_np
+from _torch_parity import JDT, TDT, carry, draw_time_mix, reference_rwkv_scan, reference_scan, to_np
 
 BATCH, PROMPT, GEN, SEED = 2, 16, 5, 3
 
@@ -44,13 +46,17 @@ def reference_loop(dtype, feed=None, arch="granite-8b"):
     replaces the greedy ids that are fed back, for comparing logits."""
     h = ref_configs.load(arch, smoke=True).clone(dtype=JDT[dtype])
     params = ref_param.tree_init(h.param_specs(), jax.random.PRNGKey(1))
+    if h.family == "ssm":
+        params = to_np(params)
+        draw_time_mix(params["blocks"]["tm"], params["blocks"]["cm"], np.random.default_rng(1))
+        params = jax.tree.map(jnp.asarray, params)
     vocab = h.cfg.vocab_size
     prompts = np.random.default_rng(SEED).integers(0, vocab, size=(BATCH, PROMPT), dtype=np.int32)
     cell = RefCell("serve", "decode", PROMPT + GEN + 8, BATCH)
     cache = ref_param.tree_init(h.serve_state_specs(cell), jax.random.PRNGKey(0))
     rt = RefRuntime(rules=None)
     prefill, decode = jax.jit(h.prefill(rt)), jax.jit(h.decode(rt))
-    if h.family == "hybrid":
+    if h.family in ("hybrid", "ssm"):
         for t in range(PROMPT):
             _, cache = decode(params, cache, jnp.asarray(prompts[:, t:t + 1]), jnp.asarray(t, jnp.int32))
         logits = h.prefill(rt)(params, cache, jnp.asarray(prompts))[0]   # forward's last logits
@@ -78,7 +84,7 @@ def test_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     # float32, the same arithmetic in another order of sums
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}   # CPU: plain versions
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}   # CPU: plain versions
     assert res["prefill_s"] > 0 and res["decode_s_per_token"] > 0
 
 
@@ -92,7 +98,7 @@ def test_mixtral_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -105,7 +111,7 @@ def test_zamba2_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -119,6 +125,34 @@ def test_zamba2_logits_close_to_reference_bf16(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     with reference_scan(use_kernels):
         _, _, ref_logits = reference_loop("bfloat16", feed=res["tokens"], arch="zamba2-1.2b")
+    tol = 3e-2 * max(1.0, np.abs(ref_logits).max())
+    np.testing.assert_allclose(res["logits"], ref_logits, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_rwkv6_greedy_ids_equal_reference_fp32(use_kernels):
+    """the RWKV-6 slice: every layer's scan in prefill and its recurrence in
+    decode, float32 as above"""
+    params, ref_ids, ref_logits = reference_loop("float32", arch="rwkv6-1.6b")
+    h = port_configs.load("rwkv6-1.6b", smoke=True).clone(dtype=torch.float32)
+    res = serve.run(args_for(arch="rwkv6-1.6b"), harness=h, params=carry(params),
+                    rt=Runtime(use_kernels=use_kernels))
+    np.testing.assert_array_equal(res["tokens"], ref_ids)
+    np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_rwkv6_logits_close_to_reference_bf16(use_kernels):
+    """bf16, the reference fed the port's ids, 3e-2 of the largest |logit|;
+    the kernel path against the reference with its prefill scan through its
+    own Pallas kernel"""
+    h = port_configs.load("rwkv6-1.6b", smoke=True)
+    params, _, _ = reference_loop("bfloat16", arch="rwkv6-1.6b")
+    res = serve.run(args_for(arch="rwkv6-1.6b"), harness=h, params=carry(params, torch.bfloat16),
+                    rt=Runtime(use_kernels=use_kernels))
+    with reference_rwkv_scan(use_kernels):
+        _, _, ref_logits = reference_loop("bfloat16", feed=res["tokens"], arch="rwkv6-1.6b")
     tol = 3e-2 * max(1.0, np.abs(ref_logits).max())
     np.testing.assert_allclose(res["logits"], ref_logits, atol=tol, rtol=0)
 
@@ -152,7 +186,7 @@ def test_draws_its_own_weights_and_samples():
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-3-2b", "starcoder2-7b",
-                                  "zamba2-1.2b", "mixtral-8x22b", "dbrx-132b"])
+                                  "zamba2-1.2b", "rwkv6-1.6b", "mixtral-8x22b", "dbrx-132b"])
 def test_other_archs_serve(arch):
     res = serve.run(args_for(arch=arch))
     assert res["tokens"].shape == (BATCH, GEN) and np.isfinite(res["logits"]).all()
