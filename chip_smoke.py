@@ -580,7 +580,7 @@ def _rwkv_row(gen) -> dict:
     (the reference test's tolerance), y in bf16 within one ulp of the
     element (both are fp32 inside and round once), the state of bf16 runs
     within 5e-5; the plain version held to the oracle alike.  The bf16 limit's
-    absolute term is the fp32 limit (5e-5), not 1e-5: the outputs reach 15 at
+    absolute term is the fp32 limit (5e-5), not 1e-5: the outputs reach 16 at
     head_dim 64, where the fp32 sums beneath differ by up to 5e-5, and an
     element near zero carries that whole difference.  The extreme decay
     (w = 1e-6) is held at 5e-4, the reference test's tolerance for it: the

@@ -20,7 +20,7 @@
 //  * Per chunk the block stages r and k transposed ([n][row], so a thread
 //    reads 4 neighbouring rows as one 16-byte load), v as [row][n], all as
 //    fp32, and sums the log decays per channel in fp64 (each channel's rows
-//    in 4 segments, then the segments' offsets).
+//    in 16 segments, then the segments' offsets).
 //  * The intra-chunk scores are the DIRECT pairwise form,
 //    2^((cum_{i-1} - cum_j)), for j < i only: the strictly-lower mask is
 //    applied before any exponential (the diagonal is the bonus, above it
@@ -38,13 +38,17 @@
 //    reference's fp32 (cum_i - l_i) - cum_j carries ulps of |cum| (up to
 //    the whole chunk's decay).
 //  * One thread computes a 4 x 4 micro-tile of scores (rows i0..i0+3, keys
-//    j0..j0+3) over all N channels, 16 exponentials per channel; the
-//    micro-tiles on or below the diagonal are dealt round the 256 threads.
+//    j0..j0+3) over all N channels, 16 exponentials per channel; the 528
+//    micro-tiles on or below the diagonal (Q = 128) go one to a thread of
+//    1024, so 16 warps an SM keep the special-function units busy (a first
+//    version with 256 threads, two rounds of micro-tiles and a branch of its
+//    own for the diagonal ones ran at a quarter of their rate).  Every
+//    micro-tile runs the same instructions: on the diagonal the exponents
+//    of j >= i are set to -inf before ex2 and the bonus added by a select.
 //    Then r and k are scaled in place by their decays to the chunk's edges
 //    (2^(cum_{i-1}) and 2^(cum_last - cum_j)) and two register-tiled
-//    products follow: y = att v + r' S (4 x 4 tiles, each thread takes row
-//    groups g and Q/4 - 1 - g so that every thread walks the same number of
-//    rows) and the state update S = S 2^(cum_last) + k'^T v (4 x 4 tiles).
+//    products follow: y = att v + r' S (one 4 x 4 tile a thread) and the
+//    state update S = S 2^(cum_last) + k'^T v (4 x 4 tiles).
 //  * Any S: a partial last chunk is staged with zero rows (r = k = v = 0,
 //    l = 0), which add nothing to the state and do not decay it; their y is
 //    not written.  An initial state s0 may be given.  Q <= 128, N a multiple
@@ -59,14 +63,15 @@
 // shape (Q (Q - 1) / 2 pairs x N channels a chunk and head), each one MUFU
 // ex2 at 16 an SM a clock, >= 0.064 ms on 132 SMs at 1.98 GHz (the
 // products, 2.2 GFLOP of fp32 FMA, >= 0.033 ms at 67 TFLOP/s).  One block of
-// 256 threads an SM (225 KB of shared memory at Q = 128, N = 64).
+// 1024 threads an SM (225 KB of shared memory at Q = 128, N = 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 1024;
+constexpr int NSEG = THREADS / 64;   // row segments of the cumulative sums, one thread a channel each
 constexpr int TILE = 16;
 
 struct Params {
@@ -187,10 +192,10 @@ __global__ void __launch_bounds__(THREADS) rwkv6_scan_kernel(const Params p) {
     }
     __syncthreads();
 
-    // ---- cumulative sums per channel in fp64: 4 segments of QP/4 rows
+    // ---- cumulative sums per channel in fp64: NSEG segments of QP/NSEG rows
     {
-      const int seg = QP / 4, n = tid % N, g = tid / N;
-      const bool mine = tid < 4 * N;
+      const int seg = QP / NSEG, n = tid % N, g = tid / N;
+      const bool mine = tid < NSEG * N;
       if (mine) {
         double run = 0.0;
         for (int j = g * seg; j < (g + 1) * seg; ++j) cum[j * N + n] = run += cum[j * N + n];
@@ -238,42 +243,32 @@ __global__ void __launch_bounds__(THREADS) rwkv6_scan_kernel(const Params p) {
         const int ti = i0 / TILE, tj = j0 / TILE;
         const float* D = dt + (ti * (ti + 1) / 2 + tj) * N;
         const bool first = i0 % TILE == 0;   // c_{i0-1} lies in the tile before: e = 0
+        const bool diag = A == B;         // i0 == j0, D = 0: j < i exponentials, j = i the bonus
         float acc[4][4];
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-        if (A != B) {
-          for (int n = 0; n < N; ++n) {
-            float ri[4], kj[4], cj[4], ci[4];
-            load4(rt + n * LD + i0, ri);
-            load4(kt + n * LD + j0, kj);
-            load4(ct + n * LD + j0, cj);
-            load4(ct + n * LD + i0, ci);
-            const float dn = D[n];
-            // cum_{i-1} - R_ti + D for the four rows
-            const float e[4] = {dn + (first ? 0.f : ct[n * LD + i0 - 1]), dn + ci[0], dn + ci[1], dn + ci[2]};
+        // one instruction stream for every micro-tile (no divergence within a
+        // warp): on the diagonal the exponents of j >= i are -inf before ex2
+        for (int n = 0; n < N; ++n) {
+          float ri[4], kj[4], cj[4], ci[4];
+          load4(rt + n * LD + i0, ri);
+          load4(kt + n * LD + j0, kj);
+          load4(ct + n * LD + j0, cj);
+          load4(ct + n * LD + i0, ci);
+          const float dn = D[n];
+          const float ud = diag ? us[n] : 0.f;
+          // cum_{i-1} - R_ti + D for the four rows
+          const float e[4] = {dn + (first ? 0.f : ct[n * LD + i0 - 1]), dn + ci[0], dn + ci[1], dn + ci[2]};
 #pragma unroll
-            for (int a = 0; a < 4; ++a)
+          for (int a = 0; a < 4; ++a) {
 #pragma unroll
-              for (int c = 0; c < 4; ++c)
-                acc[a][c] = fmaf(ri[a] * kj[c], exp2_approx(e[a] - cj[c]), acc[a][c]);
-          }
-        } else {                          // i0 == j0, D = 0: j < i exponentials, j = i the bonus
-          for (int n = 0; n < N; ++n) {
-            float ri[4], kj[4], ci[4];
-            load4(rt + n * LD + i0, ri);
-            load4(kt + n * LD + i0, kj);
-            load4(ct + n * LD + i0, ci);
-            const float e[4] = {first ? 0.f : ct[n * LD + i0 - 1], ci[0], ci[1], ci[2]};
-            const float un = us[n];
-#pragma unroll
-            for (int a = 0; a < 4; ++a) {
-#pragma unroll
-              for (int c = 0; c < a; ++c)
-                acc[a][c] = fmaf(ri[a] * kj[c], exp2_approx(e[a] - ci[c]), acc[a][c]);
-              acc[a][a] = fmaf(ri[a] * kj[a], un, acc[a][a]);
+            for (int c = 0; c < 4; ++c) {
+              const float d = (c >= a && diag) ? -INFINITY : e[a] - cj[c];
+              acc[a][c] = fmaf(ri[a] * kj[c], exp2_approx(d), acc[a][c]);
             }
+            acc[a][a] = fmaf(ri[a] * kj[a], ud, acc[a][a]);
           }
         }
 #pragma unroll
@@ -294,45 +289,41 @@ __global__ void __launch_bounds__(THREADS) rwkv6_scan_kernel(const Params p) {
     }
     __syncthreads();
 
-    // ---- y = att v + r' S: row groups tr and QP/4 - 1 - tr, columns m0..m0+3
+    // ---- y = att v + r' S: one row group of 4 and 4 columns m0..m0+3 a thread
     {
-      const int m0 = 4 * (tid % 16), tr = tid / 16, ng = QP / 4;
-      if (tr < ng / 2 && m0 < N) {
-        for (int half = 0; half < 2; ++half) {
-          const int i0 = 4 * (half == 0 ? tr : ng - 1 - tr);
-          if (i0 >= q) continue;
-          float acc[4][4];
+      const int m0 = 4 * (tid % 16), i0 = 4 * (tid / 16);
+      if (i0 < q && m0 < N) {
+        float acc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+        const int jmax = min(i0 + 3, q - 1);
+        for (int j = 0; j <= jmax; ++j) {
+          float at[4], vj[4];
+          load4(att + j * QP + i0, at);
+          load4(vs + j * N + m0, vj);
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-          const int jmax = min(i0 + 3, q - 1);
-          for (int j = 0; j <= jmax; ++j) {
-            float at[4], vj[4];
-            load4(att + j * QP + i0, at);
-            load4(vs + j * N + m0, vj);
+            for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(at[a], vj[c], acc[a][c]);
+        }
+        for (int n = 0; n < N; ++n) {
+          float ri[4], sv[4];
+          load4(rt + n * LD + i0, ri);
+          load4(st + n * N + m0, sv);
 #pragma unroll
-            for (int a = 0; a < 4; ++a)
+          for (int a = 0; a < 4; ++a)
 #pragma unroll
-              for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(at[a], vj[c], acc[a][c]);
-          }
-          for (int n = 0; n < N; ++n) {
-            float ri[4], sv[4];
-            load4(rt + n * LD + i0, ri);
-            load4(st + n * N + m0, sv);
+            for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(ri[a], sv[c], acc[a][c]);
+        }
 #pragma unroll
-            for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a) {
+          const int i = i0 + a;
+          if (i >= q) break;
+          T* dst = y + (s0 + i) * y_ss + m0;
 #pragma unroll
-              for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(ri[a], sv[c], acc[a][c]);
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int i = i0 + a;
-            if (i >= q) break;
-            T* dst = y + (s0 + i) * y_ss + m0;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) from_float(dst + c, acc[a][c]);
-          }
+          for (int c = 0; c < 4; ++c) from_float(dst + c, acc[a][c]);
         }
       }
     }

@@ -108,8 +108,7 @@ def _run(rt, cfg: RWKVLMConfig, params, tokens, state, step: bool):
     x = L.embed(rt, params["embed"], tokens)
     x = L.layernorm(params["ln_in"], x).to(cfg.dtype)
     if state is not None:
-        state = {name: t if name == "tm_s" else t.to(torch.promote_types(t.dtype, cfg.dtype))
-                 for name, t in state.items()}
+        state = {name: t.to(torch.promote_types(t.dtype, cfg.dtype)) for name, t in state.items()}
     for i in range(cfg.n_layers):
         lp = tree_map(lambda t: t[i], params["blocks"])
         prev = {name: t[i] for name, t in state.items()} if step else None

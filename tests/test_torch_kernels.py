@@ -3,7 +3,8 @@ reference's Pallas kernels (interpret mode) and the reference's oracles.
 
 Tolerances as tests/test_kernels.py: flash attention float32 2e-5 (sums in
 another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); SSD
-scan 5e-5 on y and the final state; MoE dispatch 1e-5."""
+and RWKV-6 scans 5e-5 on y and the final state (RWKV-6's extreme decay
+5e-4); MoE dispatch 1e-5."""
 
 import jax
 import jax.numpy as jnp

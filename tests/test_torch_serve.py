@@ -26,7 +26,7 @@ import repro_torch.configs as port_configs
 from repro_torch.launch import serve
 from repro_torch.models.layers import Runtime
 
-from _torch_parity import JDT, TDT, carry, draw_time_mix, reference_rwkv_scan, reference_scan, to_np
+from _torch_parity import JDT, carry, draw_time_mix, reference_rwkv_scan, reference_scan, to_np
 
 BATCH, PROMPT, GEN, SEED = 2, 16, 5, 3
 
