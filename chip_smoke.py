@@ -10,8 +10,12 @@ every MoE layer's dispatch through the moe-dispatch kernel), zamba2-1.2b at
 full width and depth (every Mamba2 layer's prefill scan through the ssd-scan
 kernel, the shared attention block through the flash kernel) and rwkv6-1.6b
 at full width and depth (every layer's prefill scan through the rwkv6-scan
-kernel) — and holds every hand-written kernel of those paths against its
-plain PyTorch version on the card.  Phases, one JSON line each:
+kernel) — and its training path through ``repro_torch.launch.train.run``:
+granite-8b at full width and 8 of its 36 layers with int8-compressed
+gradients (attention and its recompute through the flash kernel, every
+gradient leaf's int8 payload through the ccu-reduce kernel).  It holds every
+hand-written kernel of those paths against its plain PyTorch version on the
+card.  Phases, one JSON line each:
 
 1. ``device``   torch version, device name, ``nvidia-smi`` name and power limit
 2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -31,6 +35,14 @@ plain PyTorch version on the card.  Phases, one JSON line each:
                 run their scans through the kernels' plain versions, beside
                 the models' twins, are held within how far the model carries
                 a one-ulp move of its prompt, and are held layer by layer
+6. ``train``    after the serving paths' weights are released: granite-8b
+                smoke, fp32 and bf16, kernel path vs plain path (losses,
+                first-step gradients, int8 payloads), then 40 steps through
+                the kernel path with int8 compression, whose loss must fall by
+                more than 0.5; then granite-8b at full width and 8 layers,
+                batch 8, seq 256, int8, a few steps through the kernel path
+                (launches counted from 0) and the same steps from the same
+                drawn weights through the plain path
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -41,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +78,10 @@ SERVE = dict(arch="granite-8b", batch=4, prompt_len=512, gen=16, seed=0)
 MIXTRAL = dict(SERVE, arch="mixtral-8x22b", n_layers=8)
 ZAMBA = dict(SERVE, arch="zamba2-1.2b")
 RWKV = dict(SERVE, arch="rwkv6-1.6b")
+# The training path: granite-8b at full width and 8 of its 36 layers (the
+# training state is 20 bytes a parameter, 42.95 GB at 8 layers, 162 GB at 36),
+# the reference train script's batch, sequence and int8 compression.
+TRAIN = dict(arch="granite-8b", n_layers=8, batch=8, seq=256, steps=4, seed=0, compression="int8")
 
 
 def emit(phase: str, **fields) -> None:
@@ -125,7 +142,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan"])
+    libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])
     seconds = time.perf_counter() - t0
     # ptxas -v: registers and spills of every instantiation, by library
     ptxas = {}
@@ -673,11 +690,122 @@ def _rwkv_row(gen) -> dict:
     }
 
 
+def _granite_leaf_sizes(n_layers: int) -> dict[str, int]:
+    """Elements of each of granite-8b's gradient leaves at ``n_layers``, in
+    the order the port flattens its trees."""
+    import math
+
+    from repro_torch.configs import load
+
+    flat = {}
+
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = math.prod(tree[k].shape)
+
+    walk(load("granite-8b").clone(n_layers=n_layers).param_specs(), "")
+    return flat
+
+
+def _ccu_cases():
+    """(P, N, dtype, scaled, layout) over the reference test's shapes, int8
+    with per-peer scales, ragged N, bf16, fp16 and fp32 peers, and views of
+    a larger buffer (every other row; a column slice, rows not 16-byte
+    aligned)."""
+    f32, bf16, f16, i8 = torch.float32, torch.bfloat16, torch.float16, torch.int8
+    cases = [(P, N, f32, False, "dense") for P, N in ((2, 512), (8, 2048), (16, 1024))]
+    cases += [(4, 1024, i8, True, "dense")]
+    for dt in (f32, bf16, f16, i8):
+        for N in (1, 77, 1027, 4099):
+            cases.append((3, N, dt, dt == i8, "dense"))
+        cases.append((5, 4096, dt, True, "rows"))
+        cases.append((5, 3001, dt, False, "cols"))
+    return cases
+
+
+def _ccu_row(gen) -> dict:
+    """The kernel against ``ccu_reduce_plain``, bit for bit, on every case
+    and at the main path's shapes (P = 1 and N of each of granite-8b's 12
+    gradient leaves at 8 layers, int8 with its scale, as ``compress_grads``
+    calls it), two runs bit-equal, and the reference test's shapes within its
+    1e-5 of the float64 oracle.  Times: the 12 leaves of one training step
+    summed (one launch each); bound: their bytes, P N elem + 4 N."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ccu_reduce import ccu_reduce_plain
+    from repro_torch.kernels.ref import ccu_reduce_ref
+
+    def draw(shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        return _rand(gen, shape, dt, 3.0)
+
+    cases = _ccu_cases()
+    for P, N, dt, scaled, layout in cases:
+        shape = (2 * P, N) if layout == "rows" else (P, N + 13) if layout == "cols" else (P, N)
+        bufs = draw(shape, dt)
+        bufs = bufs[::2] if layout == "rows" else bufs[:, 5:5 + N] if layout == "cols" else bufs
+        scales = torch.rand(P, generator=gen, device="cuda") * 1.5 + 0.5 if scaled else None
+        o, o2 = ops.ccu_reduce(bufs, scales), ops.ccu_reduce(bufs, scales)
+        torch.cuda.synchronize()
+        r = ccu_reduce_plain(bufs, scales)
+        oracle_err = (o - ccu_reduce_ref(bufs, scales)).abs().max().item()
+        exact = torch.equal(o, r) and torch.equal(o, o2)
+        if not exact or (dt == torch.float32 and not scaled and not oracle_err <= 1e-5):
+            raise SystemExit(f"ccu_reduce disagrees: {(P, N, dt, scaled, layout)} bit-equal to plain and "
+                             f"to itself {exact}, max |o - plain| {(o - r).abs().max().item()}, "
+                             f"vs the float64 oracle {oracle_err}")
+
+    leaves = _granite_leaf_sizes(TRAIN["n_layers"])
+    per_leaf, totals = {}, {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    nbytes_step = 0
+    for name, N in leaves.items():
+        q = draw((1, N), torch.int8)
+        scale = torch.rand(1, generator=gen, device="cuda") * 1e-3
+        o = ops.ccu_reduce(q, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(o, ccu_reduce_plain(q, scale)) or not torch.equal(o, ops.ccu_reduce(q, scale)):
+            raise SystemExit(f"ccu_reduce at the main path's leaf {name} (N = {N}) is not bit-equal to plain")
+        nbytes = q.numel() + 4 * N + 4
+        ms, call_ms = time_ms(lambda: ops.ccu_reduce(q, scale))
+        row = {"N": N, "ms": ms, "call_ms": call_ms,
+               "plain_ms": time_ms(lambda: ccu_reduce_plain(q, scale))[0],
+               "library_ms": time_ms(lambda: (q.float() * scale[:, None]).sum(0))[0],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        per_leaf[name] = row
+        for k in totals:
+            totals[k] += row[k]
+        nbytes_step += nbytes
+        del q, o
+        torch.cuda.empty_cache()
+    largest = max(per_leaf, key=lambda k: per_leaf[k]["N"])
+    return {
+        "name": "ccu_reduce",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ccu_reduce.cu",
+        "replaces": "src/repro/kernels/ccu_reduce.py:64",
+        "launches": None,            # filled in from the train phase's run
+        "shape": f"one training step of granite-8b at {TRAIN['n_layers']} layers: {len(leaves)} launches, "
+                 f"P = 1 int8 + scale, N = each gradient leaf",
+        "max_abs_err": 0.0,          # bit-equal, checked above
+        **totals,
+        "bound_by": "bytes",
+        "bytes": nbytes_step,
+        "library_call": "(bufs.float() * scales[:, None]).sum(0): no single PyTorch call keeps the order",
+        "largest_leaf": {"name": largest, **per_leaf[largest]},
+        "per_leaf": per_leaf,
+        "test_cases": len(cases),
+        "test_bit_equal": True,
+    }
+
+
 def phase_kernels() -> list[dict]:
     # fp32 comparisons need full-fp32 products in the plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return [_flash_row(gen), _moe_row(gen), _ssd_row(gen), _rwkv_row(gen)]
+    return [_flash_row(gen), _moe_row(gen), _ssd_row(gen), _rwkv_row(gen), _ccu_row(gen)]
 
 
 def _expected_launches(harness, gen: int) -> dict[str, int]:
@@ -691,14 +819,15 @@ def _expected_launches(harness, gen: int) -> dict[str, int]:
     and launch nothing else."""
     cfg = harness.cfg
     if harness.family == "ssm":
-        return {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": cfg.n_layers}
+        return {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": cfg.n_layers,
+                "ccu_reduce": 0}
     if harness.family == "hybrid":
         return {"flash_attention": cfg.n_shared_calls * gen, "moe_dispatch": 0,
-                "ssd_scan": cfg.n_layers, "rwkv6_scan": 0}
+                "ssd_scan": cfg.n_layers, "rwkv6_scan": 0, "ccu_reduce": 0}
     per_layer = cfg.n_layers * gen
     return {"flash_attention": per_layer,
             "moe_dispatch": per_layer if harness.family == "moe" else 0,
-            "ssd_scan": 0, "rwkv6_scan": 0}
+            "ssd_scan": 0, "rwkv6_scan": 0, "ccu_reduce": 0}
 
 
 @contextlib.contextmanager
@@ -1154,6 +1283,144 @@ def _serve_path(spec: dict) -> dict[str, int]:
     return counts
 
 
+def _int8_values(payload: torch.Tensor) -> torch.Tensor:
+    """The int8 values q of a leaf's payload q * scale (its largest |q| is
+    127, so scale is its largest |value| / 127), on the host; worked out 64 M
+    elements at a time, so the device holds little more than the step does."""
+    top = payload.abs().amax().clamp(min=1e-30)
+    return torch.cat([torch.round(c * (127.0 / top)).to(torch.int8).cpu()
+                      for c in payload.reshape(-1).split(1 << 26)])
+
+
+def _train_expected_launches(harness, steps: int, n_leaves: int) -> dict[str, int]:
+    """Under the ``"nothing"`` remat every layer's attention runs twice a
+    step, in the forward and in the backward's recompute; every gradient
+    leaf's int8 payload is reduced once a step."""
+    return {"flash_attention": 2 * harness.cfg.n_layers * steps, "moe_dispatch": 0, "ssd_scan": 0,
+            "rwkv6_scan": 0, "ccu_reduce": n_leaves * steps}
+
+
+def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[dict, dict[str, int], dict]:
+    """``args.steps`` steps through the kernel path, every launch count set to
+    0 just before and read just after, then the same steps from the same
+    weights through the plain path (``use_kernels=False``: sdpa + mask bias
+    for attention; the compression's reduce is the optimizer's and launches
+    ccu_reduce on both).  The weights are drawn anew from ``args.seed`` for
+    each run unless ``params`` is given (then a copy serves each run), so
+    that one training state is held at a time.  The first step's gradients
+    (before compression) and int8 values are kept on the host and compared
+    leaf by leaf.  float32: losses within 1e-4, gradients within 2e-5.
+    bfloat16: losses within 3e-2, each leaf's gradients within 3e-2 of its
+    largest |g| (bf16 gradients are sums of rounded products, and the kernel
+    path keeps its attention probabilities in fp32 where sdpa rounds them).
+    The share of int8 values that differ is reported, not held: a rounding
+    apart in attention may move a value across a quantisation step."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_leaves, tree_map
+
+    kept = {}
+
+    def keep(step, loss, grads, payload):
+        if step == 0:
+            kept["grads"] = [g.to("cpu") for g in tree_leaves(grads)]
+            kept["q"] = [_int8_values(p).to("cpu") for p in tree_leaves(payload)]
+
+    def weights():
+        return None if params is None else tree_map(torch.clone, params)
+
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    res = train.run(args, harness=harness, params=weights(), observe=keep)
+    counts = kernels.launch_counts()
+    expected = _train_expected_launches(harness, args.steps, len(kept["grads"]))
+    if counts != expected:
+        raise SystemExit(f"{where}: the kernel path launched {counts}, expected {expected}")
+
+    cmp = {"grad_worst_of_limit": 0.0, "grad_worst_leaf": None, "grad_max_abs_err": 0.0,
+           "int8_differ": 0, "int8_values": 0}
+
+    def compare(step, loss, grads, payload):
+        if step != 0:
+            return
+        names = list(_granite_leaf_sizes(harness.cfg.n_layers))
+        for name, g, gk, p, qk in zip(names, tree_leaves(grads), kept["grads"], tree_leaves(payload), kept["q"]):
+            gk = gk.to(g.device)
+            err = (g.float() - gk.float()).abs().max().item()
+            limit = 2e-5 if dt == torch.float32 else 3e-2 * g.float().abs().max().item()
+            cmp["grad_max_abs_err"] = max(cmp["grad_max_abs_err"], err)
+            if err / max(limit, 1e-30) > cmp["grad_worst_of_limit"]:
+                cmp["grad_worst_of_limit"], cmp["grad_worst_leaf"] = err / max(limit, 1e-30), name
+            cmp["int8_differ"] += int((_int8_values(p) != qk).sum())
+            cmp["int8_values"] += p.numel()
+            del gk
+
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    ref = train.run(args, harness=harness, params=weights(), rt=Runtime(use_kernels=False), observe=compare)
+    plain_counts = kernels.launch_counts()
+    loss_err = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+    loss_limit = 1e-4 if dt == torch.float32 else 3e-2
+    out = {"loss_max_abs_err": loss_err, "loss_limit": loss_limit, **cmp,
+           "int8_differ_share": cmp["int8_differ"] / cmp["int8_values"],
+           "plain_losses": ref["losses"], "plain_grad_norms": ref["grad_norms"],
+           "plain_step_ms": ref["step_ms"], "plain_launches": plain_counts}
+    if plain_counts["flash_attention"] or not all(map(math.isfinite, res["losses"] + ref["losses"])):
+        raise SystemExit(f"{where}: plain path launched {plain_counts} or a loss is not finite: {out}")
+    if not loss_err <= loss_limit or not cmp["grad_worst_of_limit"] <= 1.0:
+        raise SystemExit(f"{where}: kernel path vs plain path: {out}")
+    return res, counts, out
+
+
+def phase_train() -> dict[str, dict[str, int]]:
+    """granite-8b training: the smoke config's kernel and plain paths in fp32
+    and bf16 and its loss falling over 40 steps, then the main path at full
+    width and 8 layers.  Returns the main path's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import load
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = ["--steps", "3", "--batch", "4", "--seq", "64", "--lr", "1e-3", "--compression", "int8"]
+    for dt in (torch.float32, torch.bfloat16):
+        h = load("granite-8b", smoke=True).clone(dtype=dt)
+        params = tree_init(h.param_specs(), torch.Generator(device="cuda").manual_seed(1), dt, "cuda")
+        res, counts, vs_plain = _train_kernel_vs_plain(
+            train.build_parser().parse_args(smoke), h, dt, f"train smoke {dt}", params=params)
+        emit("train", config="granite-8b smoke", dtype=str(dt).split(".")[-1], losses=res["losses"],
+             grad_norms=res["grad_norms"], launches=counts, vs_plain_path=vs_plain)
+
+    args = train.build_parser().parse_args(
+        ["--steps", "40", "--batch", "8", "--seq", "64", "--lr", "1e-3", "--compression", "int8"])
+    kernels.reset_launch_counts()
+    res = train.run(args)
+    losses, counts = res["losses"], kernels.launch_counts()
+    expected = _train_expected_launches(load("granite-8b", smoke=True), args.steps, 12)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.5) or counts != expected:
+        raise SystemExit(f"train smoke: 40 steps lowered the loss from {losses[0]} to {losses[-1]} "
+                         f"(needs more than 0.5), launches {counts} (expected {expected})")
+    emit("train", config="granite-8b smoke, 40 steps, bf16 weights, int8", first_loss=losses[0],
+         last_loss=losses[-1], launches=counts)
+
+    args = train.build_parser().parse_args([
+        "--no-smoke", "--n-layers", str(TRAIN["n_layers"]), "--steps", str(TRAIN["steps"]),
+        "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--compression", TRAIN["compression"],
+        "--seed", str(TRAIN["seed"]), "--log-every", "1"])
+    harness = load("granite-8b").clone(n_layers=TRAIN["n_layers"])
+    res, counts, vs_plain = _train_kernel_vs_plain(args, harness, torch.bfloat16, "train granite-8b")
+    emit("train", arch="granite-8b", n_layers=TRAIN["n_layers"], d_model=harness.cfg.d_model,
+         params=res["params"], batch=args.batch, seq=args.seq, compression=args.compression,
+         steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
+         step_ms=res["step_ms"], tokens_per_s=res["tokens_per_s"],
+         warm_tokens_per_s=args.batch * args.seq * 1e3 / (sum(res["step_ms"][1:]) / (args.steps - 1)),
+         peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
+    return {f"granite-8b train ({TRAIN['n_layers']} layers)": counts}
+
+
 def phase_serve() -> dict[str, dict[str, int]]:
     """granite-8b, then mixtral-8x22b, then zamba2-1.2b, then rwkv6-1.6b;
     each path's weights are released when it returns.  Returns each path's
@@ -1163,7 +1430,7 @@ def phase_serve() -> dict[str, dict[str, int]]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,slice,serve",
+    ap.add_argument("--phases", default="device,build,kernels,slice,serve,train",
                     help="comma-separated subset, for debugging")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
@@ -1178,14 +1445,16 @@ def main() -> int:
     if "slice" in phases:
         phase_slice()
     by_path = phase_serve() if "serve" in phases else {}
+    if "train" in phases:
+        by_path.update(phase_train())
     for row in kernel_rows:
-        row["launches_by_path"] = {arch: c[row["name"]] for arch, c in by_path.items()}
+        row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-        if "serve" in phases and row["launches"] < 1:
+        if {"serve", "train"} <= set(phases) and row["launches"] < 1:
             raise SystemExit(f"the main paths never launched {row['name']}")
     print(device["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
-    ok = phases == ["device", "build", "kernels", "slice", "serve"]
+    ok = phases == ["device", "build", "kernels", "slice", "serve", "train"]
     print(json.dumps({"ok": ok, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
     return 0 if ok else 2

@@ -1,5 +1,6 @@
-"""Flash attention (GQA), forward — port of ``repro/kernels/flash_attention.py``
-(``_attn_kernel`` / ``flash_attention``, a Pallas kernel for the TPU).
+"""Flash attention (GQA) — port of ``repro/kernels/flash_attention.py``
+(``_attn_kernel`` / ``flash_attention``, a Pallas kernel for the TPU, which is
+forward-only).
 
 ``flash_attention`` is the wrapper: on CUDA tensors it launches the CUDA C++
 kernel of ``csrc/flash_attention.cu`` (built at first use, see ``_build.py``)
@@ -13,6 +14,12 @@ be strided views (innermost stride 1), Sq and Sk need not be multiples of a
 tile, and ``q_start`` gives the global position of query row 0, so the same
 function serves prefill (``q_start=0``) and a decode step over the cache
 (``Sq=1, q_start=pos``).  Every query row must see at least one key.
+
+Gradients: where autograd records (grad mode on and an input that requires
+grad), the kernel runs inside ``_Attention``, a ``torch.autograd.Function``
+whose backward is the gradient of ``flash_attention_plain``, recomputed from
+the saved q, k and v.  The reference has no backward kernel to port; a
+hand-written one is later work.
 
 On the card the function is bound by bytes (q, k, v read once, o written
 once); the notes at the top of the CUDA source say what the kernel's design
@@ -63,18 +70,20 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel's function, with the kernel's
     arithmetic: inputs widened to fp32, fp32 scores and probabilities, the
-    finite -1e30 fill, output cast to the input type."""
+    finite -1e30 fill, output cast to the input type.  (float64 inputs stay
+    float64, for checking the gradient by finite differences.)"""
     Sq, D = q.shape[3], q.shape[4]
     Sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    s = torch.einsum("bkgqd,bksd->bkgqs", q.float(), k.float()) * scale
+    wide = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.to(wide), k.to(wide)) * scale
     ok = visible(
         Sq, Sk, causal=causal, window=window, prefix_len=prefix_len,
         q_start=q_start, device=q.device,
     )
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqs,bksd->bkgqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide)).to(q.dtype)
 
 
 def _check(q, k, v, window, prefix_len, q_start):
@@ -100,7 +109,7 @@ def _check(q, k, v, window, prefix_len, q_start):
         raise ValueError(f"bad window={window}, prefix_len={prefix_len}, q_start={q_start}")
 
 
-def _launch(q, k, v, causal, window, prefix_len, q_start, scale) -> torch.Tensor:
+def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.Tensor:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
@@ -128,7 +137,7 @@ def _launch(q, k, v, causal, window, prefix_len, q_start, scale) -> torch.Tensor
             B, K, G, Sq, k.shape[2], D, _DTYPES[q.dtype],
             (ctypes.c_longlong * 14)(*strides),
             int(causal), -1 if window is None else int(window), int(prefix_len),
-            int(q_start), float(scale),
+            int(q_start), float(sm_scale),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -136,6 +145,26 @@ def _launch(q, k, v, causal, window, prefix_len, q_start, scale) -> torch.Tensor
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {err})")
     flash_attention.launches += 1
     return o
+
+
+class _Attention(torch.autograd.Function):
+    """``forward(q, k, v, **kw)`` computes the output; the backward is the
+    gradient of ``flash_attention_plain`` at the saved inputs.  On the card
+    ``forward`` is the kernel's launch; the tests hand it the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return forward(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = flash_attention_plain(*inputs, **ctx.kw)
+        return (*torch.autograd.grad(o, inputs, grad_o), None, None)
 
 
 def flash_attention(
@@ -152,14 +181,14 @@ def flash_attention(
     """Attention output ``(B, K, G, Sq, D)`` in q's type."""
     _check(q, k, v, window, prefix_len, q_start)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, sm_scale=scale)
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, window=window, prefix_len=prefix_len,
-            q_start=q_start, sm_scale=scale,
-        )
+        return flash_attention_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    return _launch(q, k, v, causal, window, prefix_len, q_start, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, _launch, kw)
+    return _launch(q, k, v, **kw)
 
 
 flash_attention.launches = 0

@@ -6,7 +6,9 @@
 kernel of ``csrc/moe_dispatch.cu`` (built at first use, see ``_build.py``) or
 raises; on CPU tensors, and only there, it computes the same function with
 ``moe_dispatch_plain``.  There is no fallback from the kernel to the plain
-version.  ``moe_dispatch.launches`` counts kernel launches.
+version.  ``moe_dispatch.launches`` counts kernel launches.  The kernel has no
+backward yet: asked for one (a CUDA input that requires grad, grad mode on)
+the wrapper raises rather than return an output cut from the graph.
 
 The function is the reference's, ``out[e, c, :] = sum_t disp[t, e, c] *
 x[t, :]`` accumulated in fp32, output in x's type, for ``disp (T, E, C)`` and
@@ -95,6 +97,9 @@ def moe_dispatch(disp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return moe_dispatch_plain(disp, x)
     if x.device.type != "cuda":
         raise ValueError(f"moe_dispatch runs on cuda or cpu tensors, not {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (disp, x)):
+        raise RuntimeError("moe_dispatch has no backward yet (the kernel's output would cut the graph): "
+                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
     if disp.ndim == 3:
         return _launch(disp[None], x[None])[:, 0]
     return _launch(disp, x)

@@ -1,6 +1,6 @@
 """Public wrappers for the kernels — port of ``repro/kernels/ops.py`` (the two
-flash-attention adapters, ``ssd_scan``, ``rwkv6_scan`` and ``moe_dispatch``;
-``ccu_reduce`` comes with its kernel).
+flash-attention adapters, ``ssd_scan``, ``rwkv6_scan``, ``moe_dispatch`` and
+``ccu_reduce``).
 
 Each validates shapes and adapts the model layers' layout to the kernel's.
 Where the reference transposes (and so copies) q, k and v, the port hands the
@@ -12,12 +12,15 @@ place the same way, and takes any S and an initial state; so does
 k, v and w in place.  ``moe_dispatch``
 takes the reference's ``(T, E, C)`` form and the model's batched
 ``(B, T, E, C)`` one, so an MoE layer's dispatch is one launch.
+``ccu_reduce`` takes any N (the reference's ``block_n`` tiling has no
+counterpart) and a view of its peers' rows with a row stride.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .ccu_reduce import ccu_reduce  # noqa: F401  (checks shapes, types and devices itself)
 from .flash_attention import flash_attention
 from .moe_dispatch import moe_dispatch  # noqa: F401  (checks both forms itself)
 from .rwkv6_scan import rwkv6_scan  # noqa: F401  (checks shapes, types and devices itself)

@@ -1,7 +1,6 @@
 """Plain PyTorch oracles in the kernels' layouts — port of
 ``repro/kernels/ref.py`` (``attention_ref``, ``ssd_scan_ref``,
-``rwkv6_scan_ref``, ``moe_gather_matmul_ref``; ``ccu_reduce_ref`` comes with
-its kernel).
+``rwkv6_scan_ref``, ``moe_gather_matmul_ref``, ``ccu_reduce_ref``).
 
 Each oracle shares nothing with the kernel modules, neither code nor method,
 so a kernel and its plain version can both be held against it, and works in
@@ -13,7 +12,9 @@ chunk with cumulative decays, it runs the state recurrence one token at a
 time.  ``rwkv6_scan_ref``: where the kernel modules sum log decays per chunk
 and take pairwise exponentials, it multiplies the state by each token's
 decay in turn.  ``moe_dispatch_ref``: where the kernel modules contract the token axis
-in one product, it adds the tokens' contributions one token at a time."""
+in one product, it adds the tokens' contributions one token at a time.
+``ccu_reduce_ref``: where the kernel modules add the peers in fp32 one by one,
+it sums them in float64 and rounds once."""
 
 from __future__ import annotations
 
@@ -124,3 +125,15 @@ def moe_gather_matmul_ref(
     ein = moe_dispatch_ref(disp.double(), x.double())            # (E, C, D)
     out = torch.stack([ein[e] @ w[e].double() for e in range(w.shape[0])])
     return out.to(x.dtype)
+
+
+def ccu_reduce_ref(
+    bufs: torch.Tensor,                  # (P, N)
+    scales: torch.Tensor | None = None,  # (P,)
+) -> torch.Tensor:
+    """The peers' sum ``sum_p bufs[p] * scales[p]`` in float64, rounded once to
+    fp32: (N,)."""
+    b64 = bufs.double()
+    if scales is not None:
+        b64 = b64 * scales.double()[:, None]
+    return b64.sum(0).float()

@@ -5,7 +5,9 @@
 of ``csrc/rwkv6_scan.cu`` (built at first use, see ``_build.py``) or raises;
 on CPU tensors, and only there, it computes the same function with
 ``rwkv6_scan_plain``.  There is no fallback from the kernel to the plain
-version.  ``rwkv6_scan.launches`` counts kernel launches.
+version.  ``rwkv6_scan.launches`` counts kernel launches.  The kernel has no
+backward yet: asked for one (a CUDA input that requires grad, grad mode on)
+the wrapper raises rather than return an output cut from the graph.
 
 The function is the reference's: per head a state ``S (N, N)`` and, token by
 token, ``y_t = r_t (S + diag(u) k_t v_t^T)``, ``S <- diag(w_t) S + k_t v_t^T``,
@@ -164,6 +166,9 @@ def rwkv6_scan(
         return rwkv6_scan_plain(r, k, v, w, u, chunk=chunk, s0=s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors, not {r.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise RuntimeError("rwkv6_scan has no backward yet (the kernel's output would cut the graph): "
+                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
     return _launch(r, k, v, w, u, chunk, s0)
 
 

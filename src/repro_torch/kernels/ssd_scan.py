@@ -5,7 +5,9 @@
 of ``csrc/ssd_scan.cu`` (built at first use, see ``_build.py``) or raises; on
 CPU tensors, and only there, it computes the same function with
 ``ssd_scan_plain``.  There is no fallback from the kernel to the plain
-version.  ``ssd_scan.launches`` counts kernel launches.
+version.  ``ssd_scan.launches`` counts kernel launches.  The kernel has no
+backward yet: asked for one (a CUDA input that requires grad, grad mode on)
+the wrapper raises rather than return an output cut from the graph.
 
 The function is the reference's: ``xh (B,S,H,P)``, ``log_l (B,S,H) <= 0``,
 ``Bm, Cm (B,S,N)`` give ``y (B,S,H,P)`` in xh's type and the final state
@@ -148,6 +150,9 @@ def ssd_scan(
         return ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {xh.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (xh, log_l, Bm, Cm, h0)):
+        raise RuntimeError("ssd_scan has no backward yet (the kernel's output would cut the graph): "
+                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
     return _launch(xh, log_l, Bm, Cm, chunk, h0)
 
 

@@ -5,9 +5,11 @@
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
 callables), ``serve_state_specs(cell)`` (KV-cache or recurrent-state spec
-tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``.  The training
-half (``loss``, ``train_input_specs``) and the other model families come
-with their slices.
+tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``;
+``TransformerHarness`` also the training half, ``loss(rt)`` (a callable
+``(params, batch) -> loss``) and ``train_input_specs(cell)``.  The training
+half of the other families and the other model families come with their
+slices.
 
 ``RWKVHarness.prefill`` and ``HybridHarness.prefill`` differ from the
 reference's on purpose: they return the state the prompt leaves
@@ -74,6 +76,8 @@ class Harness:
 
     # subclasses implement:
     def param_specs(self) -> Any: ...
+    def loss(self, rt: Runtime) -> Callable: ...
+    def train_input_specs(self, cell: ShapeCell) -> dict: ...
     def prefill(self, rt: Runtime) -> Callable: ...
     def decode(self, rt: Runtime) -> Callable: ...
     def serve_state_specs(self, cell: ShapeCell) -> Any: ...
@@ -99,6 +103,20 @@ class TransformerHarness(Harness):
 
     def param_specs(self):
         return transformer.lm_specs(self.cfg)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, rt: Runtime):
+        def fn(params, batch):
+            return transformer.loss_fn(rt, self.cfg, params, batch)
+
+        return fn
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        B, S = cell.global_batch, cell.seq_len
+        return {
+            "tokens": _tok((B, S), ("batch", "sp")),
+            "labels": _tok((B, S), ("batch", "sp")),
+        }
 
     # -- serving ------------------------------------------------------------
     def serve_state_specs(self, cell: ShapeCell):

@@ -8,8 +8,8 @@ so ``rules`` is always None and ``shard`` is the identity.
 Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 ``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention``, ``init_kv_cache``,
 ``swiglu``, ``gelu_mlp``, their ``*_specs``, ``embed_specs``, ``embed``,
-``unembed``.  ``blocked_sdpa``, ``kv_override`` (cross-attention) and
-``cross_entropy`` come with training and the encoder-decoder models.  Beside
+``unembed``, ``cross_entropy``.  ``blocked_sdpa`` and ``kv_override``
+(cross-attention) come with the encoder-decoder models.  Beside
 them, ``_silu`` and ``_sigmoid``: the reference's framework's SiLU and
 sigmoid as they round in bfloat16, for the Mamba2 and RWKV-6 blocks.
 
@@ -352,3 +352,17 @@ def embed(rt: Runtime, p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
     return rt.shard(x @ p["unembed"], "batch", "sp", "vocab")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -> torch.Tensor:
+    """Mean NLL over the logits in fp32, the padded vocab tail masked with
+    -1e9.  The gold logit is gathered, where the reference sums a one-hot
+    product: the same value, since every other term of that sum is zero."""
+    lg = logits.float()
+    V = lg.shape[-1]
+    if vocab_real < V:
+        mask = torch.arange(V, device=lg.device) < vocab_real
+        lg = torch.where(mask, lg, torch.full_like(lg, -1e9))
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -8,7 +8,8 @@ the reference cross over by value through ``from_reference``.
 Ported: ``ParamSpec``, ``is_spec``, ``tree_init`` / ``_init_leaf``,
 ``param_count``, ``param_bytes``, ``stack_specs``, ``round_up``,
 ``cast_floats``.  New here: ``tree_map`` / ``tree_leaves`` (the small part of
-``jax.tree`` the port needs) and ``from_reference``.  ``ShardingRules``,
+``jax.tree`` the port needs), ``value_and_grad`` (the part of
+``jax.value_and_grad`` it needs) and ``from_reference``.  ``ShardingRules``,
 ``tree_pspecs`` and ``tree_abstract`` belong to the distribution slice.
 
 Trees are nested dicts; leaves are flattened in sorted-key order, as
@@ -54,6 +55,24 @@ def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def value_and_grad(fn: Callable) -> Callable:
+    """``fn(params, *args) -> scalar`` becomes ``(params, *args) -> (value,
+    grads)``, ``grads`` a tree like ``params`` of the gradients by
+    ``torch.autograd`` (each in its leaf's type).  The leaves are made to
+    require grad on a detached alias; the caller's tensors are not touched."""
+
+    def run(params, *args):
+        params = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            value = fn(params, *args)
+        grads = iter(torch.autograd.grad(value, leaves))
+        by_id = {id(t): next(grads) for t in leaves}
+        return value.detach(), tree_map(lambda t: by_id[id(t)], params)
+
+    return run
 
 
 def _init_leaf(

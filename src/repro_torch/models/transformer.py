@@ -4,25 +4,35 @@ One config class parameterizes GQA/MQA attention (RoPE, optional sliding
 window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP or an MoE
 layer (``models/moe.py``), and a gemma-style sqrt(d) embedding scale.
 
-Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
-``cache_specs``, ``prefill``, ``decode_step`` and ``forward`` (without
-rematerialization, which comes with training).  Where the reference scans over
-the stacked layer dim, the port loops in Python and indexes views of the
-stacked leaves: no per-layer copy.  The KV cache is written in place
-(``layers.attention``), so ``prefill`` and ``decode_step`` return the cache
-they were given.  ``_block`` returns an MoE layer's router aux loss beside the
-cache, as the reference's does; ``prefill``, ``decode_step`` and ``forward``
-return no aux loss (the reference's ``forward`` does: ``loss_fn``, which
-consumes it, comes with training).  The modality prefix comes with its slice.
+Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``, ``_remat``,
+``forward``, ``loss_fn``, ``cache_specs``, ``prefill`` and ``decode_step``.
+Where the reference scans over the stacked layer dim, the port loops in Python
+over views of the stacked leaves: no per-layer copy.  The KV cache is written
+in place (``layers.attention``), so ``prefill`` and ``decode_step`` return the
+cache they were given.  ``_block`` returns an MoE layer's router aux loss
+beside the cache, and ``forward`` the sum of them beside the logits, as the
+reference's do; ``loss_fn`` adds that sum to the cross-entropy.  The modality
+prefix comes with its slice.
+
+``_remat`` maps the reference's ``remat_policy`` onto
+``torch.utils.checkpoint`` (non-reentrant) around each block: ``"nothing"``
+saves nothing and recomputes the block in the backward, ``"dots"`` saves the
+outputs of the matrix products without batch dimensions (the projections; the
+reference's ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+``"none"`` recomputes nothing.  Under ``"nothing"`` and ``"dots"`` a layer's
+attention runs twice a training step, once in the forward and once in the
+recompute.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .moe import MoEConfig, moe_apply, moe_specs
@@ -47,7 +57,7 @@ class LMConfig:
     moe: MoEConfig | None = None
     prefix_len: int = 0            # VLM/audio stub prefix (train/prefill)
     embed_scale: bool = False      # gemma: x *= sqrt(d_model)
-    remat_policy: str = "nothing"  # kept for field parity; used by training
+    remat_policy: str = "nothing"  # nothing | dots | none: recompute in the backward (_remat)
     attn_impl: str = "reference"   # kept for field parity; see Runtime.use_kernels
     unroll: bool = False           # kept for field parity; the port always loops
     dtype: torch.dtype = torch.bfloat16
@@ -144,11 +154,6 @@ def _block(
     return rt.shard(x, "batch", "sp", None), new_cache, aux
 
 
-def _layer(blocks: dict, i: int) -> dict:
-    """Layer i's parameters as views of the stacked leaves."""
-    return tree_map(lambda t: t[i], blocks)
-
-
 def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     x = L.embed(rt, params["embed"], tokens)
     if cfg.embed_scale:
@@ -156,20 +161,71 @@ def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor) -> 
     return x.to(cfg.dtype)
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep the outputs of the
+    products without batch dimensions, recompute everything else."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: LMConfig, fn):
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    elif cfg.remat_policy == "nothing":
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} (nothing | dots | none)")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():     # nothing to save for a backward
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped
+
+
+def _layers(blocks: dict, n_layers: int) -> list[dict]:
+    """Every layer's parameters as views of the stacked leaves, cut in one
+    ``unbind`` a leaf, so that the backward stacks each leaf's gradient once
+    rather than adding a full-size tensor a layer."""
+    parts = tree_map(lambda t: t.unbind(0), blocks)
+    return [tree_map(lambda u: u[i], parts) for i in range(n_layers)]
+
+
 def forward(
     rt: L.Runtime,
     cfg: LMConfig,
     params: dict,
     tokens: torch.Tensor,                    # (B, S)
-) -> torch.Tensor:
-    """Scoring forward over a whole sequence.  Returns the logits."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training/scoring forward over a whole sequence.  Returns (logits,
+    aux_loss), the aux loss the sum of the MoE layers' (0 for dense ones)."""
     params = cast_floats(params, cfg.dtype)
     x = _embed(rt, cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = _block(rt, cfg, _layer(params["blocks"], i), x, positions)
+
+    def body(h, lp):
+        h, _, a = _block(rt, cfg, lp, h, positions)
+        return h, a
+
+    block = _remat(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _layers(params["blocks"], cfg.n_layers):
+        x, a = block(x, lp)
+        aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
-    return L.unembed(rt, params["embed"], x)
+    return L.unembed(rt, params["embed"], x), aux
+
+
+def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
+    logits, aux = forward(rt, cfg, params, batch["tokens"])
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +244,9 @@ def _serve(rt, cfg, params, tokens, cache, pos: int) -> tuple[torch.Tensor, dict
     params = cast_floats(params, cfg.dtype)
     x = _embed(rt, cfg, params, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, _, _ = _block(
-            rt, cfg, _layer(params["blocks"], i), x, positions,
+            rt, cfg, lp, x, positions,
             cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
         )
     return _apply_norm(cfg, params["final_norm"], x), params

@@ -149,3 +149,113 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
     limit = torch.full_like(yr, lim) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + lim
     assert torch.isfinite(y).all() and ((y - yr).abs() <= limit).all()
     assert ((s - sr).abs() <= lim).all()
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("P,N,view", [
+    (2, 512, None), (8, 2048, None), (16, 1024, None), (4, 1027, None), (1, 1, None),
+    (3, 4096, "rows"), (3, 3001, "cols"),
+])
+def test_ccu_reduce_kernel_matches_plain(cuda, P, N, view, dtype, scaled):
+    """Bit-equal to the plain version: the same products and sums, each
+    rounded once, the peers in the same order; and two runs bit-equal."""
+    from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(P * N)
+    shape = (2 * P, N) if view == "rows" else (P, N + 13) if view == "cols" else (P, N)
+    if dtype == torch.int8:
+        bufs = torch.randint(-127, 128, shape, generator=gen, device=cuda, dtype=torch.int8)
+    else:
+        bufs = (torch.randn(shape, generator=gen, device=cuda) * 3).to(dtype)
+    if view == "rows":
+        bufs = bufs[::2]
+    elif view == "cols":
+        bufs = bufs[:, 5:5 + N]
+    scales = torch.rand(P, generator=gen, device=cuda) * 1.5 + 0.5 if scaled else None
+    before = ccu_reduce.launches
+    o = ccu_reduce(bufs, scales)
+    o2 = ccu_reduce(bufs, scales)
+    torch.cuda.synchronize()
+    assert ccu_reduce.launches == before + 2
+    assert o.dtype == torch.float32 and o.shape == (N,)
+    assert torch.equal(o, ccu_reduce_plain(bufs, scales)) and torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_match_plain(cuda, dtype):
+    """Through the kernel with autograd recording: the output is the
+    kernel's (held as above), its gradients those of the plain version at the
+    same inputs, bit for bit (the backward recomputes the plain version)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shapes = [((2, 2, 3, 100, 64), 2.0), ((2, 2, 100, 64), 1.5), ((2, 2, 100, 64), 1.0)]
+    base = [(torch.randn(s, generator=gen, device=cuda) * sc).to(dtype) for s, sc in shapes]
+    go = torch.randn((2, 2, 3, 100, 64), generator=gen, device=cuda).to(dtype)
+    outs = []
+    for fn in (flash_attention, flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in base]
+        o = fn(*leaves, causal=True, window=48)
+        assert o.grad_fn is not None
+        o.backward(go)
+        outs.append((o.detach().float(), [t.grad for t in leaves]))
+    (o, g), (r, gr) = outs
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()
+    for a, b in zip(g, gr):
+        assert torch.equal(a, b)
+
+
+def test_forward_only_kernels_raise_under_autograd(cuda):
+    """moe_dispatch, ssd_scan and rwkv6_scan have no backward yet: asked for
+    one they raise instead of cutting the graph; under no_grad they run."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
+    disp = torch.zeros(1, 8, 2, 4, device=cuda)
+    xh = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    log_l = -torch.rand(1, 16, 2, device=cuda)
+    Bm = Cm = torch.randn(1, 16, 16, device=cuda)
+    r = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    w = torch.rand(1, 16, 2, 16, device=cuda) * 0.5 + 0.4
+    u = torch.randn(2, 16, device=cuda)
+    calls = [lambda: ops.moe_dispatch(disp, x), lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=16),
+             lambda: ops.rwkv6_scan(r, r.detach(), r.detach(), w, u, chunk=16)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def test_train_kernel_path_matches_plain_path(cuda):
+    """granite-8b smoke, float32, two steps through ``launch/train.run`` with
+    int8 compression on each path from the same weights: the same losses
+    within 1e-5, gradients within 2e-5, one ``ccu_reduce`` launch per leaf and
+    step and two flash launches per layer and step (forward and recompute)."""
+    from repro_torch.configs import load
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves
+
+    h = load("granite-8b", smoke=True).clone(dtype=torch.float32)
+    args = train.build_parser().parse_args(["--steps", "2", "--batch", "4", "--seq", "64",
+                                            "--lr", "1e-3", "--compression", "int8"])
+    runs = []
+    for rt in (Runtime(), Runtime(use_kernels=False)):
+        params = tree_init(h.param_specs(), torch.Generator(device=cuda).manual_seed(1), torch.float32, cuda)
+        grads = []
+        reset_launch_counts()
+        res = train.run(args, harness=h, params=params, rt=rt,
+                        observe=lambda s, l, g, p: grads.append(g) if s == 0 else None)
+        runs.append((res, grads[0], launch_counts()))
+    (k, kg, kc), (p, pg, pc) = runs
+    n_leaves = len(tree_leaves(kg))
+    assert kc == {"flash_attention": 2 * 2 * h.cfg.n_layers, "moe_dispatch": 0, "ssd_scan": 0,
+                  "rwkv6_scan": 0, "ccu_reduce": 2 * n_leaves}
+    assert pc["flash_attention"] == 0 and pc["ccu_reduce"] == 2 * n_leaves
+    assert max(abs(a - b) for a, b in zip(k["losses"], p["losses"])) <= 1e-5
+    for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+        assert (a - b).abs().max() <= 2e-5

@@ -16,7 +16,8 @@ from _hypothesis_compat import given, settings, st  # hypothesis or skip-shim
 from repro.kernels import moe_dispatch as ref_moe, ops as ref_ops, ref as ref_ref
 from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
+from repro_torch.kernels.flash_attention import _Attention, flash_attention, flash_attention_plain
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -164,8 +165,64 @@ def test_launch_count_untouched_on_cpu():
     reset_launch_counts()
     _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
     flash_attention(q, k, v)
-    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}   # CPU tensors
+    assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# flash attention's autograd.Function: its plumbing on the CPU, through the
+# plain version (on the card its forward is the kernel: tests/test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, window=None, prefix_len=0, q_start=0),
+    dict(causal=True, window=3, prefix_len=2, q_start=0),
+    dict(causal=True, window=None, prefix_len=0, q_start=5),
+    dict(causal=False, window=None, prefix_len=0, q_start=0),
+])
+def test_attention_function_gradcheck(kw):
+    """The backward of ``_Attention`` (the plain version's gradient at the
+    saved inputs) against finite differences, in float64, GQA with G = 2."""
+    rng = np.random.default_rng(3)
+    Sk = 6 + kw["q_start"]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in [(1, 2, 2, 6, 32), (1, 2, Sk, 32), (1, 2, Sk, 32)])
+    kw = {**kw, "sm_scale": 1 / np.sqrt(32)}
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: _Attention.apply(q, k, v, flash_attention_plain, kw), (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_function_matches_plain_autograd(dtype):
+    """Forward and gradients of ``_Attention`` are those of autograd through
+    the plain version, bit for bit, in the model's layout (strided views)."""
+    rng = np.random.default_rng(4)
+    B, S, N, K, D = 2, 40, 4, 2, 32
+    base = [torch.from_numpy(rand(rng, (B, S, h * D))).to(TDT[dtype]) for h in (N, K, K)]
+    views = lambda q, k, v: (q.unflatten(2, (K, N // K, D)).permute(0, 2, 3, 1, 4),   # noqa: E731
+                             k.unflatten(2, (K, D)).permute(0, 2, 1, 3), v.unflatten(2, (K, D)).permute(0, 2, 1, 3))
+    kw = dict(causal=True, window=None, prefix_len=0, q_start=0, sm_scale=1 / np.sqrt(D))
+    go = torch.from_numpy(rand(rng, (B, K, N // K, S, D))).to(TDT[dtype])
+    outs = []
+    for fn in (lambda *t: _Attention.apply(*t, flash_attention_plain, kw), lambda *t: flash_attention_plain(*t, **kw)):
+        leaves = [t.clone().requires_grad_() for t in base]
+        o = fn(*views(*leaves))
+        o.backward(go)
+        outs.append([o.detach(), *(t.grad for t in leaves)])
+    for a, b in zip(*outs):
+        assert a.dtype == TDT[dtype] and torch.equal(a, b)
+
+
+def test_attention_cpu_path_keeps_the_graph():
+    """On CPU tensors the wrapper is the plain version, graph and all."""
+    _, (q, k, v) = qkv(5, 1, 1, 2, 8, 8, 32, "float32")
+    q.requires_grad_()
+    o = flash_attention(q, k, v)
+    assert o.grad_fn is not None
+    o.sum().backward()
+    assert q.grad is not None and q.grad.abs().sum() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +338,8 @@ class TestSSDScan:
         y, h = ssd_scan(*args, chunk=16)
         yp, hp = ssd_scan_plain(*args, chunk=16)
         assert torch.equal(y, yp) and torch.equal(h, hp)
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
     def test_strided_inputs(self):
         """B and C as the model hands them over: slices of one conv output"""
@@ -441,7 +499,8 @@ class TestRWKV6Scan:
         y, s = rwkv6_scan(*args, chunk=16)
         yp, sp = rwkv6_scan_plain(*args, chunk=16)
         assert torch.equal(y, yp) and torch.equal(s, sp)
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
     def test_strided_inputs(self):
         """r, k, v as the model hands them over: (B, S, H, N) views of
@@ -582,7 +641,8 @@ class TestMoEDispatch:
         rng = np.random.default_rng(9)
         disp, x = torch.from_numpy(one_hot_disp(rng, 16, 2, 8)), torch.from_numpy(rand(rng, (16, 32)))
         assert torch.equal(moe_dispatch(disp, x), moe_dispatch_plain(disp, x))
-        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+        assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
     @pytest.mark.parametrize("bad", ["rank", "tokens", "batch", "dtype", "mixed", "empty", "device"])
     def test_wrapper_raises(self, bad):
@@ -603,3 +663,112 @@ class TestMoEDispatch:
             disp, x = torch.empty(disp.shape, device="meta"), torch.empty(x.shape, device="meta")
         with pytest.raises(ValueError):
             ops.moe_dispatch(disp, x)
+
+
+# ---------------------------------------------------------------------------
+# CCU reduce: the reference's TestCCUReduce restated, and what the port adds
+# ---------------------------------------------------------------------------
+
+
+class TestCCUReduce:
+    @pytest.mark.parametrize("P,N,block", [(2, 512, 512), (8, 2048, 512), (16, 1024, 256)])
+    def test_matches_sum(self, P, N, block):
+        """The reference test's shapes: against the reference's oracle at its
+        1e-5, and bit-equal to the reference's Pallas kernel (interpret mode),
+        which adds the same fp32 values in the same order."""
+        bufs = rand(np.random.default_rng(P), (P, N))
+        out = ops.ccu_reduce(torch.from_numpy(bufs))
+        assert out.dtype == torch.float32 and out.shape == (N,)
+        assert max_err(out, ref_ref.ccu_reduce_ref(jnp.asarray(bufs))) <= 1e-5
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref_ops.ccu_reduce(jnp.asarray(bufs), block_n=block)))
+        assert max_err(out, ref.ccu_reduce_ref(torch.from_numpy(bufs))) <= 1e-5
+
+    def test_int8_dequant_ingestion(self):
+        """compressed-gradient ingestion: int8 peers + per-peer scales, as the
+        reference's test draws them, at its tolerance against the sum and
+        against its Pallas kernel.  Not bit-equal to that kernel: on the CPU
+        the reference's compiler fuses ``x * scale`` and ``acc + x`` into one
+        multiply-add (it equals a once-rounded sum on every element), where
+        the reference's source, the port's plain version and its kernel round
+        each; the port is bit-equal to that two-rounding sum."""
+        rng = np.random.default_rng(0)
+        P, N = 4, 1024
+        q = rng.integers(-127, 128, (P, N), dtype=np.int8)
+        scales = rng.uniform(0.5, 2.0, P).astype(np.float32)
+        out = ops.ccu_reduce(torch.from_numpy(q), torch.from_numpy(scales))
+        expect = (q.astype(np.float32) * scales[:, None]).sum(0)
+        np.testing.assert_allclose(out.numpy(), expect, rtol=1e-5, atol=1e-3)
+        pallas = np.asarray(ref_ops.ccu_reduce(jnp.asarray(q), jnp.asarray(scales), block_n=512))
+        np.testing.assert_allclose(out.numpy(), pallas, rtol=1e-5, atol=1e-3)
+        two_roundings = np.zeros(N, np.float32)
+        for p in range(P):
+            two_roundings = two_roundings + q[p].astype(np.float32) * scales[p]
+        np.testing.assert_array_equal(out.numpy(), two_roundings)
+        assert max_err(out, ref.ccu_reduce_ref(torch.from_numpy(q), torch.from_numpy(scales))) <= 1e-3
+
+    def test_deterministic_order(self):
+        """same peers, same order => bitwise identical (CCU determinism)"""
+        bufs = torch.from_numpy(rand(np.random.default_rng(8), (8, 1024)))
+        assert torch.equal(ops.ccu_reduce(bufs), ops.ccu_reduce(bufs))
+
+    def test_order_is_p0_first(self):
+        """The order is the contract: 1 + 2^-24 + 2^-24 in fp32 is 1 from peer 0
+        on, but 1 + 2^-23 in the other order."""
+        bufs = torch.tensor([[1.0], [2.0 ** -24], [2.0 ** -24]])
+        assert ccu_reduce_plain(bufs).item() == 1.0
+        assert ccu_reduce_plain(bufs.flip(0)).item() == 1.0 + 2.0 ** -23
+
+    @pytest.mark.parametrize("N", [1, 15, 17, 1000, 4099])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8"])
+    def test_any_n_and_dtype(self, N, dtype):
+        """Ragged N (the reference asserts whole blocks), every input type,
+        with and without scales, against the float64 oracle: within the
+        bound of P fp32 roundings, 1e-6 of the terms' absolute sum."""
+        rng = np.random.default_rng(N)
+        P = 3
+        if dtype == "int8":
+            bufs = torch.from_numpy(rng.integers(-127, 128, (P, N), dtype=np.int8))
+        else:
+            bufs = torch.from_numpy(rand(rng, (P, N), 2.0)).to(getattr(torch, dtype))
+        scales = torch.from_numpy(rng.uniform(0.5, 2.0, P).astype(np.float32))
+        for s in (None, scales):
+            out = ops.ccu_reduce(bufs, s)
+            assert out.dtype == torch.float32 and out.shape == (N,)
+            r = ref.ccu_reduce_ref(bufs, s)
+            size = ref.ccu_reduce_ref(bufs.abs(), None if s is None else s.abs())
+            assert ((out - r).abs() <= 1e-6 * size + 1e-6).all()
+
+    def test_ragged_n_matches_the_reference_oracle(self):
+        bufs = rand(np.random.default_rng(11), (5, 777))
+        out = ops.ccu_reduce(torch.from_numpy(bufs))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref_ref.ccu_reduce_ref(jnp.asarray(bufs))))
+
+    def test_strided_rows(self):
+        """A view of every other row of a larger buffer, and a column slice."""
+        big = torch.from_numpy(rand(np.random.default_rng(12), (8, 300)))
+        for view in (big[::2], big[:, 10:250]):
+            assert torch.equal(ops.ccu_reduce(view), ccu_reduce_plain(view.contiguous()))
+
+    def test_plain_version_is_the_wrapper_on_cpu(self):
+        reset_launch_counts()
+        bufs = torch.from_numpy(rand(np.random.default_rng(13), (4, 64)))
+        assert torch.equal(ccu_reduce(bufs), ccu_reduce_plain(bufs))
+        assert launch_counts()["ccu_reduce"] == 0
+
+    @pytest.mark.parametrize("bad", ["rank", "empty", "dtype", "scales", "scale_device", "device"])
+    def test_wrapper_raises(self, bad):
+        bufs, scales = torch.zeros(3, 16), None
+        if bad == "rank":
+            bufs = torch.zeros(16)
+        elif bad == "empty":
+            bufs = torch.zeros(0, 16)
+        elif bad == "dtype":
+            bufs = torch.zeros(3, 16, dtype=torch.float64)
+        elif bad == "scales":
+            scales = torch.ones(4)
+        elif bad == "scale_device":
+            scales = torch.empty(3, device="meta")
+        elif bad == "device":
+            bufs = torch.empty(3, 16, device="meta")
+        with pytest.raises(ValueError):
+            ops.ccu_reduce(bufs, scales)

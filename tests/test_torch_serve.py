@@ -84,7 +84,8 @@ def test_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     # float32, the same arithmetic in another order of sums
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}   # CPU: plain versions
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}   # CPU: plain versions
     assert res["prefill_s"] > 0 and res["decode_s_per_token"] > 0
 
 
@@ -98,7 +99,8 @@ def test_mixtral_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -111,7 +113,8 @@ def test_zamba2_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -139,7 +142,8 @@ def test_rwkv6_greedy_ids_equal_reference_fp32(use_kernels):
                     rt=Runtime(use_kernels=use_kernels))
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
-    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                               "ccu_reduce": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])

@@ -117,10 +117,11 @@ def test_forward_matches_reference(arch):
     rh, ph = harnesses(arch, "float32")
     ref = reference_run(arch, "float32")
     tokens = ref["tokens"]
-    r, _ = RT.forward(RRT, rh.cfg, jax.tree.map(jnp.asarray, ref["params"]), jnp.asarray(tokens))
+    r, r_aux = RT.forward(RRT, rh.cfg, jax.tree.map(jnp.asarray, ref["params"]), jnp.asarray(tokens))
     with torch.no_grad():
-        p = PT.forward(Runtime(), ph.cfg, carry(ref["params"]), torch.from_numpy(tokens))
+        p, p_aux = PT.forward(Runtime(), ph.cfg, carry(ref["params"]), torch.from_numpy(tokens))
     np.testing.assert_allclose(to_np(p), to_np(r), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(to_np(p_aux), to_np(r_aux), atol=1e-6, rtol=0)   # the MoE layers' aux loss
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +143,8 @@ def test_causality_dense(use_kernels):
     tok2 = tok1.clone()
     tok2[0, 12] = 9
     with torch.no_grad():
-        lg1 = PT.forward(rt, h.cfg, params, tok1).float()
-        lg2 = PT.forward(rt, h.cfg, params, tok2).float()
+        lg1 = PT.forward(rt, h.cfg, params, tok1)[0].float()
+        lg2 = PT.forward(rt, h.cfg, params, tok2)[0].float()
     np.testing.assert_allclose(lg1[:, :12].numpy(), lg2[:, :12].numpy(), atol=1e-5)
     assert not np.allclose(lg1[:, 12:].numpy(), lg2[:, 12:].numpy())
 
@@ -160,7 +161,7 @@ def test_prefill_decode_consistency(use_kernels):
     with torch.no_grad():
         _, cache = PT.prefill(rt, h.cfg, params, tokens[:, :n], cache)
         lg_dec, _ = PT.decode_step(rt, h.cfg, params, tokens[:, n:], cache, n)
-        lg_full = PT.forward(rt, h.cfg, params, tokens)
+        lg_full, _ = PT.forward(rt, h.cfg, params, tokens)
     np.testing.assert_allclose(
         lg_dec[:, -1].float().numpy(), lg_full[:, -1].float().numpy(),
         atol=3e-2,  # bf16 cache
@@ -189,8 +190,8 @@ def test_causality_moe(use_kernels):
     tok2 = tok1.clone()
     tok2[0, 12] = (tok2[0, 12] + 9) % 512
     with torch.no_grad():
-        lg1 = PT.forward(rt, h.cfg, params, tok1).float()
-        lg2 = PT.forward(rt, h.cfg, params, tok2).float()
+        lg1 = PT.forward(rt, h.cfg, params, tok1)[0].float()
+        lg2 = PT.forward(rt, h.cfg, params, tok2)[0].float()
     np.testing.assert_allclose(lg1[:, :12].numpy(), lg2[:, :12].numpy(), atol=1e-5)
     assert not np.allclose(lg1[:, 12:].numpy(), lg2[:, 12:].numpy())
 
@@ -209,7 +210,7 @@ def test_prefill_decode_consistency_moe(use_kernels):
     with torch.no_grad():
         _, cache = PT.prefill(rt, h.cfg, params, tokens[:, :n], cache)
         lg_dec, _ = PT.decode_step(rt, h.cfg, params, tokens[:, n:], cache, n)
-        lg_full = PT.forward(rt, h.cfg, params, tokens)
+        lg_full, _ = PT.forward(rt, h.cfg, params, tokens)
     np.testing.assert_allclose(
         lg_dec[:, -1].float().numpy(), lg_full[:, -1].float().numpy(),
         atol=3e-2,  # bf16 cache
@@ -226,7 +227,7 @@ def test_sliding_window_limits_context(use_kernels):
     pert = base.copy()
     pert[0, 0] = (pert[0, 0] + 7) % 64
     with torch.no_grad():
-        lg1 = PT.forward(rt, h.cfg, params, torch.from_numpy(base.astype(np.int32)))
-        lg2 = PT.forward(rt, h.cfg, params, torch.from_numpy(pert.astype(np.int32)))
+        lg1, _ = PT.forward(rt, h.cfg, params, torch.from_numpy(base.astype(np.int32)))
+        lg2, _ = PT.forward(rt, h.cfg, params, torch.from_numpy(pert.astype(np.int32)))
     # with 2 layers x window 64, influence dies beyond ~2*64 tokens
     np.testing.assert_allclose(lg1[:, -1].float().numpy(), lg2[:, -1].float().numpy(), atol=1e-5)
