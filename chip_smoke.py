@@ -228,10 +228,103 @@ def _flash_bound_ms(q, k, v, mask_kw) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _flash_row(gen) -> dict:
+def _bsnd(fn, q, k, v, kw, cast=lambda t: t) -> torch.Tensor:
+    """``fn`` (a version of flash attention in its own layout) applied to q
+    (B, Sq, N, Dh) and k/v (B, Sk, K, Dh), as ``ops.flash_attention_bsnd`` does."""
+    K, N = k.shape[2], q.shape[2]
+    qk = cast(q).unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)
+    o = fn(qk, cast(k).permute(0, 2, 1, 3), cast(v).permute(0, 2, 1, 3), **kw)
+    return o.permute(0, 3, 1, 2, 4).reshape(q.shape)
+
+
+def _flash_main_shape(q, k, v, kw, where: str) -> dict:
+    """The kernel at one of the main paths' shapes, in the model's layout
+    (q (B, Sq, N, Dh), k/v (B, Sk, K, Dh)), bf16: held per element against
+    the plain version and the float64 oracle (one ulp) and against the
+    library call (four ulps of the row: it rounds its probabilities to bf16
+    before P.V), and timed beside them and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ref import attention_ref
+
+    dt = q.dtype
+
+    def plain():
+        return _bsnd(flash_attention_plain, q, k, v, kw)
+
+    def library():
+        # prefill from position 0 is causal from the top left; a row at the
+        # cache's last position sees every key: no mask needed
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=(q.shape[1] > 1), enable_gqa=True,
+        ).transpose(1, 2)
+
+    o = ops.flash_attention_bsnd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    r = plain()
+    err, of_limit = _excess(o, r, dt)
+    lib_err, lib_of_limit = _excess(o, library(), dt, ulps=4, of_row=True)
+    ref_err, ref_of_limit = _excess(o, _bsnd(attention_ref, q, k, v, kw, torch.Tensor.double), dt)
+    if not max(of_limit, lib_of_limit, ref_of_limit) <= 1.0:
+        raise SystemExit(f"flash_attention at the {where} shape: max_abs_err={err} vs plain "
+                         f"({of_limit} of its limit), {lib_err} vs the library call "
+                         f"({lib_of_limit}), {ref_err} vs the float64 oracle ({ref_of_limit})")
+    bound_ms, bound_by = _flash_bound_ms(q, k, v, kw)
+    ms, call_ms = time_ms(lambda: ops.flash_attention_bsnd(q, k, v, **kw))
+    return {
+        "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} {str(dt).split('.')[-1]} {kw}",
+        "max_abs_err": err,
+        "err_of_limit": of_limit,
+        "oracle_err_of_limit": ref_of_limit,
+        "max_abs_plain": r.float().abs().max().item(),
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": time_ms(plain)[0],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": time_ms(library)[0],
+    }
+
+
+def _flash_gradients(gen, q, k, v, kw) -> dict:
+    """The kernel under autograd, as the training step calls it: its output
+    must carry a ``grad_fn`` and equal the kernel's output without autograd;
+    the gradients of a random projection of it equal the plain version's bit
+    for bit (the backward recomputes the plain version) and lie within one
+    bf16 ulp of each tensor's largest |g| of the float64 oracle's (fp32 sums
+    rounded once to bf16)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ref import attention_ref
+
+    w = _rand(gen, q.shape, q.dtype, 1.0)
+    runs = {}
+    for name, fn in (("kernel", lambda *t: ops.flash_attention_bsnd(*t, **kw)),
+                     ("plain", lambda *t: _bsnd(flash_attention_plain, *t, kw)),
+                     ("oracle", lambda *t: _bsnd(attention_ref, *t, kw, torch.Tensor.double))):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        if o.grad_fn is None:
+            raise SystemExit(f"flash_attention at the train shape: the {name} output has no grad_fn")
+        (o.double() * w.double()).sum().backward()
+        runs[name] = (o.detach(), [t.grad for t in leaves])
+    (o, g), (_, gp), (_, go) = runs["kernel"], runs["plain"], runs["oracle"]
+    same_output = torch.equal(o, ops.flash_attention_bsnd(q, k, v, **kw))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(g, gp))
+    of_largest = max(((a.double() - b).abs().max() / (BF16_ULP * b.abs().max())).item()
+                     for a, b in zip(g, go))
+    if not (same_output and bit_equal and of_largest <= 1.0):
+        raise SystemExit(f"flash_attention at the train shape under autograd: output as without "
+                         f"autograd {same_output}, gradients bit-equal to plain {bit_equal}, "
+                         f"vs the float64 oracle {of_largest} of one ulp of the largest |g|")
+    return {"output_equals_no_grad_call": same_output, "bit_equal_to_plain": bit_equal,
+            "oracle_err_of_ulp_of_largest": of_largest}
+
+
+def _flash_row(gen) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.ref import attention_ref
 
@@ -264,61 +357,28 @@ def _flash_row(gen) -> dict:
     for path, N, K, D, decode_at in (("", 32, 8, 128, S + 7),
                                      ("zamba2_", 32, 32, 64, S + ZAMBA["gen"] - 2)):
         q_prefill, ck, cv = _qkv(gen, (B, S, N, D), (B, s_max, K, D), dt)
-        shapes = {
-            "prefill": (q_prefill, S, dict(causal=True, q_start=0)),
-            "decode": (_rand(gen, (B, 1, N, D), dt, 2.0), decode_at + 1, dict(causal=True, q_start=decode_at)),
-        }
-        for name, (q, sk, kw) in shapes.items():
-            k, v = ck[:, :sk], cv[:, :sk]
-
-            def plain(fn=flash_attention_plain, cast=lambda t: t):
-                qk = cast(q).unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)
-                o = fn(qk, cast(k).permute(0, 2, 1, 3), cast(v).permute(0, 2, 1, 3), **kw)
-                return o.permute(0, 3, 1, 2, 4).reshape(q.shape)
-
-            def library():
-                # a row at the cache's last position sees every key: no mask needed
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=(q.shape[1] > 1), enable_gqa=True,
-                ).transpose(1, 2)
-
-            o = ops.flash_attention_bsnd(q, k, v, **kw)
-            torch.cuda.synchronize()
-            r = plain()
-            err, of_limit = _excess(o, r, dt)
-            # the library call rounds its probabilities to bf16 before P.V: 4 ulps of the row
-            lib_err, lib_of_limit = _excess(o, library(), dt, ulps=4, of_row=True)
-            ref_err, ref_of_limit = _excess(o, plain(attention_ref, torch.Tensor.double), dt)
-            if not max(of_limit, lib_of_limit, ref_of_limit) <= 1.0:
-                raise SystemExit(f"flash_attention at the {path}{name} shape: max_abs_err={err} vs plain "
-                                 f"({of_limit} of its limit), {lib_err} vs the library call "
-                                 f"({lib_of_limit}), {ref_err} vs the float64 oracle ({ref_of_limit})")
-            bound_ms, bound_by = _flash_bound_ms(q, k, v, kw)
-            ms, call_ms = time_ms(lambda: ops.flash_attention_bsnd(q, k, v, **kw))
-            rows[path + name] = {
-                "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} {str(dt).split('.')[-1]} {kw}",
-                "max_abs_err": err,
-                "err_of_limit": of_limit,
-                "oracle_err_of_limit": ref_of_limit,
-                "max_abs_plain": r.float().abs().max().item(),
-                "ms": ms,
-                "call_ms": call_ms,
-                "plain_ms": time_ms(plain)[0],
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": time_ms(library)[0],
-            }
+        rows[path + "prefill"] = _flash_main_shape(q_prefill, ck[:, :S], cv[:, :S], dict(causal=True, q_start=0),
+                                                   path + "prefill")
+        q_decode = _rand(gen, (B, 1, N, D), dt, 2.0)
+        rows[path + "decode"] = _flash_main_shape(q_decode, ck[:, :decode_at + 1], cv[:, :decode_at + 1],
+                                                  dict(causal=True, q_start=decode_at), path + "decode")
+    # granite-8b's training step: the whole sequence's q, k, v from the
+    # projections, every layer's attention under autograd
+    N, K, D = 32, 8, 128
+    q, k, v = _qkv(gen, (TRAIN["batch"], TRAIN["seq"], N, D), (TRAIN["batch"], TRAIN["seq"], K, D), dt)
+    rows["train"] = _flash_main_shape(q, k, v, dict(causal=True, q_start=0), "train")
+    rows["train"]["gradients"] = _flash_gradients(gen, q, k, v, dict(causal=True, q_start=0))
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:125",
-        "launches": None,            # filled in from the serve phase's run
+        "launches": None,            # filled in from the serve and train phases' runs
         **rows["prefill"],
         "decode": rows["decode"],
         "zamba2_prefill": rows["zamba2_prefill"],
         "zamba2_decode": rows["zamba2_decode"],
+        "train": rows["train"],
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -732,7 +792,9 @@ def _ccu_row(gen) -> dict:
     gradient leaves at 8 layers, int8 with its scale, as ``compress_grads``
     calls it), two runs bit-equal, and the reference test's shapes within its
     1e-5 of the float64 oracle.  Times: the 12 leaves of one training step
-    summed (one launch each); bound: their bytes, P N elem + 4 N."""
+    summed (one launch each); bound: their bytes, P N elem + 4 N; library:
+    ``torch.mul(bufs[0], scales)``, which at P = 1 computes the same values
+    bit for bit (checked)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ccu_reduce import ccu_reduce_plain
     from repro_torch.kernels.ref import ccu_reduce_ref
@@ -766,13 +828,15 @@ def _ccu_row(gen) -> dict:
         scale = torch.rand(1, generator=gen, device="cuda") * 1e-3
         o = ops.ccu_reduce(q, scale)
         torch.cuda.synchronize()
-        if not torch.equal(o, ccu_reduce_plain(q, scale)) or not torch.equal(o, ops.ccu_reduce(q, scale)):
-            raise SystemExit(f"ccu_reduce at the main path's leaf {name} (N = {N}) is not bit-equal to plain")
+        if not (torch.equal(o, ccu_reduce_plain(q, scale)) and torch.equal(o, ops.ccu_reduce(q, scale))
+                and torch.equal(o, torch.mul(q[0], scale))):
+            raise SystemExit(f"ccu_reduce at the main path's leaf {name} (N = {N}) is not bit-equal "
+                             f"to plain and to the library call")
         nbytes = q.numel() + 4 * N + 4
         ms, call_ms = time_ms(lambda: ops.ccu_reduce(q, scale))
         row = {"N": N, "ms": ms, "call_ms": call_ms,
                "plain_ms": time_ms(lambda: ccu_reduce_plain(q, scale))[0],
-               "library_ms": time_ms(lambda: (q.float() * scale[:, None]).sum(0))[0],
+               "library_ms": time_ms(lambda: torch.mul(q[0], scale))[0],
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         per_leaf[name] = row
         for k in totals:
@@ -793,7 +857,8 @@ def _ccu_row(gen) -> dict:
         **totals,
         "bound_by": "bytes",
         "bytes": nbytes_step,
-        "library_call": "(bufs.float() * scales[:, None]).sum(0): no single PyTorch call keeps the order",
+        "library_call": "torch.mul(bufs[0], scales): at P = 1 one elementwise call is the same function, "
+                        "bit for bit",
         "largest_leaf": {"name": largest, **per_leaf[largest]},
         "per_leaf": per_leaf,
         "test_cases": len(cases),
@@ -1283,15 +1348,6 @@ def _serve_path(spec: dict) -> dict[str, int]:
     return counts
 
 
-def _int8_values(payload: torch.Tensor) -> torch.Tensor:
-    """The int8 values q of a leaf's payload q * scale (its largest |q| is
-    127, so scale is its largest |value| / 127), on the host; worked out 64 M
-    elements at a time, so the device holds little more than the step does."""
-    top = payload.abs().amax().clamp(min=1e-30)
-    return torch.cat([torch.round(c * (127.0 / top)).to(torch.int8).cpu()
-                      for c in payload.reshape(-1).split(1 << 26)])
-
-
 def _train_expected_launches(harness, steps: int, n_leaves: int) -> dict[str, int]:
     """Under the ``"nothing"`` remat every layer's attention runs twice a
     step, in the forward and in the backward's recompute; every gradient
@@ -1304,8 +1360,8 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
     """``args.steps`` steps through the kernel path, every launch count set to
     0 just before and read just after, then the same steps from the same
     weights through the plain path (``use_kernels=False``: sdpa + mask bias
-    for attention; the compression's reduce is the optimizer's and launches
-    ccu_reduce on both).  The weights are drawn anew from ``args.seed`` for
+    for attention, ``ccu_reduce_plain`` for the compression's reduce; it
+    launches no kernel).  The weights are drawn anew from ``args.seed`` for
     each run unless ``params`` is given (then a copy serves each run), so
     that one training state is held at a time.  The first step's gradients
     (before compression) and int8 values are kept on the host and compared
@@ -1322,10 +1378,10 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
 
     kept = {}
 
-    def keep(step, loss, grads, payload):
+    def keep(step, loss, grads, payload, wire):
         if step == 0:
             kept["grads"] = [g.to("cpu") for g in tree_leaves(grads)]
-            kept["q"] = [_int8_values(p).to("cpu") for p in tree_leaves(payload)]
+            kept["q"] = [q.to("cpu") for q, _ in wire]
 
     def weights():
         return None if params is None else tree_map(torch.clone, params)
@@ -1341,19 +1397,19 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
     cmp = {"grad_worst_of_limit": 0.0, "grad_worst_leaf": None, "grad_max_abs_err": 0.0,
            "int8_differ": 0, "int8_values": 0}
 
-    def compare(step, loss, grads, payload):
+    def compare(step, loss, grads, payload, wire):
         if step != 0:
             return
         names = list(_granite_leaf_sizes(harness.cfg.n_layers))
-        for name, g, gk, p, qk in zip(names, tree_leaves(grads), kept["grads"], tree_leaves(payload), kept["q"]):
+        for name, g, gk, (q, _), qk in zip(names, tree_leaves(grads), kept["grads"], wire, kept["q"]):
             gk = gk.to(g.device)
             err = (g.float() - gk.float()).abs().max().item()
             limit = 2e-5 if dt == torch.float32 else 3e-2 * g.float().abs().max().item()
             cmp["grad_max_abs_err"] = max(cmp["grad_max_abs_err"], err)
             if err / max(limit, 1e-30) > cmp["grad_worst_of_limit"]:
                 cmp["grad_worst_of_limit"], cmp["grad_worst_leaf"] = err / max(limit, 1e-30), name
-            cmp["int8_differ"] += int((_int8_values(p) != qk).sum())
-            cmp["int8_values"] += p.numel()
+            cmp["int8_differ"] += int((q != qk.to(q.device)).sum())
+            cmp["int8_values"] += q.numel()
             del gk
 
     torch.cuda.empty_cache()
@@ -1366,7 +1422,7 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
            "int8_differ_share": cmp["int8_differ"] / cmp["int8_values"],
            "plain_losses": ref["losses"], "plain_grad_norms": ref["grad_norms"],
            "plain_step_ms": ref["step_ms"], "plain_launches": plain_counts}
-    if plain_counts["flash_attention"] or not all(map(math.isfinite, res["losses"] + ref["losses"])):
+    if any(plain_counts.values()) or not all(map(math.isfinite, res["losses"] + ref["losses"])):
         raise SystemExit(f"{where}: plain path launched {plain_counts} or a loss is not finite: {out}")
     if not loss_err <= loss_limit or not cmp["grad_worst_of_limit"] <= 1.0:
         raise SystemExit(f"{where}: kernel path vs plain path: {out}")
@@ -1415,8 +1471,7 @@ def phase_train() -> dict[str, dict[str, int]]:
     emit("train", arch="granite-8b", n_layers=TRAIN["n_layers"], d_model=harness.cfg.d_model,
          params=res["params"], batch=args.batch, seq=args.seq, compression=args.compression,
          steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
-         step_ms=res["step_ms"], tokens_per_s=res["tokens_per_s"],
-         warm_tokens_per_s=args.batch * args.seq * 1e3 / (sum(res["step_ms"][1:]) / (args.steps - 1)),
+         step_ms=res["step_ms"], tokens_per_s_after_the_first_step=res["tokens_per_s"],
          peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
     return {f"granite-8b train ({TRAIN['n_layers']} layers)": counts}
 

@@ -92,7 +92,7 @@ def main(argv: list[str] | None = None) -> None:
     marks = []
     sched = schedule(wait=0, warmup=args.warm, active=args.active, repeat=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=sched) as prof:
-        def observe(step, loss, grads, payload):
+        def observe(step, loss, grads, payload, wire):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             prof.step()

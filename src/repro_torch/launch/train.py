@@ -77,16 +77,19 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     ``harness`` and ``params`` replace the loaded config and the drawn
     weights (the parity tests carry the reference's weights across that way;
     ``params`` is updated in place); ``rt`` replaces the default runtime
-    (``Runtime(use_kernels=False)`` is the plain path).  ``observe(step,
-    loss, grads, payload)``, if given, is called every step after the
-    compression and before the update, with the gradients and the payload
-    AdamW gets; its time is left out of the step's.  ``log`` takes each line
-    the loop would print.
+    (``Runtime(use_kernels=False)`` is the plain path, for the model and the
+    compression's reduce alike).  ``observe(step, loss, grads, payload,
+    wire)``, if given, is called every step after the compression and before
+    the update, with the gradients, the payload AdamW gets and, in int8 mode,
+    each leaf's int8 values and scale ``(q, scale)`` (else an empty list);
+    its time is left out of the step's.  ``log`` takes each line the loop
+    would print.
 
     Returns per step the loss, the gradient norm, the learning rate and the
     wall time (host clock ended by a device synchronise), the peak device
-    memory, tokens per second over the whole loop and the kernels' launch
-    counts over it.  The three parts of a step are marked for
+    memory, tokens per second over the steps' wall times with the first step
+    left out where there are more (it builds the kernels) and the kernels'
+    launch counts over the loop.  The three parts of a step are marked for
     ``torch.profiler`` as ``train.grad``, ``train.compress`` and
     ``train.adamw`` (``launch/profile_train.py`` reads them).
     """
@@ -122,8 +125,6 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     supervisor = TrainingSupervisor(n_workers=1)
     out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": []}
     launches0 = launch_counts()
-    _sync(device)
-    t_start = time.perf_counter()
     try:
         for step in range(args.steps):
             batch = next(pipeline)
@@ -131,13 +132,15 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             t0 = time.perf_counter()
             with record_function("train.grad"):
                 loss, grads = loss_and_grad(params, batch)
+            wire = [] if observe is not None else None
             with record_function("train.compress"):
-                payload, residual = compress_grads(comp, grads, residual)
+                payload, residual = compress_grads(comp, grads, residual, use_kernels=rt.use_kernels, wire=wire)
             if observe is not None:
                 _sync(device)
                 t1 = time.perf_counter()
-                observe(step, loss, grads, payload)
+                observe(step, loss, grads, payload, wire)
                 t0 += time.perf_counter() - t1
+                del wire
             del grads
             with record_function("train.adamw"):
                 params, opt_state, metrics = adamw.apply(opt_cfg, params, payload, opt_state)
@@ -154,8 +157,8 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
                     f"gnorm={out['grad_norms'][-1]:.3f} lr={out['lrs'][-1]:.2e} dt={dt * 1e3:.0f}ms")
     finally:
         pipeline.close()
-    _sync(device)
-    out["tokens_per_s"] = args.steps * args.batch * args.seq / (time.perf_counter() - t_start)
+    warm = out["step_ms"][1:] or out["step_ms"]
+    out["tokens_per_s"] = len(warm) * args.batch * args.seq * 1e3 / sum(warm)
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
     out["params"] = param_count(harness.param_specs())
     out["launches"] = {k: n - launches0[k] for k, n in launch_counts().items()}
@@ -172,7 +175,7 @@ def main(argv: list[str] | None = None) -> None:
     print(f"[train] params={res['params']:.4g} peak={res['peak_memory_gb']} GB "
           f"kernel launches={res['launches']}")
     print(f"[train] done. first loss={losses[0]:.4f} last loss={losses[-1]:.4f} "
-          f"({res['tokens_per_s']:.0f} tok/s)")
+          f"({res['tokens_per_s']:.0f} tok/s after the first step)")
     assert losses[-1] < losses[0], "loss did not improve"
 
 

@@ -21,6 +21,8 @@ leaf every step.  A multi-rank run stacks its peers' payloads as the rows of
 
 ``compress_grads`` returns the new residual, as the reference's does; the
 reference's own train step drops it, the port's carries it (``launch/train.py``).
+With ``use_kernels=False`` (the plain path, ``Runtime.use_kernels``) the
+payload goes through ``ccu_reduce_plain`` instead, and the kernel never runs.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import ops
+from ..kernels.ccu_reduce import ccu_reduce_plain
 from ..models.param import tree_leaves, tree_map
 
 
@@ -50,13 +53,16 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def compress_grads(cfg: CompressionConfig, grads, residual=None):
+def compress_grads(cfg: CompressionConfig, grads, residual=None, *, use_kernels: bool = True,
+                   wire: list | None = None):
     """Returns (payload_grads, new_residual).
 
     int8: g' = Q(g + residual); residual' = (g + residual) - deQ(g'), the
-    dequantised payload reduced by ``ccu_reduce``.  Leaf by leaf, so the fp32
-    temporaries of one leaf are the peak; a residual passed in is updated in
-    place and returned.
+    dequantised payload reduced by ``ccu_reduce`` (``ccu_reduce_plain`` when
+    ``use_kernels`` is off).  Leaf by leaf, so the fp32 temporaries of one
+    leaf are the peak; a residual passed in is updated in place and returned.
+    A ``wire`` list, if given, receives each leaf's int8 values and scale
+    ``(q, scale)``, in leaf order.
     """
     if cfg.mode == "none":
         return grads, residual
@@ -68,11 +74,14 @@ def compress_grads(cfg: CompressionConfig, grads, residual=None):
     if residual is None:
         residual = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
 
+    reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
     payload = {}
     for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
         acc = g.to(torch.float32) + r if cfg.ef else g.to(torch.float32)
         q, scale = quantize_int8(acc)
-        deq = ops.ccu_reduce(q.reshape(1, -1), scale.reshape(1)).reshape(q.shape)
+        deq = reduce(q.reshape(1, -1), scale.reshape(1)).reshape(q.shape)
+        if wire is not None:
+            wire.append((q, scale))
         if cfg.ef:
             torch.sub(acc, deq, out=r)
         else:

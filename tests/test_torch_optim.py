@@ -95,6 +95,24 @@ def test_int8_payload_is_the_ccu_reduce_of_q():
     assert torch.equal(pay.reshape(-1), ops.ccu_reduce(q.reshape(1, -1), s.reshape(1)))
 
 
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_compress_grads_wire_values(use_kernels):
+    """``wire`` receives each leaf's int8 values and scale, the quantiser's
+    bit for bit, in leaf order; the payload is the same on both paths (the
+    plain path reduces through ``ccu_reduce_plain``, never the kernel)."""
+    rng = np.random.default_rng(3)
+    grads = {"a": torch.from_numpy(rand(rng, (64, 33), 0.3)), "b": torch.from_numpy(rand(rng, (5,), 2.0))}
+    wire = []
+    reset_launch_counts()
+    pay = PC.compress_grads(PC.CompressionConfig(mode="int8"), grads, use_kernels=use_kernels, wire=wire)[0]
+    assert launch_counts()["ccu_reduce"] == 0
+    assert len(wire) == 2
+    for (q, s), g, p in zip(wire, tree_leaves(grads), tree_leaves(pay)):
+        rq, rs = PC.quantize_int8(g)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+        assert torch.equal(p, PC.dequantize_int8(q, s))
+
+
 @pytest.mark.parametrize("mode", ["none", "bf16", "int8"])
 def test_wire_bytes_factor(mode):
     assert PC.wire_bytes_factor(PC.CompressionConfig(mode=mode)) == RC.wire_bytes_factor(

@@ -242,7 +242,7 @@ def test_train_steps_match_reference(use_kernels):
     _, ph = harnesses("float32")
     seen = []
 
-    def observe(step, loss, grads, payload):
+    def observe(step, loss, grads, payload, wire):
         seen.append({"loss": float(loss), "grads": grads, "payload": payload})
 
     p_params = carry(params, torch.float32)
@@ -283,7 +283,7 @@ def test_residual_is_carried_across_steps():
     from repro_torch.optim import compression as PC
 
     seen = []
-    train.run(train_args(steps=2), observe=lambda s, l, g, p: seen.append((g, p)))
+    train.run(train_args(steps=2), observe=lambda s, l, g, p, w: seen.append((g, p)))
     (g0, p0), (g1, p1) = seen
     comp = PC.CompressionConfig(mode="int8")
     _, r0 = PC.compress_grads(comp, g0)
@@ -306,6 +306,16 @@ def test_train_lowers_the_loss():
     assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
                                "ccu_reduce": 0}          # CPU: the plain versions
     assert len(res["step_ms"]) == 40 and res["tokens_per_s"] > 0 and res["peak_memory_gb"] is None
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_tokens_per_s_leaves_out_the_first_step(steps):
+    """The rate is over the steps' own wall times, the first (which builds
+    the kernels on the card) left out where there are more."""
+    args = train_args(steps=steps, seq=16, batch=2)
+    res = train.run(args)
+    warm = res["step_ms"][1:] or res["step_ms"]
+    assert res["tokens_per_s"] == pytest.approx(len(warm) * 2 * 16 * 1e3 / sum(warm))
 
 
 def test_train_main_prints(capsys):
