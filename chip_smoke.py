@@ -55,6 +55,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -144,15 +145,23 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])
     seconds = time.perf_counter() - t0
-    # ptxas -v: registers and spills of every instantiation, by library
+    # ptxas -v: registers and spills of every instantiation, by library, and
+    # of each flash-attention kernel by name
     ptxas = {}
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
         ptxas[name] = {"max_registers": max((int(w.split()[0]) for w in log.split("Used")[1:]), default=None),
                        "spill_store_bytes": sum(int(w.split()[-1])
                                                 for w in log.split(" bytes spill stores")[:-1])}
+    flash_kernels = {}
+    for entry in libs["flash_attention"].with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
+        flash_kernels[entry.split("'")[0]] = {
+            key: int(m.group(1)) if (m := re.search(pattern, entry)) else None
+            for key, pattern in (("registers", r"Used (\d+) registers"),
+                                 ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                                 ("spill_load_bytes", r"(\d+) bytes spill loads"))}
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
-         libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas)
+         libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas, ptxas_flash=flash_kernels)
 
 
 def _rand(gen, shape, dtype, scale):
@@ -254,9 +263,13 @@ def _flash_main_shape(q, k, v, kw, where: str) -> dict:
     def plain():
         return _bsnd(flash_attention_plain, q, k, v, kw)
 
+    if kw.get("window") is not None and kw["window"] < k.shape[1]:
+        raise SystemExit(f"the library yardstick at the {where} shape has no window mask")
+
     def library():
         # prefill from position 0 is causal from the top left; a row at the
-        # cache's last position sees every key: no mask needed
+        # cache's last position sees every key: no mask needed (a window, as
+        # mixtral's 4096, covers every key at these shapes)
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=(q.shape[1] > 1), enable_gqa=True,
@@ -349,19 +362,23 @@ def _flash_row(gen) -> dict:
 
     # the main paths' own shapes, in the model's layout: q from the projections,
     # k/v a slice of one layer's KV cache (B, Smax, K, Dh), read in place.
-    # granite-8b: 32 heads on 8 KV heads of 128, decoding at S + 7; zamba2-1.2b's
-    # shared block: 32 heads of 64, G = 1, decoding at its last step, S + gen - 2
+    # granite-8b: 32 heads on 8 KV heads of 128, decoding at S + 7;
+    # mixtral-8x22b: 48 heads on 8 KV heads of 128 (G = 6: 64 folded rows do
+    # not divide by it), window 4096, decoding at S + 7; zamba2-1.2b's shared
+    # block: 32 heads of 64, G = 1, decoding at its last step, S + gen - 2
     B, S, dt = SERVE["batch"], SERVE["prompt_len"], torch.bfloat16
     s_max = S + SERVE["gen"] + 8
     rows = {}
-    for path, N, K, D, decode_at in (("", 32, 8, 128, S + 7),
-                                     ("zamba2_", 32, 32, 64, S + ZAMBA["gen"] - 2)):
+    for path, N, K, D, decode_at, window in (("", 32, 8, 128, S + 7, None),
+                                             ("mixtral_", 48, 8, 128, S + 7, 4096),
+                                             ("zamba2_", 32, 32, 64, S + ZAMBA["gen"] - 2, None)):
         q_prefill, ck, cv = _qkv(gen, (B, S, N, D), (B, s_max, K, D), dt)
-        rows[path + "prefill"] = _flash_main_shape(q_prefill, ck[:, :S], cv[:, :S], dict(causal=True, q_start=0),
-                                                   path + "prefill")
+        rows[path + "prefill"] = _flash_main_shape(q_prefill, ck[:, :S], cv[:, :S],
+                                                   dict(causal=True, window=window, q_start=0), path + "prefill")
         q_decode = _rand(gen, (B, 1, N, D), dt, 2.0)
         rows[path + "decode"] = _flash_main_shape(q_decode, ck[:, :decode_at + 1], cv[:, :decode_at + 1],
-                                                  dict(causal=True, q_start=decode_at), path + "decode")
+                                                  dict(causal=True, window=window, q_start=decode_at),
+                                                  path + "decode")
     # granite-8b's training step: the whole sequence's q, k, v from the
     # projections, every layer's attention under autograd
     N, K, D = 32, 8, 128
@@ -376,6 +393,8 @@ def _flash_row(gen) -> dict:
         "launches": None,            # filled in from the serve and train phases' runs
         **rows["prefill"],
         "decode": rows["decode"],
+        "mixtral_prefill": rows["mixtral_prefill"],
+        "mixtral_decode": rows["mixtral_decode"],
         "zamba2_prefill": rows["zamba2_prefill"],
         "zamba2_decode": rows["zamba2_decode"],
         "train": rows["train"],

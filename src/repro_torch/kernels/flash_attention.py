@@ -22,13 +22,24 @@ the saved q, k and v.  The reference has no backward kernel to port; a
 hand-written one is later work.
 
 On the card the function is bound by bytes (q, k, v read once, o written
-once); the notes at the top of the CUDA source say what the kernel's design
-does about that and what it leaves for later.
+once).  ``_launch`` hands the call to one of three kernels of the CUDA source,
+whose notes say what each design does about that and what is left for later:
+
+- folded rows ``G * Sq <= 16`` (a decode step), either type: the keys split
+  across ``decode_splits`` blocks a kv head, whose fp32 partials (in a workspace
+  that ``_launch`` allocates) a second kernel combines in a fixed order;
+- bf16 otherwise (prefill, training): wgmma on the tensor cores over a
+  three-stage cp.async K/V ring, the next tile's scores overlapping this
+  tile's softmax;
+- float32 otherwise (smoke sizes and tests): the first design, fp32 FMA.
+
+A call counts one launch, also where a decode step runs two kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -38,6 +49,25 @@ from . import _build
 NEG_INF = -1e30          # the kernel's finite mask fill (reference: NEG_INF)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_ROWS = 16         # folded rows G * Sq up to which the decode kernels run
+KEY_TILE = 64            # keys in a kernel's tile
+MAX_SPLITS = 128         # key splits the decode combine kernel takes
+
+
+def decode_splits(bk: int, Sk: int, n_sm: int) -> int:
+    """Key splits of a decode call over ``bk = B * K`` kv heads: enough
+    blocks (``bk`` a split) for about two on each of ``n_sm`` SMs, each
+    split a whole number of 64-key tiles, no more splits than tiles or
+    ``MAX_SPLITS``."""
+    tiles = -(-Sk // KEY_TILE)
+    want = min(tiles, MAX_SPLITS, max(1, -(-2 * n_sm // bk)))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def visible(
@@ -115,7 +145,7 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
-            + [ci] * 4 + [ctypes.c_float, vp]
+            + [ci] * 4 + [ctypes.c_float, vp, ci, vp]
         fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -131,13 +161,19 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
                 f"got shape {tuple(t.shape)}, strides {t.stride()}"
             )
     B, K, G, Sq, D = q.shape
+    Sk = k.shape[2]
+    splits, part = 0, None
+    if G * Sq <= DECODE_ROWS:
+        splits = decode_splits(B * K, Sk, _sm_count(q.device.index))
+        part = torch.empty(B * K * splits * G * Sq * (D + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, K, G, Sq, k.shape[2], D, _DTYPES[q.dtype],
+            B, K, G, Sq, Sk, D, _DTYPES[q.dtype],
             (ctypes.c_longlong * 14)(*strides),
             int(causal), -1 if window is None else int(window), int(prefix_len),
             int(q_start), float(sm_scale),
+            None if part is None else part.data_ptr(), splits,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -8,8 +8,8 @@ callables), ``serve_state_specs(cell)`` (KV-cache or recurrent-state spec
 tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``;
 ``TransformerHarness`` also the training half, ``loss(rt)`` (a callable
 ``(params, batch) -> loss``) and ``train_input_specs(cell)``.  The training
-half of the other families and the other model families come with their
-slices.
+half of the other families (the base class's raises ``NotImplementedError``,
+naming ROADMAP A13) and the other model families come with their slices.
 
 ``RWKVHarness.prefill`` and ``HybridHarness.prefill`` differ from the
 reference's on purpose: they return the state the prompt leaves
@@ -76,8 +76,14 @@ class Harness:
 
     # subclasses implement:
     def param_specs(self) -> Any: ...
-    def loss(self, rt: Runtime) -> Callable: ...
-    def train_input_specs(self, cell: ShapeCell) -> dict: ...
+    def loss(self, rt: Runtime) -> Callable:
+        raise NotImplementedError(
+            f"training {self.arch_id or type(self).__name__} ({self.family}) is not ported yet (ROADMAP A13)")
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        raise NotImplementedError(
+            f"training {self.arch_id or type(self).__name__} ({self.family}) is not ported yet (ROADMAP A13)")
+
     def prefill(self, rt: Runtime) -> Callable: ...
     def decode(self, rt: Runtime) -> Callable: ...
     def serve_state_specs(self, cell: ShapeCell) -> Any: ...

@@ -167,3 +167,55 @@ def reference_rwkv_scan_inputs(p, x, cfg):
     wlog = p["w0"][None, None] + jnp.einsum("bsd,dl,le->bse", xw, p["w_lora_a"], p["w_lora_b"])
     w = jnp.exp(-jnp.exp(wlog.astype(jnp.float32)))
     return tuple(t.reshape(B, S, H, N) for t in (r, k, v, w)) + (p["bonus_u"].reshape(H, N),)
+
+
+def flash_emulated(q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0,
+                   sm_scale=None, p_parts=2, splits=1, tile=64):
+    """The arithmetic of the port's CUDA flash-attention kernels, in PyTorch
+    on the CPU: fp32 scores of the bf16 inputs, 64-key tiles with the online
+    softmax (finite -1e30 fill), and O += P.V in fp32 with P cut into
+    ``p_parts`` bf16 pieces (2: the tensor-core kernel's P_hi + P_lo; 1: a
+    single bf16 P; None: P kept in fp32, as the decode kernel keeps it).  The
+    key tiles are cut into ``splits`` ranges whose partials (acc, m, l) are
+    combined in split order, as the decode kernels do."""
+    from repro_torch.kernels.flash_attention import NEG_INF, visible
+
+    Sq, D, Sk = q.shape[3], q.shape[4], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / D ** 0.5
+    ok = visible(Sq, Sk, causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
+    s_all = torch.einsum("bkgqd,bksd->bkgqs", q.float(), k.float()) * scale
+    s_all = torch.where(ok, s_all, torch.full_like(s_all, NEG_INF))
+    vf = v.float()[:, :, None]
+    n_tiles = -(-Sk // tile)
+    per = -(-n_tiles // splits)
+    parts = []
+    for sp in range(splits):
+        m = torch.full(s_all.shape[:-1], NEG_INF)
+        l = torch.zeros(s_all.shape[:-1])
+        acc = torch.zeros(*s_all.shape[:-1], D)
+        for j in range(sp * per, min(n_tiles, (sp + 1) * per)):
+            keys = slice(j * tile, (j + 1) * tile)
+            s = s_all[..., keys]
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None]
+            if p_parts is None:
+                acc = acc + p @ vf[..., keys, :]
+            else:
+                rest = p
+                for _ in range(p_parts):
+                    piece = rest.bfloat16().float()
+                    acc = acc + piece @ vf[..., keys, :]
+                    rest = rest - piece
+            m = m_new
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - M)
+        L = L + l * w
+        O = O + acc * w[..., None]
+    return (O / L.clamp_min(1e-20)[..., None]).to(q.dtype)

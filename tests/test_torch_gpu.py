@@ -20,22 +20,40 @@ def cuda():
     return torch.device("cuda")
 
 
+def _peaked_qkv(cuda, G, Sq, Sk, D, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(
+        (torch.randn(s, generator=gen, device=cuda) * scale).to(dtype)
+        for s, scale in [((2, 2, G, Sq, D), 2.0), ((2, 2, Sk, D), 1.5), ((2, 2, Sk, D), 1.0)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sq,Sk,q_start,window,prefix_len", [
-    (256, 256, 0, None, 0), (100, 100, 0, 32, 16), (77, 203, 126, None, 0), (1, 200, 199, None, 0),
+@pytest.mark.parametrize("G,Sq,Sk,q_start,window,prefix_len", [
+    (3, 256, 256, 0, None, 0), (3, 100, 100, 0, 32, 16), (3, 77, 203, 126, None, 0), (3, 1, 200, 199, None, 0),
+    # folded rows (462) a multiple of neither 16 nor 64
+    (6, 77, 77, 0, None, 0), (6, 77, 203, 126, 40, 0),
+    # key counts about one tile, and a long cache with a wide and a narrow window
+    (3, 1, 1, 0, None, 0), (3, 63, 63, 0, None, 0), (3, 64, 64, 0, None, 0), (3, 65, 65, 0, None, 0),
+    (3, 1, 63, 62, None, 0), (3, 1, 65, 64, None, 0),
+    (3, 4096, 4096, 0, 4096, 0), (3, 4096, 4096, 0, 16, 0),
+    (3, 1, 4096, 4095, 4096, 0), (3, 1, 4096, 4095, 16, 0),
+    # a prefix that crosses a key tile (prefill) and a key split (decode)
+    (3, 200, 200, 0, 32, 100), (3, 1, 300, 299, 16, 100), (3, 5, 300, 295, 16, 100),
+    # decode at 1, 2, 4, 16 and 64 key splits
+    (3, 1, 64, 63, None, 0), (3, 1, 128, 127, None, 0), (3, 1, 256, 255, None, 0),
+    (3, 1, 1000, 999, None, 0), (3, 1, 4096, 4095, None, 0),
 ])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_attention_kernel_matches_plain(cuda, D, Sq, Sk, q_start, window, prefix_len, dtype):
+def test_flash_attention_kernel_matches_plain(cuda, D, G, Sq, Sk, q_start, window, prefix_len, dtype):
     """Scores of standard deviation 3 and values of standard deviation 1: each
     row rests on a few keys chosen by q, and the outputs are of order 1.
     float32 within 2e-5 (sums in another order); bfloat16 within one bf16 ulp
-    of each element (2^-7 |r|: both round the same fp32 result once) plus 1e-5."""
+    of each element (2^-7 |r|: both round the same fp32 result once) plus 1e-5.
+    Folded rows G * Sq <= 16 take the decode kernels (keys split across
+    blocks), more take the tensor-core kernel (bf16) or the fp32 one."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (
-        (torch.randn(s, generator=gen, device=cuda) * scale).to(dtype)
-        for s, scale in [((2, 2, 3, Sq, D), 2.0), ((2, 2, Sk, D), 1.5), ((2, 2, Sk, D), 1.0)])
+    q, k, v = _peaked_qkv(cuda, G, Sq, Sk, D, dtype)
     kw = dict(causal=True, window=window, prefix_len=prefix_len, q_start=q_start)
     before = flash_attention.launches
     o = flash_attention(q, k, v, **kw).float()
@@ -44,6 +62,37 @@ def test_flash_attention_kernel_matches_plain(cuda, D, Sq, Sk, q_start, window, 
     r = flash_attention_plain(q, k, v, **kw).float()
     limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
     assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sk,window", [(1000, None), (1000, 100), (527, None)])
+def test_flash_decode_splits_of_many_tiles(cuda, Sk, window, dtype):
+    """Many kv heads (B * K = 256) leave few key splits, each walking several
+    64-key tiles through the decode kernel's two-stage ring; limits as above."""
+    from repro_torch.kernels.flash_attention import decode_splits, flash_attention, flash_attention_plain
+
+    assert (-(-Sk // 64)) > decode_splits(256, Sk, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (
+        (torch.randn(s, generator=gen, device=cuda) * scale).to(dtype)
+        for s, scale in [((8, 32, 2, 1, 128), 2.0), ((8, 32, Sk, 128), 1.5), ((8, 32, Sk, 128), 1.0)])
+    kw = dict(causal=True, window=window, q_start=Sk - 1)
+    o = flash_attention(q, k, v, **kw).float()
+    r = flash_attention_plain(q, k, v, **kw).float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Sk,q_start", [(4, 512, 512, 0), (4, 1, 520, 519), (4, 1, 4096, 4095)])
+def test_flash_attention_kernel_is_deterministic(cuda, G, Sq, Sk, q_start, dtype):
+    """Two calls on the same inputs give the same bits: the decode kernels
+    combine their key splits in a fixed order, with no atomics."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _peaked_qkv(cuda, G, Sq, Sk, 128, dtype, seed=2)
+    kw = dict(causal=True, q_start=q_start)
+    assert torch.equal(flash_attention(q, k, v, **kw), flash_attention(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -17,13 +17,14 @@ from repro.kernels import moe_dispatch as ref_moe, ops as ref_ops, ref as ref_re
 from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
-from repro_torch.kernels.flash_attention import _Attention, flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    _Attention, decode_splits, flash_attention, flash_attention_plain)
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import BF16_ULP, JDT, TDT, both, max_err, rand, to_np
+from _torch_parity import BF16_ULP, JDT, TDT, both, flash_emulated, max_err, rand, to_np
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -168,6 +169,79 @@ def test_launch_count_untouched_on_cpu():
     assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
                                "ccu_reduce": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' arithmetic, emulated on the CPU (the kernels themselves run
+# only on the card: tests/test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+
+def peaked_qkv(seed, B, K, G, Sq, Sk, D):
+    """bf16 inputs as the card's tests draw them (q 2 randn, k 1.5 randn, v
+    randn): each row's softmax rests on a few keys, outputs of order 1."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32) * sc).bfloat16()
+                 for s, sc in [((B, K, G, Sq, D), 2.0), ((B, K, Sk, D), 1.5), ((B, K, Sk, D), 1.0)])
+
+
+def one_ulp_excess(o, r) -> float:
+    """Largest |o - r| over one bf16 ulp of the element plus 1e-5, the limit
+    the kernel is held to on the card."""
+    o, r = o.double(), r.double()
+    return ((o - r).abs() / (BF16_ULP * r.abs() + 1e-5)).max().item()
+
+
+@pytest.mark.parametrize("B,K,G,S,D", [(1, 1, 1, 128, 64), (2, 2, 3, 256, 64), (1, 4, 2, 256, 128), (2, 1, 8, 128, 32)])
+def test_tensor_core_arithmetic_within_one_ulp(B, K, G, S, D):
+    """The prefill kernel's arithmetic (64-key tiles, P = P_hi + P_lo, two
+    bf16 products summed in fp32) on the reference test's shapes, causal:
+    within one bf16 ulp of each element of the plain version."""
+    q, k, v = peaked_qkv(60, B, K, G, S, S, D)
+    o = flash_emulated(q, k, v, causal=True, p_parts=2)
+    assert one_ulp_excess(o, flash_attention_plain(q, k, v, causal=True)) <= 1.0
+
+
+@pytest.mark.parametrize("G,Sk,kw", [
+    (4, 200, dict(q_start=199)),
+    (9, 131, dict(window=64, q_start=130)),
+    (1, 97, dict(window=16, prefix_len=8, q_start=96)),
+    (4, 64, dict(q_start=63)),                     # one tile: one split
+    (4, 300, dict(window=16, prefix_len=100, q_start=299)),   # the prefix crosses a split
+    (4, 1000, dict(q_start=999)),                  # many splits
+])
+def test_decode_arithmetic_within_one_ulp(G, Sk, kw):
+    """The decode kernels' arithmetic (fp32 P, the keys in splits of whole
+    tiles as ``decode_splits`` cuts them, partials combined in split order)
+    within one bf16 ulp of each element of the plain version."""
+    q, k, v = peaked_qkv(61, 2, 2, G, 1, Sk, 64)
+    splits = decode_splits(2 * 2, Sk, 132)
+    o = flash_emulated(q, k, v, causal=True, p_parts=None, splits=splits, **kw)
+    assert one_ulp_excess(o, flash_attention_plain(q, k, v, causal=True, **kw)) <= 1.0
+
+
+def test_single_bf16_p_breaks_one_ulp():
+    """Why the tensor-core kernel takes two products: one bf16 P puts
+    elements many ulps from the fp32-P result, the split P_hi + P_lo does not."""
+    q, k, v = peaked_qkv(62, 2, 2, 3, 256, 256, 64)
+    r = flash_attention_plain(q, k, v, causal=True)
+    assert one_ulp_excess(flash_emulated(q, k, v, causal=True, p_parts=1), r) > 10.0
+    assert one_ulp_excess(flash_emulated(q, k, v, causal=True, p_parts=2), r) <= 1.0
+
+
+@pytest.mark.parametrize("bk,Sk,splits", [
+    (32, 520, 9),      # granite-8b decode: 288 blocks
+    (128, 527, 3),     # zamba2-1.2b decode
+    (32, 1, 1), (32, 64, 1), (32, 65, 2), (4, 4096, 64), (1024, 4096, 1),
+    (1, 16384, 128),   # at most MAX_SPLITS
+])
+def test_decode_splits(bk, Sk, splits):
+    """About two blocks an SM of 132, at most 128 splits (the combine
+    kernel's room), whole 64-key tiles, no split empty."""
+    assert decode_splits(bk, Sk, 132) == splits
+    tiles = -(-Sk // 64)
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles <= splits * per
 
 
 # ---------------------------------------------------------------------------

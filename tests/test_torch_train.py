@@ -331,6 +331,18 @@ def test_train_flags_not_ported_raise(flag, item):
         train.run(args)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_train_families_not_ported_raise(arch):
+    """A family without a training half says so, naming the queue item,
+    instead of failing with a TypeError at the first step."""
+    args = train.build_parser().parse_args(["--device", "cpu", "--arch", arch, "--steps", "1",
+                                            "--batch", "2", "--seq", "32", "--compression", "int8"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        train.run(args)
+    with pytest.raises(NotImplementedError, match="A13"):
+        port_configs.load(arch, smoke=True).train_input_specs(ShapeCell("train_4k", "train", 32, 2))
+
+
 def test_train_smoke_flag_and_depth():
     args = train.build_parser().parse_args(["--no-smoke", "--n-layers", "8"])
     assert args.smoke is False and args.n_layers == 8 and args.device == "cuda"
