@@ -145,23 +145,27 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])
     seconds = time.perf_counter() - t0
-    # ptxas -v: registers and spills of every instantiation, by library, and
-    # of each flash-attention kernel by name
+    # ptxas -v: registers and spills of every instantiation, by library
     ptxas = {}
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
         ptxas[name] = {"max_registers": max((int(w.split()[0]) for w in log.split("Used")[1:]), default=None),
                        "spill_store_bytes": sum(int(w.split()[-1])
                                                 for w in log.split(" bytes spill stores")[:-1])}
-    flash_kernels = {}
-    for entry in libs["flash_attention"].with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
-        flash_kernels[entry.split("'")[0]] = {
-            key: int(m.group(1)) if (m := re.search(pattern, entry)) else None
-            for key, pattern in (("registers", r"Used (\d+) registers"),
-                                 ("spill_store_bytes", r"(\d+) bytes spill stores"),
-                                 ("spill_load_bytes", r"(\d+) bytes spill loads"))}
+    # and of each kernel by name, for the kernels a PR redesigned
+    by_kernel = {}
+    for name in ("flash_attention", "moe_dispatch", "ssd_scan"):
+        by_kernel[name] = {}
+        for entry in libs[name].with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
+            by_kernel[name][entry.split("'")[0]] = {
+                key: int(m.group(1)) if (m := re.search(pattern, entry)) else None
+                for key, pattern in (("registers", r"Used (\d+) registers"),
+                                     ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                                     ("spill_load_bytes", r"(\d+) bytes spill loads"))}
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
-         libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas, ptxas_flash=flash_kernels)
+         libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas,
+         ptxas_flash=by_kernel["flash_attention"], ptxas_moe_dispatch=by_kernel["moe_dispatch"],
+         ptxas_ssd_scan=by_kernel["ssd_scan"])
 
 
 def _rand(gen, shape, dtype, scale):
@@ -607,7 +611,9 @@ def _ssd_row(gen) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in (xh, log_l, Bm, Cm, y, h))
     pairs = sum(q * (q + 1) // 2 for q in [min(128, S - s0) for s0 in range(0, S, 128)])
     flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
-    design_flops = flops + 2 * B * (H - 1) * pairs * N      # C B^T again in every head's block
+    # the first design's fp32 FMA (C B^T again in every head's block) on the
+    # CUDA cores, the floor the tensor-core design is held below
+    first_design_flops = flops + 2 * B * (H - 1) * pairs * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
     ms, call_ms = time_ms(lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128))
     return {
@@ -627,7 +633,7 @@ def _ssd_row(gen) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes,
         "flops": flops,
-        "ops_ms_fp32_cores": design_flops / PEAK_FLOPS[torch.float32] * 1e3,
+        "first_design_fma_floor_ms": first_design_flops / PEAK_FLOPS[torch.float32] * 1e3,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
         "test_cases": len(cases),

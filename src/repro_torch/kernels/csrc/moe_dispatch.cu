@@ -8,31 +8,59 @@
 // result rounded once to x's type.  The reference's (T, E, C) x (T, D) form
 // is the case B = 1; the batched form is the model's einsum "bsec,bsd->ebcd".
 //
-// What differs from the TPU kernel, because the machine does:
-//  * The TPU feeds each (C, bt) x (bt, D) block to its matrix unit and
-//    carries the (C, D) sum in VMEM across the sequential token axis.  Here
-//    one thread block owns one (expert, batch row, tile of CT slots, tile of
-//    D columns) and LOOPS over the tokens; the sum stays in registers
-//    (CT x N fp32 a thread, N = 16 bytes of x's type) for the whole loop.
-//  * The weights of a tile of BT tokens are staged in shared memory as fp32,
-//    and a token whose weights in this tile of slots are all zero is skipped:
-//    its row of x is never read.  On the model's path `disp` is one-hot (each
-//    slot holds at most one token), so a block reads at most CT rows of x and
-//    does no multiply-add on a zero.  Skipping a zero weight leaves the same
-//    sum in the same token order for any finite x, so a dense `disp` gets the
-//    general function.  The one difference from the einsum: a NaN or inf in x
-//    under a zero weight gives NaN there (0 * inf) and nothing here.
-//  * Any T, C, D >= 1: the ragged edges are masked here, nothing is padded.
-//  * disp comes with four element strides and x with two (innermost stride 1),
-//    so the caller's layout is read in place; rows of x and out are read and
-//    written 16 bytes a thread where they are 16-byte aligned.
+// What bounds it on this card: bytes.  disp and x read once and out written
+// once are the least traffic (93.3 MB at mixtral-8x22b's prefill shape,
+// 0.028 ms at 3.35 TB/s); on the model's one-hot path there is one
+// multiply-add per kept (token, slot) pair and column, so operations never
+// bind.  The TPU kernel feeds (C, bt) x (bt, D) blocks to its matrix unit and
+// carries the (C, D) sum in VMEM along a sequential token axis; a first port
+// of that shape (one block per slot tile and column tile, every block walking
+// all T tokens with a barrier every 64) read disp once per column tile and
+// spent its time in a latency-bound walk, 8.9x its bound.
 //
-// Bound on this card: bytes.  disp and x read once and out written once are
-// the least traffic (one multiply-add per output element on the model's
-// one-hot path, so operations never bind).  This version reads every weight
-// of its (expert, batch row, slot tile) once per tile of D columns (from L2
-// after the first), and each row of x once per slot that holds it: K times
-// in all for top-K routing, against once in the bound.
+// This design compacts first, then gathers, in one launch:
+//  * One block owns (a tile of CT = 8 slots, expert e, batch row b) and every
+//    column: grid (ceil(C / 8), E, B), 640 blocks of 256 threads at prefill.
+//    At 48 registers a thread (one chunk in flight a warp) and 16.6 KB of
+//    shared memory, five blocks fit an SM: the whole grid is one wave on 132
+//    SMs, with no second, mostly empty wave.  The batch row is the slowest
+//    grid axis, so the experts of one row run together and the row's x
+//    (6.3 MB) stays in L2 for both of a token's experts.
+//  * Compaction: each thread reads one token's 8 weights disp[b, t, e,
+//    c0:c0+8] as one 16-byte load (fp32: two), so every weight is read once.
+//    A ballot over the warp, per slot, finds the tokens with a nonzero weight;
+//    their ranks within the warp (popc of the ballot below the lane) and the
+//    counts of the warps before it give each one its place in the slot's list
+//    of (t, w) in shared memory, in ascending t; 256 tokens a pass, three
+//    barriers a pass.
+//  * Gather: the block's rows out[e, b, c, :] are cut into chunks of 32 lanes
+//    x 16 bytes; each warp takes one at a time and walks the slot's list in
+//    order: a 16-byte load of the row of x, an fp32 multiply-add per element,
+//    and one rounding and a 16-byte streaming store (st.global.cs: out is not
+//    read again here, so it does not push x out of L2).  A slot with an empty
+//    list (about 1 in 5 at mixtral's routing with capacity factor 1.25) is
+//    written as zeros without a read.  Each kept row of x is read once per
+//    slot that holds it (K = 2 times for top-2 routing, the second mostly
+//    from L2); out is written once.
+//  * A list holds L = 256 entries.  When a slot of the block has more nonzero
+//    weights than that (dense weights over T > 256 tokens: not the model's
+//    path), the block switches to token ranges of L tokens: for each chunk it
+//    rebuilds the lists range by range, in order, and carries the fp32 sums
+//    in registers across the ranges, so the sum stays in ascending t.
+//  * One token (a decode step, T = 1) takes a kernel of its own with no list:
+//    each thread reads its 16 bytes of the token's row of x and the block's
+//    weights together, one round trip, and writes w x rounded once (zeros
+//    where w = 0), as the lists would give it; each row is spread over
+//    ceil(D / 2048) blocks (96 blocks at mixtral's decode).
+//  * Skipping a zero weight leaves the same sum in the same token order for
+//    any finite x, so a dense `disp` gets the general function.  The one
+//    difference from the einsum: a NaN or inf in x under a zero weight gives
+//    NaN there (0 * inf) and nothing here.
+//  * Any T, C, D >= 1: ragged edges are masked, nothing is padded.  disp comes
+//    with four element strides and x with two (innermost stride 1), so the
+//    caller's layout is read in place; weights are read 16 bytes a thread when
+//    the slot axis is innermost and aligned, rows of x and out 16 bytes a lane
+//    when aligned, element by element otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,8 +68,9 @@
 namespace {
 
 constexpr int CT = 8;               // capacity slots a block owns
-constexpr int BT = 64;              // tokens whose weights are staged at a time
-constexpr int MAX_THREADS = 128;
+constexpr int THREADS = 256;        // one token a thread while compacting
+constexpr int WARPS = THREADS / 32;
+constexpr int L = 256;              // entries a slot's list holds (and tokens in a range)
 
 struct Params {
   const void* disp;
@@ -52,6 +81,7 @@ struct Params {
   long long x_sb, x_st;               // x[b, t, :]
   long long o_se, o_sb, o_sc;         // out[e, b, c, :]
   int vec_ok;                         // rows of x and out are 16-byte aligned
+  int disp_vec;                       // disp[b, t, e, c0:c0+8] is one aligned run
 };
 
 __device__ inline float to_float(float v) { return v; }
@@ -69,7 +99,7 @@ template <> struct Vec16<float> {
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   }
   __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   }
 };
 
@@ -90,85 +120,187 @@ template <> struct Vec16<__nv_bfloat16> {
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = a;
+    __stcs(reinterpret_cast<uint4*>(p), a);
   }
 };
 
-// grid: (E * B, ceil(C / CT), ceil(D / (blockDim.x * N))); each thread owns
-// N consecutive columns of the block's CT output rows.
+// The CT weights of one token for the block's slots, as fp32 (zeros past C).
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) moe_dispatch_kernel(const Params p) {
-  constexpr int N = Vec16<T>::N;
-  __shared__ float w[BT][CT];       // weights of the staged tokens, as fp32
-  __shared__ int live[BT];          // token has a nonzero weight in the tile
-
-  const int tid = threadIdx.x;
-  const int e = blockIdx.x / p.B;
-  const int b = blockIdx.x % p.B;
-  const int c0 = blockIdx.y * CT;
-  const int d0 = (blockIdx.z * blockDim.x + tid) * N;
-  const bool has_cols = d0 < p.D;
-  const bool vec = p.vec_ok && d0 + N <= p.D;
-
-  const T* disp = static_cast<const T*>(p.disp) + b * p.d_sb + e * p.d_se + c0 * p.d_sc;
-  const T* x = static_cast<const T*>(p.x) + b * p.x_sb + d0;
-
-  float acc[CT][N];
+__device__ inline void read_weights(const Params& p, const T* row, int nc, float (&w)[CT]) {
+  if (p.disp_vec && nc == CT) {
 #pragma unroll
-  for (int c = 0; c < CT; ++c)
+    for (int c = 0; c < CT; c += Vec16<T>::N) Vec16<T>::load(row + c, w + c);
+  } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[c][i] = 0.f;
-
-  for (int t0 = 0; t0 < p.T; t0 += BT) {
-    const int nt = min(BT, p.T - t0);
-    // stage: one thread a token, its CT weights
-    for (int r = tid; r < BT; r += blockDim.x) {
-      int any = 0;
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        float v = 0.f;
-        if (r < nt && c0 + c < p.C) v = to_float(disp[(t0 + r) * p.d_st + c * p.d_sc]);
-        w[r][c] = v;
-        any |= (v != 0.f);
-      }
-      live[r] = any;
-    }
-    __syncthreads();
-    // the branch on live[r] and on each weight is the same for every thread
-    for (int r = 0; r < nt; ++r) {
-      if (!live[r] || !has_cols) continue;
-      const T* row = x + (t0 + r) * p.x_st;
-      float xv[N];
-      if (vec) {
-        Vec16<T>::load(row, xv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) xv[i] = d0 + i < p.D ? to_float(row[i]) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float wc = w[r][c];
-        if (wc != 0.f) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) acc[c][i] = fmaf(wc, xv[i], acc[c][i]);
-        }
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < CT; ++c) w[c] = c < nc ? to_float(row[c * p.d_sc]) : 0.f;
   }
+}
 
-  if (!has_cols) return;
-  T* out = static_cast<T*>(p.out) + e * p.o_se + b * p.o_sb + d0;
+struct Lists {
+  int t[CT][L];            // token of each entry, ascending
+  float w[CT][L];          // its weight
+  int count[CT];           // entries appended (may pass L: then the block works in ranges)
+  int warp_count[WARPS][CT];
+};
+
+// Appends the nonzero weights of tokens [t0, t1), t1 - t0 <= THREADS, one a
+// thread, to the slots' lists in ascending t.  Entries past L are counted,
+// not kept.  Called by every thread of the block; ends with a barrier.
+template <typename T>
+__device__ void compact(const Params& p, Lists& ls, const T* dsp, int t0, int t1, int nc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = t0 + tid;
+  float w[CT];
+  if (t < t1) {
+    read_weights(p, dsp + t * p.d_st, nc, w);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) w[c] = 0.f;
+  }
+  unsigned rank[CT];       // the nonzeros below this lane in the warp
 #pragma unroll
   for (int c = 0; c < CT; ++c) {
-    if (c0 + c >= p.C) break;
-    T* dst = out + (c0 + c) * p.o_sc;
-    if (vec) {
-      Vec16<T>::store(dst, acc[c]);
+    const unsigned mask = __ballot_sync(0xffffffffu, w[c] != 0.f);
+    if (lane == 0) ls.warp_count[warp][c] = __popc(mask);
+    rank[c] = __popc(mask & ((1u << lane) - 1u));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < CT; ++c) {
+    if (w[c] != 0.f) {
+      int at = ls.count[c] + rank[c];
+      for (int v = 0; v < warp; ++v) at += ls.warp_count[v][c];
+      if (at < L) {
+        ls.t[c][at] = t;
+        ls.w[c][at] = w[c];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < CT) {
+    int n = 0;
+    for (int v = 0; v < WARPS; ++v) n += ls.warp_count[v][tid];
+    ls.count[tid] += n;
+  }
+  __syncthreads();
+}
+
+// acc += the first n entries of slot c's list times x at the lane's columns
+// col .. col + N - 1, in list order, one fmaf an element
+template <typename T>
+__device__ inline void accumulate(const Params& p, const Lists& ls, const T* x, int c, int n, int col,
+                                  float (&acc)[Vec16<T>::N]) {
+  constexpr int N = Vec16<T>::N;
+  for (int k = 0; k < n; ++k) {
+    const float wk = ls.w[c][k];
+    const T* row = x + ls.t[c][k] * p.x_st + col;
+    float xv[N];
+    if (p.vec_ok && col + N <= p.D) {
+      Vec16<T>::load(row, xv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) xv[i] = col + i < p.D ? to_float(row[i]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = fmaf(wk, xv[i], acc[i]);
+  }
+}
+
+// grid: (ceil(C / CT), E, B), THREADS threads; T >= 2.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 5) moe_dispatch_kernel(const Params p) {
+  constexpr int N = Vec16<T>::N;
+  constexpr int CHUNK = 32 * N;     // columns of a row one warp pass covers
+  __shared__ Lists ls;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * CT, e = blockIdx.y, b = blockIdx.z;
+  const int nc = min(CT, p.C - c0);
+  const T* dsp = static_cast<const T*>(p.disp) + b * p.d_sb + e * p.d_se + c0 * p.d_sc;
+  const T* x = static_cast<const T*>(p.x) + b * p.x_sb;
+  T* out = static_cast<T*>(p.out) + e * p.o_se + b * p.o_sb + c0 * p.o_sc;
+
+  // the lists over all T tokens, unless some slot holds more than L
+  if (tid < CT) ls.count[tid] = 0;
+  __syncthreads();
+  bool ranged = false;
+  for (int t0 = 0; t0 < p.T && !ranged; t0 += THREADS) {
+    compact(p, ls, dsp, t0, min(p.T, t0 + THREADS), nc);
+#pragma unroll
+    for (int c = 0; c < CT; ++c) ranged |= ls.count[c] > L;     // the same in every thread
+  }
+
+  // warp w takes the (slot, chunk of columns) pairs w, w + WARPS, ...
+  const int chunks = (p.D + CHUNK - 1) / CHUNK;
+  const int items = nc * chunks;
+  for (int i0 = 0; i0 < items; i0 += WARPS) {
+    const int item = i0 + warp;
+    const int c = item < items ? item / chunks : 0, col = (item % chunks) * CHUNK + lane * N;
+    const bool mine = item < items && col < p.D;
+    float acc[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = 0.f;
+    if (!ranged) {
+      if (mine) accumulate(p, ls, x, c, min(ls.count[c], L), col, acc);
+    } else {
+      for (int r0 = 0; r0 < p.T; r0 += L) {     // rebuild the lists for tokens [r0, r0 + L)
+        __syncthreads();                         // the previous range's lists are read
+        if (tid < CT) ls.count[tid] = 0;
+        __syncthreads();
+        for (int t0 = r0; t0 < min(p.T, r0 + L); t0 += THREADS)
+          compact(p, ls, dsp, t0, min(p.T, min(r0 + L, t0 + THREADS)), nc);
+        if (mine) accumulate(p, ls, x, c, ls.count[c], col, acc);
+      }
+    }
+    if (!mine) continue;
+    T* dst = out + c * p.o_sc + col;
+    if (p.vec_ok && col + N <= p.D) {
+      Vec16<T>::store(dst, acc);
     } else {
 #pragma unroll
       for (int i = 0; i < N; ++i)
-        if (d0 + i < p.D) from_float(dst + i, acc[c][i]);
+        if (col + i < p.D) from_float(dst + i, acc[i]);
+    }
+  }
+}
+
+// One token (a decode step): each thread reads its 16 bytes of the token's
+// row of x and the block's weights together, one round trip and no list; w x
+// rounded once as the lists would give it, zeros where w = 0.
+// grid: (ceil(C / CT) dsplit, E, B), dsplit = ceil(D / (THREADS 16-byte chunks)).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) moe_dispatch_token_kernel(const Params p) {
+  constexpr int N = Vec16<T>::N;
+  const int dsplit = (p.D + THREADS * N - 1) / (THREADS * N);
+  const int c0 = (blockIdx.x / dsplit) * CT, e = blockIdx.y, b = blockIdx.z;
+  const int nc = min(CT, p.C - c0);
+  const T* dsp = static_cast<const T*>(p.disp) + b * p.d_sb + e * p.d_se + c0 * p.d_sc;
+  const T* x = static_cast<const T*>(p.x) + b * p.x_sb;
+  T* out = static_cast<T*>(p.out) + e * p.o_se + b * p.o_sb + c0 * p.o_sc;
+  const int col = ((blockIdx.x % dsplit) * THREADS + threadIdx.x) * N;
+  if (col >= p.D) return;
+  const bool vec = p.vec_ok && col + N <= p.D;
+  float xv[N];
+  if (vec) {
+    Vec16<T>::load(x + col, xv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) xv[i] = col + i < p.D ? to_float(x[col + i]) : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < CT; ++c) {
+    if (c >= nc) break;
+    const float wk = to_float(dsp[c * p.d_sc]);
+    float v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = wk != 0.f ? fmaf(wk, xv[i], 0.f) : 0.f;
+    T* dst = out + c * p.o_sc + col;
+    if (vec) {
+      Vec16<T>::store(dst, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (col + i < p.D) from_float(dst + i, v[i]);
     }
   }
 }
@@ -176,16 +308,12 @@ __global__ void __launch_bounds__(MAX_THREADS) moe_dispatch_kernel(const Params 
 template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int N = Vec16<T>::N;
-  // as many threads as the columns need, in whole warps, at most MAX_THREADS
-  const int chunks = (p.D + N - 1) / N;
-  const int in_warps = ((chunks + 31) / 32) * 32;
-  const int threads = in_warps < MAX_THREADS ? in_warps : MAX_THREADS;
-  const long long d_tiles = (chunks + threads - 1) / threads;
-  const long long c_tiles = (p.C + CT - 1) / CT;
-  const long long rows = (long long)p.E * p.B;
-  if (rows > 0x7fffffffLL || c_tiles > 65535 || d_tiles > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)rows, (unsigned)c_tiles, (unsigned)d_tiles);
-  moe_dispatch_kernel<T><<<grid, threads, 0, stream>>>(p);
+  const long long dsplit = p.T == 1 ? (p.D + THREADS * N - 1) / (THREADS * N) : 1;
+  const long long blocks_x = (p.C + CT - 1) / CT * dsplit;
+  if (blocks_x > 0x7fffffffLL || p.B > 65535 || p.E > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks_x, (unsigned)p.E, (unsigned)p.B);
+  if (p.T == 1) moe_dispatch_token_kernel<T><<<grid, THREADS, 0, stream>>>(p);
+  else moe_dispatch_kernel<T><<<grid, THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -193,12 +321,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (disp, x and out alike).  strides: 9
 // element strides in the order disp(b,t,e,c) x(b,t) out(e,b,c); the innermost
-// strides of x and out are 1.  Returns the cudaError_t of the launch
+// strides of x and out are 1.  vec_ok: rows of x and out are 16-byte aligned;
+// disp_vec: the slot axis of disp has stride 1 and every run of 8 slots from
+// a multiple of 8 is 16-byte aligned.  Returns the cudaError_t of the launch
 // (0 = ok); it does not synchronise.
 extern "C" int moe_dispatch_fwd(
     const void* disp, const void* x, void* out,
     int B, int T, int E, int C, int D, int dtype,
-    const long long* strides, int vec_ok, void* stream) {
+    const long long* strides, int vec_ok, int disp_vec, void* stream) {
   Params p;
   p.disp = disp; p.x = x; p.out = out;
   p.B = B; p.T = T; p.E = E; p.C = C; p.D = D;
@@ -206,6 +336,7 @@ extern "C" int moe_dispatch_fwd(
   p.x_sb = strides[4]; p.x_st = strides[5];
   p.o_se = strides[6]; p.o_sb = strides[7]; p.o_sc = strides[8];
   p.vec_ok = vec_ok;
+  p.disp_vec = disp_vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) err = launch<float>(p, s);

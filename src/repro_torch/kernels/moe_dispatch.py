@@ -6,9 +6,11 @@
 kernel of ``csrc/moe_dispatch.cu`` (built at first use, see ``_build.py``) or
 raises; on CPU tensors, and only there, it computes the same function with
 ``moe_dispatch_plain``.  There is no fallback from the kernel to the plain
-version.  ``moe_dispatch.launches`` counts kernel launches.  The kernel has no
-backward yet: asked for one (a CUDA input that requires grad, grad mode on)
-the wrapper raises rather than return an output cut from the graph.
+version.  ``moe_dispatch.launches`` counts kernel launches, one a call (a
+decode step, T = 1, launches a kernel of its own, see the CUDA source).  The
+kernel has no backward yet: asked for one (a CUDA input that requires grad,
+grad mode on) the wrapper raises rather than return an output cut from the
+graph.
 
 The function is the reference's, ``out[e, c, :] = sum_t disp[t, e, c] *
 x[t, :]`` accumulated in fp32, output in x's type, for ``disp (T, E, C)`` and
@@ -60,7 +62,7 @@ def _launch(disp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     fn = lib.moe_dispatch_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 3 + [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong), ci, vp]
+        fn.argtypes = [vp] * 3 + [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong), ci, ci, vp]
         fn.restype = ci
         lib.moe_dispatch_error_string.argtypes = [ci]
         lib.moe_dispatch_error_string.restype = ctypes.c_char_p
@@ -75,11 +77,15 @@ def _launch(disp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     per16 = 16 // x.element_size()
     vec_ok = all(t.data_ptr() % 16 == 0 for t in (x, out)) and all(
         s % per16 == 0 for s in (*x.stride()[:2], *out.stride()[:3]))
+    # each token's weights for a tile of 8 slots are read as one 16-byte run
+    # (fp32: two) where the slot axis is innermost and aligned
+    disp_vec = disp.stride(3) == 1 and disp.data_ptr() % 16 == 0 and all(
+        s % per16 == 0 for s in disp.stride()[:3])
     with torch.cuda.device(x.device):
         err = fn(
             disp.data_ptr(), x.data_ptr(), out.data_ptr(),
             B, T, E, C, D, _DTYPES[x.dtype],
-            (ctypes.c_longlong * 9)(*strides), int(vec_ok),
+            (ctypes.c_longlong * 9)(*strides), int(vec_ok), int(disp_vec),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

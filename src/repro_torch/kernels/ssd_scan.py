@@ -2,8 +2,10 @@
 (``_ssd_kernel`` / ``ssd_scan``, a Pallas kernel for the TPU).
 
 ``ssd_scan`` is the wrapper: on CUDA tensors it launches the CUDA C++ kernel
-of ``csrc/ssd_scan.cu`` (built at first use, see ``_build.py``) or raises; on
-CPU tensors, and only there, it computes the same function with
+of ``csrc/ssd_scan.cu`` (built at first use, see ``_build.py``) or raises:
+for bf16 inputs, what the model serves, the tensor-core design (``tc::``),
+for fp32 the first design's FMA kernel (``fma::``).  On CPU tensors, and
+only there, it computes the same function with
 ``ssd_scan_plain``.  There is no fallback from the kernel to the plain
 version.  ``ssd_scan.launches`` counts kernel launches.  The kernel has no
 backward yet: asked for one (a CUDA input that requires grad, grad mode on)
@@ -104,7 +106,7 @@ def _launch(xh, log_l, Bm, Cm, chunk, h0) -> tuple[torch.Tensor, torch.Tensor]:
     fn = lib.ssd_scan_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), vp]
+        fn.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 2 + [vp]
         fn.restype = ci
         lib.ssd_scan_error_string.argtypes = [ci]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -120,12 +122,18 @@ def _launch(xh, log_l, Bm, Cm, chunk, h0) -> tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
     strides = [*xh.stride()[:3], *log_l.stride(), *Bm.stride()[:2], *Cm.stride()[:2]]
+    # rows of x, B and C are staged 16 bytes at a time where aligned
+    per16 = 16 // xh.element_size()
+
+    def vec(*ts):
+        return all(t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s in t.stride()[:-1]) for t in ts)
+
     with torch.cuda.device(xh.device):
         err = fn(
             xh.data_ptr(), log_l.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             0 if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
             B, S, H, P, N, min(chunk, S), _DTYPES[xh.dtype],
-            (ctypes.c_longlong * 10)(*strides),
+            (ctypes.c_longlong * 10)(*strides), int(vec(xh)), int(vec(Bm, Cm)),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

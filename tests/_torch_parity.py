@@ -219,3 +219,93 @@ def flash_emulated(q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
         L = L + l * w
         O = O + acc * w[..., None]
     return (O / L.clamp_min(1e-20)[..., None]).to(q.dtype)
+
+
+def tf32_cut(v: torch.Tensor) -> torch.Tensor:
+    """fp32 cut toward zero to TF32 (10 explicit mantissa bits): the low 13
+    bits cleared, as the kernel masks them."""
+    return (v.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_parts(v: torch.Tensor, parts: int, kind: str) -> list[torch.Tensor]:
+    """v as ``parts`` pieces of type ``kind`` ("tf32": cut toward zero;
+    "bf16": rounded to nearest), each taken from what the pieces before it
+    leave: v = sum(pieces) + residual."""
+    pieces, rest = [], v.float()
+    for _ in range(parts):
+        piece = tf32_cut(rest) if kind == "tf32" else rest.bfloat16().float()
+        pieces.append(piece)
+        rest = rest - piece
+    return pieces
+
+
+def ssd_emulated(xh, log_l, Bm, Cm, *, chunk=128, h0=None, parts=2, kind="tf32", p_block=64):
+    """The arithmetic of the port's bf16 SSD-scan kernel (``tc::`` in
+    ``csrc/ssd_scan.cu``), in PyTorch on the CPU.  Per chunk of Q rows,
+    staged as a multiple of 16 rows with zero rows (x = 0, B = 0, log_l = 0)
+    past the sequence: the cumulative log decay in float64; the scores
+    S = C B^T once per batch row and chunk, in fp32, shared by every head;
+    att = S * exp(cum_i - cum_j), the difference narrowed to fp32 after it is
+    taken and masked before the exponential; then the three products with the
+    operand held in fp32 (att, the state h, B * tail) cut into ``parts``
+    pieces of ``kind`` ("tf32": the kernel's two TF32 parts; "bf16": one or
+    two bf16 parts, the alternatives it was chosen over) against the bf16
+    operand, each piece's product summed in fp32.  The columns of P are taken
+    ``p_block`` at a time (the kernel's block takes all of them, P <= 64; a
+    smaller block shows that a split of P changes nothing)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    ys, hs = [], []
+    for p0 in range(0, P, p_block):
+        x = xh[..., p0:p0 + p_block].float()
+        h = (torch.zeros((B, H, x.shape[-1], N)) if h0 is None else h0[:, :, p0:p0 + p_block].float())
+        y_cols = []
+        for s0 in range(0, S, Q):
+            q = min(Q, S - s0)
+            qp = -(-q // 16) * 16
+            pad = lambda t: torch.cat([t, t.new_zeros((B, qp - q, *t.shape[2:]))], dim=1)  # noqa: E731
+            xq, lq = pad(x[:, s0:s0 + q]), pad(log_l[:, s0:s0 + q].float())
+            bq, cq = pad(Bm[:, s0:s0 + q].float()), pad(Cm[:, s0:s0 + q].float())
+            cum = torch.cumsum(lq.double(), dim=1)                       # (B,qp,H)
+            scores = torch.einsum("bin,bjn->bij", cq, bq)                # once, all heads
+            diff = cum[:, :, None, :] - cum[:, None, :, :]               # (B,i,j,H)
+            causal = torch.tril(torch.ones((qp, qp), dtype=torch.bool))[None, :, :, None]
+            att = scores[..., None] * torch.exp(torch.where(causal, diff, -torch.inf).float())
+            y = sum(torch.einsum("bijh,bjhp->bihp", a, xq) for a in split_parts(att, parts, kind))
+            inter = sum(torch.einsum("bin,bhpn->bihp", cq, hp) for hp in split_parts(h, parts, kind))
+            y = inter * torch.exp(cum.float())[..., None] + y
+            y_cols.append(y[:, :q])
+            last = cum[:, -1:, :]
+            bt = bq[:, :, None, :] * torch.exp((last - cum).float())[..., None]    # (B,qp,H,N)
+            dh = sum(torch.einsum("bjhp,bjhn->bhpn", xq, a) for a in split_parts(bt, parts, kind))
+            h = h * torch.exp(last[:, 0].float())[:, :, None, None] + dh
+        ys.append(torch.cat(y_cols, dim=1))
+        hs.append(h)
+    return torch.cat(ys, dim=-1).to(xh.dtype), torch.cat(hs, dim=2)
+
+
+def moe_compacted(disp, x, *, buffer=256):
+    """The arithmetic of the port's MoE-dispatch kernel, in PyTorch on the
+    CPU: for each (expert, batch row, slot) the list of its nonzero weights
+    (t, w) in ascending t, built ``buffer`` tokens at a time when the slot
+    holds more than ``buffer`` (the kernel's token ranges), and the output row
+    as an fp32 sum over the list in that order (each multiply-add rounded
+    once, as ``fmaf`` rounds); a slot with an empty list is zeros.  disp
+    (B,T,E,C), x (B,T,D) -> (E,B,C,D) in x's type."""
+    B, T, E, C = disp.shape
+    w_all, xf = disp.float(), x.float()
+    out = torch.zeros((E, B, C, x.shape[-1]), dtype=torch.float64)
+    for b in range(B):
+        for e in range(E):
+            for c in range(C):
+                col = w_all[b, :, e, c]
+                ranges = [(0, T)] if int((col != 0).sum()) <= buffer else \
+                    [(r0, min(T, r0 + buffer)) for r0 in range(0, T, buffer)]
+                acc = torch.zeros(x.shape[-1], dtype=torch.float64)
+                for r0, r1 in ranges:
+                    for t in (torch.nonzero(col[r0:r1]).flatten() + r0).tolist():
+                        # w x + acc exact in float64, then one rounding to fp32
+                        acc = (col[t].double() * xf[b, t].double() + acc).float().double()
+                out[e, b, c] = acc
+    return out.to(x.dtype)

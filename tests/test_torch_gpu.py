@@ -161,6 +161,102 @@ def test_moe_dispatch_kernel_matches_plain(cuda, B, T, E, C, D, dense, dtype):
     assert ((o - r).abs() <= limit).all()
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,kind", [
+    (2, 256, 7, 64, 64, 128, "randn"),      # H not a multiple of the head group (2): the last block one head
+    (1, 128, 5, 48, 16, 64, "randn"),       # P = 48: the block's columns past P staged as zeros
+    (2, 200, 3, 36, 20, 64, "h0"),          # P = 36, N = 20 (zero columns up to 64)
+    (2, 1, 4, 64, 64, 128, "h0"),           # S = 1
+    (2, 77, 4, 64, 64, 128, "randn"),       # one ragged chunk
+    (1, 300, 4, 32, 64, 128, "h0"),         # two whole chunks and a ragged one
+    (1, 256, 4, 16, 16, 128, "strong"),     # log_l = -13
+    (2, 384, 8, 64, 64, 32, "h0"),          # many short chunks
+    (4, 512, 64, 64, 64, 128, "conv"),      # zamba2's shape, B and C slices of the conv output
+])
+def test_ssd_scan_tensor_core_cases(cuda, B, S, H, P, N, chunk, kind):
+    """The bf16 (tensor-core) kernel at its edges: y within one bf16 ulp of
+    each element of the plain version plus 1e-5, h within 5e-5, outputs
+    finite, and a second call on the same inputs giving the same bits."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+
+    def draw(shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    xh = draw((B, S, H, P)).bfloat16()
+    if kind == "conv":
+        conv = draw((B, S, H * P + 2 * N)).bfloat16()
+        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    else:
+        Bm, Cm = draw((B, S, N)).bfloat16(), draw((B, S, N)).bfloat16()
+    log_l = (torch.full((B, S, H), -13.0, device=cuda) if kind == "strong"
+             else -torch.nn.functional.softplus(draw((B, S, H), 1.0)))
+    h0 = draw((B, H, P, N)) if kind == "h0" else None
+    before = ssd_scan.launches
+    y, h = ssd_scan(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    y2, h2 = ssd_scan(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yr, hr = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
+    y, yr = y.float(), yr.float()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert ((y - yr).abs() <= 2.0 ** -7 * yr.abs() + 1e-5).all()
+    assert ((h - hr).abs() <= 5e-5).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,E,C,D,kind", [
+    (2, 64, 8, 40, 256, "empty"),        # most slots empty: 64 tokens, 320 slots a row
+    (1, 700, 2, 3, 200, "dense"),        # 700 nonzeros in every slot: past the 256-entry list
+    (2, 300, 4, 10, 100, "dense"),       # two compaction tiles, ragged D
+    (3, 77, 8, 12, 6144, "one_hot"),     # T a multiple of no tile
+    (4, 512, 8, 160, 6144, "model"),     # mixtral's prefill, disp as the model makes it
+    (4, 1, 8, 1, 6144, "model"),         # mixtral's decode
+    (2, 1, 4, 20, 100, "dense"),         # one token: the decode kernel, slots in several tiles, ragged D
+    (2, 20, 4, 12, 96, "one_hot"),       # a few tokens: one compaction pass, mostly idle
+    (1, 30, 2, 3, 200, "dense"),         # a few tokens, every weight nonzero
+    (2, 100, 4, 16, 96, "permuted"),     # disp with the slot axis not innermost
+])
+def test_moe_dispatch_kernel_edges(cuda, B, T, E, C, D, kind, dtype):
+    """One-hot weights bit-equal to the plain version; dense ones within 2e-5
+    (fp32) or one bf16 ulp of each element plus 1e-5; one launch a call."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=cuda).manual_seed(T * E + C)
+    x = torch.randn((B, T, D), generator=gen, device=cuda).to(dtype)
+    if kind == "dense":
+        disp = (torch.randn((B, T, E, C), generator=gen, device=cuda) / T ** 0.5).to(dtype)
+    elif kind == "model":
+        cfg = moe.MoEConfig(n_experts=E, topk=2, d_ff=64, strategy="expert_tp")
+        router = (torch.randn((D, E), generator=gen, device=cuda) * D ** -0.5).to(dtype)
+        disp, _ = moe.dispatch_tensors(moe.route(x, router, cfg), C, dtype)
+    else:
+        idx = torch.randint(0, E, (B, T), generator=gen, device=cuda)
+        onehot = torch.nn.functional.one_hot(idx, E)
+        slot = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)
+        disp = torch.zeros((B, T, E, C), device=cuda, dtype=dtype)
+        b, t = torch.nonzero(slot < C, as_tuple=True)
+        disp[b, t, idx[b, t], slot[b, t]] = 1
+        if kind == "permuted":
+            disp = disp.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            assert disp.stride(3) != 1
+    before = moe_dispatch.launches
+    o = moe_dispatch(disp, x)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches == before + 1
+    r = moe_dispatch_plain(disp, x)
+    if kind != "dense":
+        assert torch.equal(o, r)
+        if kind == "empty":
+            assert (disp.sum(1) == 0).any() and (o[disp.sum(1).permute(1, 0, 2) == 0] == 0).all()
+        return
+    o, r = o.float(), r.float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,N,chunk,kind", [
     (1, 64, 1, 16, 32, "randn"), (2, 128, 2, 32, 32, "randn"), (1, 256, 4, 64, 128, "randn"),

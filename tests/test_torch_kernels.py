@@ -24,7 +24,8 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import BF16_ULP, JDT, TDT, both, flash_emulated, max_err, rand, to_np
+from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, rand, ssd_emulated,
+                           to_np)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -455,6 +456,90 @@ class TestSSDScan:
 
 
 # ---------------------------------------------------------------------------
+# SSD scan: the bf16 kernel's arithmetic on the CPU (tensor-core products with
+# the fp32 operand in two TF32 parts, scores shared by a block's heads), held
+# against the JAX reference
+# ---------------------------------------------------------------------------
+
+
+def jax_bf16(arrays):
+    """x, B, C as bf16 JAX arrays, log_l float32, as the model hands them over"""
+    xh, ll, Bm, Cm = (jnp.asarray(a) for a in arrays)
+    return xh.astype(jnp.bfloat16), ll, Bm.astype(jnp.bfloat16), Cm.astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 128, 2, 16, 16, 64),
+    (2, 256, 4, 32, 16, 128),
+    (1, 256, 1, 64, 64, 32),
+])
+def test_ssd_tensor_core_arithmetic_matches_reference(B, S, H, P, N, chunk):
+    """At the reference test's shapes: y within one bf16 ulp of each element
+    (plus 1e-5) of the reference's Pallas kernel (interpret mode) and of its
+    token-level oracle, h within 5e-5 of both."""
+    arrays = ssd_inputs(70, B, S, H, P, N)
+    y, h = ssd_emulated(*torch_of(arrays, "bfloat16"), chunk=chunk)
+    j = jax_bf16(arrays)
+    yp, hp = ref_ops.ssd_scan(*j, chunk=chunk)
+    yr, hr = ref_ref.ssd_scan_ref(*j)
+    assert bf16_excess(y, yp) <= 1.0 and max_err(h, hp) <= 5e-5
+    assert bf16_excess(y, yr) <= 1.0 and max_err(h, hr) <= 5e-5
+
+
+def test_ssd_tensor_core_arithmetic_strong_decay():
+    """log_l = -13: finite, and held to the reference's oracle as above"""
+    arrays = ssd_inputs(71, 1, 256, 2, 16, 16, log_l=-13.0)
+    y, h = ssd_emulated(*torch_of(arrays, "bfloat16"), chunk=128)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    yr, hr = ref_ref.ssd_scan_ref(*jax_bf16(arrays))
+    assert bf16_excess(y, yr) <= 1.0 and max_err(h, hr) <= 5e-5
+
+
+@pytest.mark.parametrize("S", [1, 77, 200])
+def test_ssd_tensor_core_arithmetic_ragged_with_h0(S):
+    """A ragged last chunk staged as zero rows, an initial state, and P = 48
+    (the P columns taken 32 at a time, as a split of P would take them): against
+    the reference's oracle, which takes both"""
+    B, H, P, N = 2, 3, 48, 16
+    arrays = ssd_inputs(72 + S, B, S, H, P, N)
+    h0 = rand(np.random.default_rng(S), (B, H, P, N))
+    y, h = ssd_emulated(*torch_of(arrays, "bfloat16"), chunk=64, h0=torch.from_numpy(h0), p_block=32)
+    yr, hr = ref_ref.ssd_scan_ref(*jax_bf16(arrays), h0=jnp.asarray(h0))
+    assert bf16_excess(y, yr) <= 1.0 and max_err(h, hr) <= 5e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_ssd_tensor_core_arithmetic_at_main_widths(seed):
+    """zamba2's widths (P = N = 64, chunk 128, 512 rows) with an initial
+    state: y within one bf16 ulp of each element of the plain version, h
+    within 5e-5, as the kernel is held on the card."""
+    xh, ll, Bm, Cm = torch_of(ssd_inputs(seed, 2, 512, 8, 64, 64), "bfloat16")
+    h0 = torch.from_numpy(rand(np.random.default_rng(seed), (2, 8, 64, 64)))
+    yp, hp = ssd_scan_plain(xh, ll, Bm, Cm, chunk=128, h0=h0)
+    y, h = ssd_emulated(xh, ll, Bm, Cm, chunk=128, h0=h0)
+    assert bf16_excess(y, yp) <= 1.0 and max_err(h, hp) <= 5e-5
+
+
+def test_ssd_operand_parts_chosen():
+    """Why the kernel cuts its fp32 operands into two TF32 parts: one bf16
+    part puts y many ulps from the plain version, and two bf16 parts (a
+    residual of 2^-16) still put some element of y past one ulp at the main
+    widths, where two TF32 parts (2^-22) do not."""
+    worst = {}
+    for parts, kind in [(1, "bf16"), (2, "bf16"), (2, "tf32")]:
+        worst[parts, kind] = 0.0
+        for seed in range(4):
+            xh, ll, Bm, Cm = torch_of(ssd_inputs(seed, 2, 512, 8, 64, 64), "bfloat16")
+            h0 = torch.from_numpy(rand(np.random.default_rng(seed), (2, 8, 64, 64)))
+            yp, _ = ssd_scan_plain(xh, ll, Bm, Cm, chunk=128, h0=h0)
+            y, _ = ssd_emulated(xh, ll, Bm, Cm, chunk=128, h0=h0, parts=parts, kind=kind)
+            worst[parts, kind] = max(worst[parts, kind], bf16_excess(y, yp))
+    assert worst[1, "bf16"] > 10.0
+    assert worst[2, "bf16"] > 1.0
+    assert worst[2, "tf32"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
 # RWKV-6 scan: the reference's TestRWKV6Scan restated, and what the port adds
 # ---------------------------------------------------------------------------
 
@@ -737,6 +822,40 @@ class TestMoEDispatch:
             disp, x = torch.empty(disp.shape, device="meta"), torch.empty(x.shape, device="meta")
         with pytest.raises(ValueError):
             ops.moe_dispatch(disp, x)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch: the kernel's compacted arithmetic on the CPU (ascending lists
+# of nonzero weights, token ranges when a list outgrows its buffer)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,buffer", [(128, 256), (200, 16), (77, 8)])
+def test_compacted_dispatch_one_hot_is_bit_equal(T, buffer, dtype):
+    """One-hot weights, slots left empty (C above what the tokens fill), lists
+    within and beyond the buffer: bit-equal to the plain version"""
+    rng = np.random.default_rng(T)
+    B, E, C, D = 2, 4, 48, 32
+    disp = torch.from_numpy(np.stack([one_hot_disp(rng, T, E, C) for _ in range(B)])).to(TDT[dtype])
+    x = torch.from_numpy(rand(rng, (B, T, D), scale=1.0)).to(TDT[dtype])
+    out = moe_compacted(disp, x, buffer=buffer)
+    assert (disp.sum(1) == 0).any()                       # empty slots
+    assert torch.equal(out, moe_dispatch_plain(disp, x))
+
+
+@pytest.mark.parametrize("buffer", [256, 16])
+def test_compacted_dispatch_dense(buffer):
+    """Dense weights of size 1/sqrt(T), every slot holding T = 100 nonzeros:
+    in one list, or in token ranges of 16: fp32 within 2e-5 of the plain
+    version, bf16 within one bf16 ulp of each element plus 1e-5"""
+    rng = np.random.default_rng(buffer)
+    B, T, E, C, D = 2, 100, 2, 4, 32
+    disp = torch.from_numpy(rand(rng, (B, T, E, C), scale=1 / np.sqrt(T)))
+    x = torch.from_numpy(rand(rng, (B, T, D), scale=1.0))
+    assert max_err(moe_compacted(disp, x, buffer=buffer), moe_dispatch_plain(disp, x)) <= 2e-5
+    db, xb = disp.bfloat16(), x.bfloat16()
+    assert bf16_excess(moe_compacted(db, xb, buffer=buffer), moe_dispatch_plain(db, xb)) <= 1.0
 
 
 # ---------------------------------------------------------------------------
