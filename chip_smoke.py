@@ -154,7 +154,7 @@ def phase_build() -> None:
                                                 for w in log.split(" bytes spill stores")[:-1])}
     # and of each kernel by name, for the kernels a PR redesigned
     by_kernel = {}
-    for name in ("flash_attention", "moe_dispatch", "ssd_scan"):
+    for name in ("flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan"):
         by_kernel[name] = {}
         for entry in libs[name].with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
             by_kernel[name][entry.split("'")[0]] = {
@@ -165,7 +165,7 @@ def phase_build() -> None:
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
          libraries={n: str(p) for n, p in libs.items()}, ptxas=ptxas,
          ptxas_flash=by_kernel["flash_attention"], ptxas_moe_dispatch=by_kernel["moe_dispatch"],
-         ptxas_ssd_scan=by_kernel["ssd_scan"])
+         ptxas_ssd_scan=by_kernel["ssd_scan"], ptxas_rwkv6_scan=by_kernel["rwkv6_scan"])
 
 
 def _rand(gen, shape, dtype, scale):
@@ -660,13 +660,30 @@ def _rwkv_cases():
             cases.append((1, S, 2, 64, 64, dt, "s0"))
         cases.append((2, 256, 4, 32, 128, dt, "s0"))
         cases.append((2, 256, 4, 32, 16, dt, "randn"))          # rwkv6 smoke: N 32, chunk 16
+        # the tensor-core design's edges: partial 16-row tiles, chunks of
+        # fewer than 16 rows, N 16 to 64 (12: rows that are no 16-byte
+        # multiple), a chunk that is no multiple of 16, the extreme decay
+        # over whole chunks, r, k, v as views of one wider tensor
+        for B, S, H, N, chunk, kind in [(2, 200, 3, 64, 128, "s0"), (1, 77, 2, 48, 64, "randn"),
+                                        (2, 9, 2, 32, 128, "randn"), (1, 140, 2, 16, 128, "s0"),
+                                        (2, 150, 2, 48, 64, "s0"), (1, 100, 2, 16, 100, "randn"),
+                                        (1, 50, 2, 12, 32, "randn"), (2, 256, 2, 64, 128, "extreme"),
+                                        (2, 300, 4, 64, 128, "view"), (2, 130, 3, 32, 128, "unaligned")]:
+            cases.append((B, S, H, N, chunk, dt, kind))
     return cases
 
 
 def _rwkv_inputs(gen, B, S, H, N, dt, kind):
     """As the reference's test draws them: r, k, v of scale 0.5, w =
-    0.98 sigmoid(randn) + 0.01 in fp32 (1e-6 for "extreme"), u of scale 0.3."""
-    r, k, v = (_rand(gen, (B, S, H, N), dt, 0.5) for _ in range(3))
+    0.98 sigmoid(randn) + 0.01 in fp32 (1e-6 for "extreme"), u of scale 0.3;
+    r, k, v slices of one (B, S, H, 3N) tensor for "view", of (B, S, H, 3N +
+    4) from its fifth element for "unaligned" (rows no 16-byte run)."""
+    if kind in ("view", "unaligned"):
+        off = 4 if kind == "unaligned" else 0
+        wide = _rand(gen, (B, S, H, 3 * N + off), dt, 0.5)
+        r, k, v = (wide[..., off + i * N:off + (i + 1) * N] for i in range(3))
+    else:
+        r, k, v = (_rand(gen, (B, S, H, N), dt, 0.5) for _ in range(3))
     if kind == "extreme":
         w = torch.full((B, S, H, N), 1e-6, device="cuda")
     else:
@@ -733,18 +750,33 @@ def _rwkv_row(gen) -> dict:
     if not max(of_limit, oracle_of_limit) <= 1.0:
         raise SystemExit(f"rwkv6_scan at the main path's shape: max_abs_err={err} vs plain ({of_limit} "
                          f"of its limit), {oracle_err} vs the float64 oracle ({oracle_of_limit})")
+    y2, s2 = ops.rwkv6_scan(r, k, v, w, u, chunk=Q)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(s, s2)):
+        raise SystemExit("rwkv6_scan at the main path's shape: two launches on the same inputs differ")
     # bytes: r, k, v, w, u read once, y and the state written once.  Operations
     # of the chunked form: per (i, j < i) pair and channel a decay-weighted
     # r k (3 flops) and att v (2), per row r' S and the state update (4 N^2)
-    # and the bonus (4 N).  This design's exponentials: one per pair and
-    # channel, and two per row and channel for the decays to the chunk's edges.
+    # and the bonus (4 N); its four products alone (scores, att v, r' S, the
+    # state update: 4 N a pair, 4 N^2 a row) on the CUDA cores' fp32 FMA are
+    # the floor of a design without tensor cores.  Exponentials of the
+    # tensor-core design, a chunk and head: 120 pairs a channel on each
+    # diagonal tile, the row scales of r (16 rows a tile) and of k (all 128
+    # staged rows), 45 decays between tile edges a channel; the first
+    # design's: one a pair and channel, two a row and channel, one a channel.
     nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, y, s))
     chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
     pairs = sum(q * (q - 1) // 2 for q in chunks)
     flops = B * H * (5 * N * pairs + S * (4 * N * N + 4 * N))
-    exps = B * H * (N * pairs + 2 * S * N + N * len(chunks))
+    product_flops = B * H * (4 * N * pairs + 4 * N * N * S)
+    tiles = [-(-q // 16) for q in chunks]
+    exps = B * H * N * sum(nt * (120 + 16) + 128 + 45 for nt in tiles)
+    first_design_exps = B * H * (N * pairs + 2 * S * N + N * len(chunks))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
     ms, call_ms = time_ms(lambda: ops.rwkv6_scan(r, k, v, w, u, chunk=Q))
+    # the first design, which fp32 inputs still run, on the same data in fp32
+    r32, k32, v32, u32 = (t.float() for t in (r, k, v, u))
+    fma_fp32_ms = time_ms(lambda: ops.rwkv6_scan(r32, k32, v32, w, u32, chunk=Q))[0]
     return {
         "name": "rwkv6_scan",
         "route": "cuda",
@@ -764,8 +796,14 @@ def _rwkv_row(gen) -> dict:
         "bytes": nbytes,
         "flops": flops,
         "ops_ms_fp32_cores": flops / PEAK_FLOPS[torch.float32] * 1e3,
+        "products_fp32_fma_floor_ms": product_flops / PEAK_FLOPS[torch.float32] * 1e3,
         "exponentials": exps,
         "exp_ms_at_mufu_rate": exps / MUFU_EX2_PER_S * 1e3,
+        "first_design_exponentials": first_design_exps,
+        "first_design_exp_floor_ms": first_design_exps / MUFU_EX2_PER_S * 1e3,
+        # the first design (fp32 inputs' kernel) on fp32 copies of the same inputs
+        "first_design_ms": fma_fp32_ms,
+        "deterministic": True,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
         "test_cases": len(cases),

@@ -2,8 +2,11 @@
 (``_rwkv_kernel`` / ``rwkv6_scan``, a Pallas kernel for the TPU).
 
 ``rwkv6_scan`` is the wrapper: on CUDA tensors it launches the CUDA C++ kernel
-of ``csrc/rwkv6_scan.cu`` (built at first use, see ``_build.py``) or raises;
-on CPU tensors, and only there, it computes the same function with
+of ``csrc/rwkv6_scan.cu`` (built at first use, see ``_build.py``) or raises:
+for bf16 inputs, what the model serves, the tensor-core design with decays
+factored at 16-row tile edges (``tc::``), for fp32 the first design's FMA
+kernel (``fma::``); the C entry point picks by the type alone.  On CPU
+tensors, and only there, it computes the same function with
 ``rwkv6_scan_plain``.  There is no fallback from the kernel to the plain
 version.  ``rwkv6_scan.launches`` counts kernel launches.  The kernel has no
 backward yet: asked for one (a CUDA input that requires grad, grad mode on)
@@ -32,7 +35,7 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128          # rows of a chunk the kernel holds in shared memory
 MAX_WIDTH = 64           # head_dim N
-TILE = 16                # rows of the intra-chunk pairwise tiles
+TILE = 16                # rows of the intra-chunk pairwise tiles (the kernel's too)
 
 
 def rwkv6_scan_plain(

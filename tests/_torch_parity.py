@@ -309,3 +309,95 @@ def moe_compacted(disp, x, *, buffer=256):
                         acc = (col[t].double() * xf[b, t].double() + acc).float().double()
                 out[e, b, c] = acc
     return out.to(x.dtype)
+
+
+def _split_product(eq, a, b, parts, kind, terms):
+    """einsum ``eq`` of two fp32 operands, each cut into ``parts`` pieces of
+    ``kind``, summing the ``terms`` largest piece products in fp32: (0, 0),
+    (0, 1), (1, 0), ... (for two parts, 3 drops small x small; 2 drops small x
+    big as well, leaving a's small part out)."""
+    pa, pb = split_parts(a, parts, kind), split_parts(b, parts, kind)
+    pairs = sorted(((i, j) for i in range(parts) for j in range(parts)), key=lambda p: (p[0] + p[1], p[0]))
+    return sum(torch.einsum(eq, pa[i], pb[j]) for i, j in pairs[:terms])
+
+
+def rwkv_emulated(r, k, v, w, u, *, chunk=128, s0=None, parts=2, kind="tf32", terms=3, seen=None):
+    """The arithmetic of the port's bf16 RWKV-6 scan kernel (``tc::`` in
+    ``csrc/rwkv6_scan.cu``), in PyTorch on the CPU.  Per chunk of Q rows,
+    staged as a multiple of 16 rows with zero rows (r = k = v = 0, l = 0)
+    past the sequence, and per 16-row tile t:
+
+    - l = log2(clip(w, 1e-6, 1)) in fp32; its running sum from the tile's
+      first row in float64, narrowed to fp32: c_j = cum_j - R_t <= 0; the
+      tile totals in float64, and every decay between tile edges (R_ti -
+      R_tj+1, R_t, R_last - R_t+1, R_last) summed from them in float64;
+    - the row scales r'_i = r_i 2^(c_i-1) (0 at a tile's first row) and
+      k'_j = k_j 2^(c_last - c_j), and from them the edge decays r_i
+      2^(cum_i-1) = r'_i 2^(R_t) and k_j 2^(cum_last - cum_j) = k'_j
+      2^(R_last - R_t+1);
+    - scores of an off-diagonal tile pair (ti > tj) as the product of r' and
+      k' 2^(R_ti - R_tj+1), every factor <= 1; on a diagonal tile the direct
+      form sum_n r_i k_j 2^(c_i-1 - c_j) for j < i only (the mask taken
+      before the exponential) and the bonus sum_n r_i u k_i on the diagonal,
+      in fp32;
+    - y = att v + (r 2^(cum_i-1)) S and S <- S 2^(R_last) + (k 2^(cum_last -
+      cum_j))^T v, each product's fp32 operands cut into ``parts`` pieces of
+      ``kind`` (v, bf16, is exact in either), ``terms`` piece products kept
+      where both operands are fp32 (scores and r S).
+
+    l is taken exactly here; the kernel takes it from the MUFU's lg2
+    (``__log2f``, about 2^-22 of error), which the card's checks cover.
+    ``seen``, a list, collects the largest exponent of every ex2 taken."""
+    B, S, H, N = r.shape
+    Q = min(chunk, S)
+
+    def ex2(x):
+        if seen is not None and x.numel():
+            seen.append(float(x.max()))
+        return torch.exp2(x)
+
+    def prod(eq, a, b):
+        return _split_product(eq, a, b, parts, kind, terms)
+
+    def by_v(eq, a, vv):
+        return sum(torch.einsum(eq, piece, vv) for piece in split_parts(a, parts, kind))
+
+    rf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (r, k, v))           # (B,H,S,N)
+    lf = torch.log2(torch.clamp(w.float(), 1e-6, 1.0)).permute(0, 2, 1, 3)
+    uf = u.float()[None, :, None, :]
+    st = torch.zeros((B, H, N, N)) if s0 is None else s0.float().clone()
+    ys = []
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        qp = -(-q // 16) * 16
+        nt = qp // 16
+        pad = lambda t: torch.cat([t[:, :, c0:c0 + q], t.new_zeros((B, H, qp - q, N))], dim=2)  # noqa: E731
+        rq, kq, vq, lq = pad(rf), pad(kf), pad(vf), pad(lf)
+        run = lq.double().reshape(B, H, nt, 16, N).cumsum(3)
+        c = run.float()                                                  # (B,H,nt,16,N)
+        tot = run[:, :, :, -1]                                           # (B,H,nt,N) fp64
+        cprev = torch.cat([torch.zeros_like(c[:, :, :, :1]), c[:, :, :, :-1]], dim=3)
+        rs = (rq.reshape(B, H, nt, 16, N) * ex2(cprev))
+        ks = (kq.reshape(B, H, nt, 16, N) * ex2(c[:, :, :, -1:] - c))
+        before = torch.stack([tot[:, :, :t].sum(2) for t in range(nt)], dim=2)          # R_t
+        after = torch.stack([tot[:, :, t + 1:].sum(2) for t in range(nt)], dim=2)       # R_last - R_t+1
+        ri = (rs * ex2(before.float())[:, :, :, None]).reshape(B, H, qp, N)
+        kk = (ks * ex2(after.float())[:, :, :, None]).reshape(B, H, qp, N)
+        decay = ex2(tot.sum(2).float())                                  # (B,H,N)
+        att = torch.zeros((B, H, qp, qp))
+        lower = torch.tril(torch.ones((16, 16), dtype=torch.bool), diagonal=-1)[:, :, None]
+        for ti in range(nt):
+            rows = slice(16 * ti, 16 * ti + 16)
+            if ti:
+                mid = torch.stack([tot[:, :, tj + 1:ti].sum(2) for tj in range(ti)], dim=2)  # (B,H,ti,N)
+                kb = (ks[:, :, :ti] * ex2(mid.float())[:, :, :, None]).reshape(B, H, 16 * ti, N)
+                att[:, :, rows, :16 * ti] = prod("bhin,bhjn->bhij", rs[:, :, ti], kb)
+            d = cprev[:, :, ti][:, :, :, None] - c[:, :, ti][:, :, None]                   # (B,H,i,j,N)
+            e = ex2(torch.where(lower, d, -torch.inf))
+            diag = (rq[:, :, rows, None] * kq[:, :, None, rows] * e).sum(-1)
+            bonus = (rq[:, :, rows] * uf * kq[:, :, rows]).sum(-1)
+            att[:, :, rows, rows] = diag + torch.diag_embed(bonus)
+        y = prod("bhin,bhnm->bhim", ri, st) + by_v("bhij,bhjm->bhim", att, vq)
+        ys.append(y[:, :, :q])
+        st = st * decay[..., None] + by_v("bhjn,bhjm->bhnm", kk, vq)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(r.dtype), st

@@ -262,6 +262,14 @@ def test_moe_dispatch_kernel_edges(cuda, B, T, E, C, D, kind, dtype):
     (1, 64, 1, 16, 32, "randn"), (2, 128, 2, 32, 32, "randn"), (1, 256, 4, 64, 128, "randn"),
     (1, 128, 1, 16, 128, "extreme"), (2, 77, 3, 32, 128, "s0"), (2, 1, 3, 32, 128, "s0"),
     (2, 256, 4, 32, 16, "randn"), (4, 512, 32, 64, 128, "randn"),
+    # the tensor-core design's edges: partial 16-row tiles, chunks of fewer
+    # than 16 rows, N of 16 to 64 (12: a row that is not a 16-byte multiple),
+    # a chunk that is no multiple of 16, the extreme decay over whole chunks,
+    # r, k, v as views of one wider tensor (aligned, and not)
+    (2, 200, 3, 64, 128, "s0"), (1, 77, 2, 48, 64, "randn"), (2, 9, 2, 32, 128, "randn"),
+    (1, 140, 2, 16, 128, "s0"), (2, 150, 2, 48, 64, "s0"), (1, 100, 2, 16, 100, "randn"),
+    (1, 50, 2, 12, 32, "randn"), (2, 256, 2, 64, 128, "extreme"), (2, 300, 4, 64, 128, "view"),
+    (2, 130, 3, 32, 128, "unaligned"),
 ])
 def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
     """r, k, v of scale 0.5, w = 0.98 sigmoid(randn) + 0.01 and u of scale
@@ -269,7 +277,8 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
     within 5e-5 (the reference test's tolerance; 5e-4 for the extreme decay
     w = 1e-6, the reference test's for it); y in bfloat16 within one bf16 ulp
     of each element plus that limit (both are fp32 inside and round once);
-    the state of bf16 runs within it."""
+    the state of bf16 runs within it.  bf16 runs the tensor-core kernel,
+    float32 the first design."""
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -277,7 +286,14 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
     def draw(shape, scale=0.5):
         return torch.randn(shape, generator=gen, device=cuda) * scale
 
-    r, k, v = (draw((B, S, H, N)).to(dtype) for _ in range(3))
+    if kind == "view":                  # (B, S, H, N) views of (B, S, H, 3N)
+        wide = draw((B, S, H, 3 * N)).to(dtype)
+        r, k, v = wide[..., :N], wide[..., N:2 * N], wide[..., 2 * N:]
+    elif kind == "unaligned":           # rows that start 4 elements into a wider row
+        wide = draw((B, S, H, 3 * N + 4)).to(dtype)
+        r, k, v = wide[..., 4:N + 4], wide[..., N + 4:2 * N + 4], wide[..., 2 * N + 4:]
+    else:
+        r, k, v = (draw((B, S, H, N)).to(dtype) for _ in range(3))
     if kind == "extreme":
         w = torch.full((B, S, H, N), 1e-6, device=cuda)
     else:
@@ -294,6 +310,23 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, kind, dtype):
     limit = torch.full_like(yr, lim) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + lim
     assert torch.isfinite(y).all() and ((y - yr).abs() <= limit).all()
     assert ((s - sr).abs() <= lim).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits: every sum is taken
+    in a fixed order (no atomics), at rwkv6-1.6b's prefill shape with s0."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    r, k, v = (torch.randn((4, 512, 32, 64), generator=gen, device=cuda).mul(0.5).to(dtype) for _ in range(3))
+    w = torch.sigmoid(torch.randn((4, 512, 32, 64), generator=gen, device=cuda)) * 0.98 + 0.01
+    u = (torch.randn((32, 64), generator=gen, device=cuda) * 0.3).to(dtype)
+    s0 = torch.randn((4, 32, 64, 64), generator=gen, device=cuda) * 0.5
+    y1, s1 = rwkv6_scan(r, k, v, w, u, chunk=128, s0=s0)
+    y2, s2 = rwkv6_scan(r, k, v, w, u, chunk=128, s0=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.parametrize("scaled", [False, True])

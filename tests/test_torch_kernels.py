@@ -24,8 +24,8 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, rand, ssd_emulated,
-                           to_np)
+from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, rand, rwkv_emulated,
+                           ssd_emulated, to_np)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -700,6 +700,113 @@ class TestRWKV6Scan:
             r, k, v, w, u = (torch.empty(t.shape, device="meta") for t in (r, k, v, w, u))
         with pytest.raises(ValueError):
             ops.rwkv6_scan(r, k, v, w, u, chunk=256 if bad == "chunk" else 8, s0=s0)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 scan: the bf16 kernel's arithmetic on the CPU (decays factored at
+# 16-row tile edges, the direct form on the diagonal tiles, tensor-core
+# products with every fp32 operand in two TF32 parts), held against the JAX
+# reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (1, 64, 1, 16, 32),
+    (2, 128, 2, 32, 32),
+    (1, 256, 4, 64, 128),
+])
+def test_rwkv_tensor_core_arithmetic_matches_reference(B, S, H, N, chunk):
+    """At the reference test's shapes, bf16 r, k, v, u: y within one bf16 ulp
+    of each element (plus 5e-5) of the reference's Pallas kernel (interpret
+    mode) and of its token-level recurrence, the state within 5e-5 of both."""
+    arrays = rwkv_inputs(80, B, S, H, N)
+    y, s = rwkv_emulated(*rwkv_torch(arrays, "bfloat16"), chunk=chunk)
+    j = rwkv_jax(arrays, "bfloat16")
+    yp, sp = ref_ops.rwkv6_scan(*j, chunk=chunk, tile=16)
+    yr, sr = ref_ref.rwkv6_scan_ref(*j)
+    assert bf16_excess(y, yp, 5e-5) <= 1.0 and max_err(s, sp) <= 5e-5
+    assert bf16_excess(y, yr, 5e-5) <= 1.0 and max_err(s, sr) <= 5e-5
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_rwkv_tensor_core_arithmetic_extreme_decay(chunk):
+    """w = 1e-6: 16 rows of decay reach -319 in base 2, where one factor
+    2^(-cum_j) would overflow; every factor of the off-diagonal tiles is <= 1,
+    so the result is finite, and within the reference test's 5e-4 of its
+    recurrence (y: one bf16 ulp plus that)."""
+    arrays = rwkv_inputs(81, 1, 128, 1, 16, w=1e-6, u_scale=0.5)
+    y, s = rwkv_emulated(*rwkv_torch(arrays, "bfloat16"), chunk=chunk)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    yr, sr = ref_ref.rwkv6_scan_ref(*rwkv_jax(arrays, "bfloat16"))
+    assert bf16_excess(y, yr, 5e-4) <= 1.0 and max_err(s, sr) <= 5e-4
+
+
+@pytest.mark.parametrize("N", [16, 32, 48, 64])
+@pytest.mark.parametrize("S", [1, 77, 200])
+def test_rwkv_tensor_core_arithmetic_ragged_with_s0(S, N):
+    """A ragged last chunk staged as zero rows (a partial 16-row tile, or fewer
+    than 16 rows), an initial state, N of 16 to 64: against the reference's
+    recurrence, which takes both."""
+    B, H = 2, 3
+    arrays = rwkv_inputs(82 + S + N, B, S, H, N)
+    s0 = rand(np.random.default_rng(S + N), (B, H, N, N))
+    y, s = rwkv_emulated(*rwkv_torch(arrays, "bfloat16"), chunk=64, s0=torch.from_numpy(s0))
+    yr, sr = ref_ref.rwkv6_scan_ref(*rwkv_jax(arrays, "bfloat16"), s0=jnp.asarray(s0))
+    assert bf16_excess(y, yr, 5e-5) <= 1.0 and max_err(s, sr) <= 5e-5
+
+
+def rwkv_main_widths(seed, H=4):
+    """rwkv6-1.6b's widths (head_dim 64, chunk 128, 512 rows), bf16, with s0"""
+    r, k, v, w, u = rwkv_torch(rwkv_inputs(seed, 2, 512, H, 64), "bfloat16")
+    return r, k, v, w, u, torch.from_numpy(rand(np.random.default_rng(seed), (2, H, 64, 64)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_rwkv_tensor_core_arithmetic_at_main_widths(seed):
+    """y within one bf16 ulp of each element (plus 5e-5) of the plain version,
+    the state within 5e-5, as the kernel is held on the card."""
+    r, k, v, w, u, s0 = rwkv_main_widths(seed)
+    yp, sp = rwkv6_scan_plain(r, k, v, w, u, chunk=128, s0=s0)
+    y, s = rwkv_emulated(r, k, v, w, u, chunk=128, s0=s0)
+    assert bf16_excess(y, yp, 5e-5) <= 1.0 and max_err(s, sp) <= 5e-5
+
+
+def test_rwkv_operand_parts_chosen():
+    """Why the kernel cuts each fp32 operand into two TF32 parts and keeps
+    three products where both operands are fp32: dropping small x big as well
+    puts y many one-ulp limits from the plain version, one TF32 part more still;
+    two bf16 parts pass the one-ulp check but, before y is rounded, lie as far
+    from the float64 recurrence as half the 5e-5 the check allows, where two
+    TF32 parts lie within a fifth of it."""
+    worst = {}
+    for parts, kind, terms in [(2, "tf32", 3), (2, "tf32", 2), (1, "tf32", 1)]:
+        worst[parts, kind, terms] = 0.0
+        for seed in range(2):
+            r, k, v, w, u, s0 = rwkv_main_widths(seed)
+            yp, _ = rwkv6_scan_plain(r, k, v, w, u, chunk=128, s0=s0)
+            y, _ = rwkv_emulated(r, k, v, w, u, chunk=128, s0=s0, parts=parts, kind=kind, terms=terms)
+            worst[parts, kind, terms] = max(worst[parts, kind, terms], bf16_excess(y, yp, 5e-5))
+    assert worst[2, "tf32", 3] <= 1.0
+    assert worst[2, "tf32", 2] > 5.0
+    assert worst[1, "tf32", 1] > 10.0
+    # the same arithmetic on bf16-valued fp32 inputs, y left unrounded
+    r, k, v, w, u, s0 = (t.float() for t in rwkv_main_widths(4))
+    yo, _ = ref.rwkv6_scan_ref(*(t.double() for t in (r, k, v, w, u)), s0=s0.double())
+    unrounded = {kind: max_err(rwkv_emulated(r, k, v, w, u, chunk=128, s0=s0, kind=kind)[0], yo)
+                 for kind in ("tf32", "bf16")}
+    assert unrounded["tf32"] <= 1e-5 < 2.5e-5 < unrounded["bf16"]
+
+
+@pytest.mark.parametrize("w", [None, 1e-6])
+def test_rwkv_emulated_exponents_are_non_positive(w):
+    """Every exponent the kernel's arithmetic feeds to ex2 is <= 0: the row
+    scales, the decays between tile edges, and on the diagonal tiles the
+    direct form, masked to j < i before the exponential."""
+    seen = []
+    arrays = rwkv_inputs(83, 2, 200, 2, 32, w=w)
+    y, s = rwkv_emulated(*rwkv_torch(arrays, "bfloat16"), chunk=128, seen=seen)
+    assert seen and max(seen) <= 0.0
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
 
 
 # ---------------------------------------------------------------------------
