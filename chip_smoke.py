@@ -10,18 +10,26 @@ every MoE layer's dispatch through the moe-dispatch kernel), zamba2-1.2b at
 full width and depth (every Mamba2 layer's prefill scan through the ssd-scan
 kernel, the shared attention block through the flash kernel) and rwkv6-1.6b
 at full width and depth (every layer's prefill scan through the rwkv6-scan
-kernel) — and its training path through ``repro_torch.launch.train.run``:
+kernel) — and its training paths through ``repro_torch.launch.train.run``:
 granite-8b at full width and 8 of its 36 layers with int8-compressed
 gradients (attention and its recompute through the flash kernel, every
-gradient leaf's int8 payload through the ccu-reduce kernel).  It holds every
-hand-written kernel of those paths against its plain PyTorch version on the
-card.  Phases, one JSON line each:
+gradient leaf's int8 payload through the ccu-reduce kernel), rwkv6-1.6b and
+zamba2-1.2b at full width and depth with int8 (every layer's scan through
+its kernel, in the forward and in the remat's recompute; zamba2's shared
+attention through the flash kernel) and mixtral-8x22b at full width and 1
+of its 56 layers without compression (attention and dispatch through their
+kernels, forward and recompute); and a restart from a checkpoint.  It holds
+every hand-written kernel of those paths against its plain PyTorch version
+on the card, the scans and the dispatch also under autograd at their
+training shapes.  Phases, one JSON line each:
 
 1. ``device``   torch version, device name, ``nvidia-smi`` name and power limit
 2. ``build``    compiles the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
                 one process per source, all at once
 3. ``kernels``  each kernel vs its plain version over the test shapes and at the
-                main paths' shapes, with times (CUDA events), the least time
+                main paths' shapes (the scans and the dispatch also under
+                autograd at the training shapes, their gradients against the
+                plain version's), with times (CUDA events), the least time
                 the card could take (``bound_ms``) and one library call as a
                 yardstick (``library_ms``; the port never calls it)
 4. ``slice``    granite-8b, mixtral-8x22b, zamba2-1.2b and rwkv6-1.6b smoke
@@ -42,7 +50,12 @@ card.  Phases, one JSON line each:
                 more than 0.5; then granite-8b at full width and 8 layers,
                 batch 8, seq 256, int8, a few steps through the kernel path
                 (launches counted from 0) and the same steps from the same
-                drawn weights through the plain path
+                drawn weights through the plain path; then rwkv6-1.6b,
+                zamba2-1.2b and mixtral-8x22b the same way (``TRAIN_FAMILIES``)
+7. ``restart``  last in the train phase: granite-3-2b smoke through the
+                kernel path, int8, 10 steps, a save, a new run from fresh
+                trees that resumes it for 10 more, held against 20 straight
+                (``_restart_check``)
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -83,6 +96,18 @@ RWKV = dict(SERVE, arch="rwkv6-1.6b")
 # training state is 20 bytes a parameter, 42.95 GB at 8 layers, 162 GB at 36),
 # the reference train script's batch, sequence and int8 compression.
 TRAIN = dict(arch="granite-8b", n_layers=8, batch=8, seq=256, steps=4, seed=0, compression="int8")
+# The other families' training paths, at the same batch, sequence and steps:
+# rwkv6-1.6b (1,584,046,080 parameters, 31.7 GB of state at 20 bytes each) and
+# zamba2-1.2b (1,170,473,856, 23.4 GB) at full width and depth with int8;
+# mixtral-8x22b at full width and 1 of its 56 layers (2.9 B parameters: a
+# layer's experts alone are 8 x 3 x 6144 x 16384) without compression, 16
+# bytes a parameter, 46.5 GB (int8's 20 would be 58 GB before activations,
+# and granite's training peak ran 33 % above its state).
+TRAIN_FAMILY = dict(batch=8, seq=256, steps=4, seed=0)
+TRAIN_FAMILIES = [dict(arch="rwkv6-1.6b", compression="int8"), dict(arch="zamba2-1.2b", compression="int8"),
+                  dict(arch="mixtral-8x22b", n_layers=1, compression="none")]
+# checkpoint/restart: as the reference's TestCheckpointRestart, 10 + 10 == 20
+RESTART = dict(arch="granite-3-2b", steps=20, cut=10, batch=8, seq=64, seed=0, compression="int8")
 
 
 def emit(phase: str, **fields) -> None:
@@ -196,6 +221,12 @@ def _excess(o, r, dtype, ulps: int = 1, of_row: bool = False,
     size = r.abs().amax(dim=-1, keepdim=True) if of_row else r.abs()
     limit = torch.full_like(r, f32_limit) if dtype == torch.float32 else ulps * BF16_ULP * size + bf16_abs
     return diff.max().item(), (diff / limit).max().item()
+
+
+def _bit_equal(o, r) -> tuple[float, float]:
+    """(max |o - r|, its ratio to a limit of zero): 0.0 when bit-equal, else inf."""
+    err = (o.float() - r.float()).abs().max().item()
+    return err, 0.0 if torch.equal(o, r) else math.inf
 
 
 def _flash_cases():
@@ -339,6 +370,59 @@ def _flash_gradients(gen, q, k, v, kw) -> dict:
                          f"vs the float64 oracle {of_largest} of one ulp of the largest |g|")
     return {"output_equals_no_grad_call": same_output, "bit_equal_to_plain": bit_equal,
             "oracle_err_of_ulp_of_largest": of_largest}
+
+
+def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes: int, flops: int,
+                    dt, agree) -> dict:
+    """A kernel under autograd at a training step's shape, as the step calls
+    it: y carries a ``grad_fn`` and equals the call without autograd, bit
+    for bit; its outputs (y and, for a scan, the final state) under autograd
+    are held against the plain version's under autograd on the same inputs
+    (and a scan's against the float64 oracle) by ``agree(kernel outputs,
+    plain outputs) -> {comparison: (max |difference|, its ratio to the
+    limit)}``, at the kernel rows' limits; the gradients of a
+    random projection of y equal the plain version's, bit for bit (the
+    backward recomputes the plain version), and are finite.  Times: the
+    kernel's forward (``ms``), the plain version's forward (``plain_ms``)
+    and the backward (``backward_ms``: the plain version recomputed and
+    differentiated, no kernel); ``bound_ms`` is the forward's, from
+    ``nbytes`` and ``flops``."""
+    with torch.no_grad():
+        y0 = call(*inputs)
+    y0 = y0[0] if isinstance(y0, tuple) else y0
+    go = _rand(torch.Generator(device="cuda").manual_seed(5), y0.shape, y0.dtype, 1.0)
+    runs = []
+    for fn in (call, plain):
+        xs = [None if t is None else t.detach().requires_grad_(i in grad_of) for i, t in enumerate(inputs)]
+        out = fn(*xs)
+        y = out[0] if isinstance(out, tuple) else out
+        if y.grad_fn is None:
+            raise SystemExit(f"{name} at the training shape: no grad_fn under autograd")
+        wanted = [xs[i] for i in grad_of]
+        runs.append((out, y, wanted, torch.autograd.grad(y, wanted, go, retain_graph=True)))
+    (out, y, wanted, g), (out_plain, _, _, gp) = runs
+    same_output = torch.equal(y.detach(), y0)
+    with torch.no_grad():
+        agreement = {k: {"max_abs_err": e, "err_of_limit": r} for k, (e, r) in agree(out, out_plain).items()}
+    bit_equal = all(torch.equal(a, b) for a, b in zip(g, gp))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in g)
+    if not (same_output and all(a["err_of_limit"] <= 1.0 for a in agreement.values()) and bit_equal and finite):
+        raise SystemExit(f"{name} at the training shape under autograd: output as without autograd "
+                         f"{same_output}, outputs {agreement}, gradients bit-equal to plain {bit_equal}, "
+                         f"finite {finite}")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(lambda: call(*inputs))
+    return {
+        "shape": " ".join(f"{tuple(t.shape)}" for t in inputs if t is not None),
+        "output_equals_no_grad_call": same_output, "outputs": agreement,
+        "gradients_bit_equal_to_plain": bit_equal,
+        "gradients_of": len(grad_of),
+        "ms": ms, "call_ms": call_ms,
+        "plain_ms": time_ms(lambda: plain(*inputs))[0],
+        "backward_ms": time_ms(lambda: torch.autograd.grad(y, wanted, go, retain_graph=True), iters=5, warmup=1)[0],
+        "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
 
 
 def _flash_row(gen) -> dict:
@@ -513,14 +597,24 @@ def _moe_row(gen) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library)[0],
         }
+    # mixtral-8x22b's training step: batch 8, seq 256, x requires grad, disp
+    # (the routing's one-hots) does not
+    Bt, St = TRAIN_FAMILY["batch"], TRAIN_FAMILY["seq"]
+    x = _rand(gen, (Bt, St, D), dt, 1.0)
+    disp, _ = moe.dispatch_tensors(moe.route(x, router, cfg), cfg.capacity(St), dt)
+    nbytes = (disp.numel() + x.numel() + cfg.n_experts * Bt * cfg.capacity(St) * D) * x.element_size()
+    rows["train"] = _under_autograd("moe_dispatch", ops.moe_dispatch, moe_dispatch_plain, [disp, x], [1],
+                                    nbytes, 2 * int((disp != 0).sum()) * D, dt,
+                                    lambda o, p: {"vs_plain": _bit_equal(o, p)})
     return {
         "name": "moe_dispatch",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
         "replaces": "src/repro/kernels/moe_dispatch.py:61",
-        "launches": None,            # filled in from the serve phase's run
+        "launches": None,            # filled in from the serve and train phases' runs
         **rows["prefill"],
         "decode": rows["decode"],
+        "train": rows["train"],
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -568,8 +662,8 @@ def _ssd_row(gen) -> dict:
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
-    def excess(y, h, yr, hr, dt):
-        ey, ry = _excess(y, yr, dt, f32_limit=5e-5)
+    def excess(y, h, yr, hr, dt, bf16_abs=1e-5):
+        ey, ry = _excess(y, yr, dt, f32_limit=5e-5, bf16_abs=bf16_abs)
         eh, rh = _excess(h, hr, torch.float32, f32_limit=5e-5)
         return max(ey, eh), max(ry, rh)
 
@@ -606,22 +700,36 @@ def _ssd_row(gen) -> dict:
     if not max(of_limit, ref_of_limit) <= 1.0:
         raise SystemExit(f"ssd_scan at the main path's shape: max_abs_err={err} vs plain ({of_limit} "
                          f"of its limit), {ref_err} vs the float64 oracle ({ref_of_limit})")
-    # bytes: x, log_l, B, C read once, y and h written once; operations: the
-    # causal pairs' scores once a batch row, att x, C h^T and the state update
-    nbytes = sum(t.numel() * t.element_size() for t in (xh, log_l, Bm, Cm, y, h))
-    pairs = sum(q * (q + 1) // 2 for q in [min(128, S - s0) for s0 in range(0, S, 128)])
-    flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
+    nbytes, flops, pairs = _ssd_work(xh, log_l, Bm, Cm, y, h, 128)
     # the first design's fp32 FMA (C B^T again in every head's block) on the
     # CUDA cores, the floor the tensor-core design is held below
     first_design_flops = flops + 2 * B * (H - 1) * pairs * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
     ms, call_ms = time_ms(lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128))
+    # zamba2-1.2b's training step: batch 8, seq 256, every input requires grad.
+    # The kernel is held to the float64 oracle at the limits above; against
+    # the plain version the bf16 limit's absolute term is the fp32 limit
+    # (5e-5, as rwkv6_scan's row has it): at this shape the plain version
+    # itself lies 1.35 of the 1e-5 limit from the oracle, at an element near
+    # zero that carries its fp32 sums' error
+    Bt, St = TRAIN_FAMILY["batch"], TRAIN_FAMILY["seq"]
+    conv_t = _rand(gen, (Bt, St, H * P + 2 * N), dt, 0.5)
+    inputs = [_rand(gen, (Bt, St, H, P), dt, 0.5),
+              -torch.nn.functional.softplus(_rand(gen, (Bt, St, H), torch.float32, 1.0)),
+              conv_t[..., H * P:H * P + N], conv_t[..., H * P + N:]]
+    with torch.no_grad():
+        y_t, h_t = ops.ssd_scan(*inputs, chunk=128)
+    train_row = _under_autograd("ssd_scan", lambda *t: ops.ssd_scan(*t, chunk=128),
+                                lambda *t: ssd_scan_plain(*t, chunk=128), inputs, [0, 1, 2, 3],
+                                *_ssd_work(*inputs, y_t, h_t, 128)[:2], dt,
+                                lambda o, p: {"vs_oracle": excess(*o, *ssd_scan_ref(*inputs), dt),
+                                              "vs_plain": excess(*o, *p, dt, bf16_abs=5e-5)})
     return {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
-        "launches": None,            # filled in from the serve phase's run
+        "launches": None,            # filled in from the serve and train phases' runs
         "shape": f"xh{tuple(xh.shape)} log_l{tuple(log_l.shape)} B/C{tuple(Bm.shape)} chunk 128 bf16",
         "max_abs_err": err,
         "err_of_limit": of_limit,
@@ -636,11 +744,24 @@ def _ssd_row(gen) -> dict:
         "first_design_fma_floor_ms": first_design_flops / PEAK_FLOPS[torch.float32] * 1e3,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
+        "train": train_row,
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
                                   "bfloat16": worst_of_limit[torch.bfloat16]},
     }
+
+
+def _ssd_work(xh, log_l, Bm, Cm, y, h, chunk) -> tuple[int, int, int]:
+    """(bytes, operations, causal pairs) of one scan: x, log_l, B, C read
+    once, y and h written once; the causal pairs' scores once a batch row,
+    att x, C h^T and the state update."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (xh, log_l, Bm, Cm, y, h))
+    pairs = sum(q * (q + 1) // 2 for q in [min(chunk, S - s0) for s0 in range(0, S, chunk)])
+    flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
+    return nbytes, flops, pairs
 
 
 def _rwkv_cases():
@@ -764,10 +885,9 @@ def _rwkv_row(gen) -> dict:
     # diagonal tile, the row scales of r (16 rows a tile) and of k (all 128
     # staged rows), 45 decays between tile edges a channel; the first
     # design's: one a pair and channel, two a row and channel, one a channel.
-    nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, y, s))
+    nbytes, flops = _rwkv_work(r, k, v, w, u, y, s, Q)
     chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
     pairs = sum(q * (q - 1) // 2 for q in chunks)
-    flops = B * H * (5 * N * pairs + S * (4 * N * N + 4 * N))
     product_flops = B * H * (4 * N * pairs + 4 * N * N * S)
     tiles = [-(-q // 16) for q in chunks]
     exps = B * H * N * sum(nt * (120 + 16) + 128 + 45 for nt in tiles)
@@ -777,12 +897,23 @@ def _rwkv_row(gen) -> dict:
     # the first design, which fp32 inputs still run, on the same data in fp32
     r32, k32, v32, u32 = (t.float() for t in (r, k, v, u))
     fma_fp32_ms = time_ms(lambda: ops.rwkv6_scan(r32, k32, v32, w, u32, chunk=Q))[0]
+    # rwkv6-1.6b's training step: batch 8, seq 256, every input requires grad
+    Bt, St = TRAIN_FAMILY["batch"], TRAIN_FAMILY["seq"]
+    inputs = [_rand(gen, (Bt, St, H * N), dt, 0.5).view(Bt, St, H, N) for _ in range(3)]
+    inputs += [torch.sigmoid(_rand(gen, (Bt, St, H, N), torch.float32, 1.0)) * 0.98 + 0.01, u]
+    with torch.no_grad():
+        y_t, s_t = ops.rwkv6_scan(*inputs, chunk=Q)
+    train_row = _under_autograd("rwkv6_scan", lambda *t: ops.rwkv6_scan(*t, chunk=Q),
+                                lambda *t: rwkv6_scan_plain(*t, chunk=Q), inputs, [0, 1, 2, 3, 4],
+                                *_rwkv_work(*inputs, y_t, s_t, Q), dt,
+                                lambda o, p: {"vs_oracle": excess(*o, *rwkv6_scan_ref(*inputs), dt, 5e-5),
+                                              "vs_plain": excess(*o, *p, dt, 5e-5)})
     return {
         "name": "rwkv6_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:110",
-        "launches": None,            # filled in from the serve phase's run
+        "launches": None,            # filled in from the serve and train phases' runs
         "shape": f"r/k/v{tuple(r.shape)} bf16 w fp32 u{tuple(u.shape)} chunk {Q}",
         "max_abs_err": err,
         "err_of_limit": of_limit,
@@ -806,6 +937,7 @@ def _rwkv_row(gen) -> dict:
         "deterministic": True,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
+        "train": train_row,
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -813,13 +945,20 @@ def _rwkv_row(gen) -> dict:
     }
 
 
-def _granite_leaf_sizes(n_layers: int) -> dict[str, int]:
-    """Elements of each of granite-8b's gradient leaves at ``n_layers``, in
-    the order the port flattens its trees."""
-    import math
+def _rwkv_work(r, k, v, w, u, y, s, Q) -> tuple[int, int]:
+    """(bytes, operations) of one scan: r, k, v, w, u read once, y and the
+    state written once; per (i, j < i) pair and channel a decay-weighted r k
+    (3 flops) and att v (2), per row r' S and the state update (4 N^2) and
+    the bonus (4 N)."""
+    B, S, H, N = r.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, y, s))
+    pairs = sum(q * (q - 1) // 2 for q in [min(Q, S - c0) for c0 in range(0, S, Q)])
+    return nbytes, B * H * (5 * N * pairs + S * (4 * N * N + 4 * N))
 
-    from repro_torch.configs import load
 
+def _leaf_sizes(harness) -> dict[str, int]:
+    """Elements of each of a model's gradient leaves, in the order the port
+    flattens its trees."""
     flat = {}
 
     def walk(tree, prefix):
@@ -829,7 +968,7 @@ def _granite_leaf_sizes(n_layers: int) -> dict[str, int]:
             else:
                 flat[prefix + k] = math.prod(tree[k].shape)
 
-    walk(load("granite-8b").clone(n_layers=n_layers).param_specs(), "")
+    walk(harness.param_specs(), "")
     return flat
 
 
@@ -883,7 +1022,9 @@ def _ccu_row(gen) -> dict:
                              f"to itself {exact}, max |o - plain| {(o - r).abs().max().item()}, "
                              f"vs the float64 oracle {oracle_err}")
 
-    leaves = _granite_leaf_sizes(TRAIN["n_layers"])
+    from repro_torch.configs import load
+
+    leaves = _leaf_sizes(load("granite-8b").clone(n_layers=TRAIN["n_layers"]))
     per_leaf, totals = {}, {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     nbytes_step = 0
     for name, N in leaves.items():
@@ -970,7 +1111,8 @@ def _routing(replay: list | None = None):
 
     def watched(x, router, cfg, gate_idx=None):
         own = route(x, router, cfg)
-        calls.append((own.gate_idx, (x @ router).float()))
+        with torch.no_grad():
+            calls.append((own.gate_idx, (x @ router).float()))
         return own if replay is None else route(x, router, cfg, gate_idx=replay[len(calls) - 1][0])
 
     moe.route = watched
@@ -1009,7 +1151,11 @@ def _moved(x: torch.Tensor, seed: int) -> torch.Tensor:
     of x's type: a difference of the size one rounding apart makes."""
     gen = torch.Generator(device=x.device).manual_seed(seed)
     chosen = torch.rand(x.shape, generator=gen, device=x.device) < 0.01
-    return torch.where(chosen, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
+    # the move added as a constant (one ulp, so x + it is exactly the next
+    # value up), so that a training step differentiates through it
+    xd = x.detach()
+    ulp = torch.nextafter(xd, torch.full_like(xd, float("inf"))) - xd
+    return x + torch.where(chosen, ulp, torch.zeros_like(ulp))
 
 
 @contextlib.contextmanager
@@ -1411,91 +1557,308 @@ def _serve_path(spec: dict) -> dict[str, int]:
     return counts
 
 
-def _train_expected_launches(harness, steps: int, n_leaves: int) -> dict[str, int]:
-    """Under the ``"nothing"`` remat every layer's attention runs twice a
-    step, in the forward and in the backward's recompute; every gradient
-    leaf's int8 payload is reduced once a step."""
-    return {"flash_attention": 2 * harness.cfg.n_layers * steps, "moe_dispatch": 0, "ssd_scan": 0,
-            "rwkv6_scan": 0, "ccu_reduce": n_leaves * steps}
+def _train_expected_launches(harness, steps: int, n_leaves: int, compression: str) -> dict[str, int]:
+    """Under the ``"nothing"`` remat (every config's; the recurrent families'
+    references checkpoint their blocks whatever it says) every layer's
+    attention, dispatch or scan runs twice a step, in the forward and in the
+    backward's recompute; a hybrid's shared attention block is not
+    rematerialised and runs once a call.  In int8 every gradient leaf's
+    payload is reduced once a step."""
+    cfg = harness.cfg
+    twice = 2 * cfg.n_layers * steps
+    counts = {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+              "ccu_reduce": n_leaves * steps if compression == "int8" else 0}
+    if harness.family == "ssm":
+        counts["rwkv6_scan"] = twice
+    elif harness.family == "hybrid":
+        counts["ssd_scan"] = twice
+        counts["flash_attention"] = cfg.n_shared_calls * steps
+    else:
+        counts["flash_attention"] = twice
+        if harness.family == "moe":
+            counts["moe_dispatch"] = twice
+    return counts
 
 
 def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[dict, dict[str, int], dict]:
     """``args.steps`` steps through the kernel path, every launch count set to
     0 just before and read just after, then the same steps from the same
     weights through the plain path (``use_kernels=False``: sdpa + mask bias
-    for attention, ``ccu_reduce_plain`` for the compression's reduce; it
-    launches no kernel).  The weights are drawn anew from ``args.seed`` for
-    each run unless ``params`` is given (then a copy serves each run), so
-    that one training state is held at a time.  The first step's gradients
-    (before compression) and int8 values are kept on the host and compared
-    leaf by leaf.  float32: losses within 1e-4, gradients within 2e-5.
-    bfloat16: losses within 3e-2, each leaf's gradients within 3e-2 of its
-    largest |g| (bf16 gradients are sums of rounded products, and the kernel
-    path keeps its attention probabilities in fp32 where sdpa rounds them).
-    The share of int8 values that differ is reported, not held: a rounding
-    apart in attention may move a value across a quantisation step."""
+    for attention, the dispatch einsum, the scans' twins, ``ccu_reduce_plain``
+    for the compression's reduce; it launches no kernel).  The weights are
+    drawn anew from ``args.seed`` for each run unless ``params`` is given
+    (then a copy serves each run), so that one training state is held at a
+    time.  The first step's gradients (before compression) and int8 values
+    are kept on the host and compared leaf by leaf.  float32: losses within
+    1e-4, gradients within 2e-5.  bfloat16: losses within 3e-2, each leaf's
+    gradients within 3e-2 of its largest |g| (bf16 gradients are sums of
+    rounded products, and the kernel path keeps its attention probabilities
+    in fp32 where sdpa rounds them).  The share of int8 values that differ is
+    reported, not held: a rounding apart may move a value across a
+    quantisation step.
+
+    As in serving (``_kernel_vs_plain``): an MoE model's plain path is routed
+    by the kernel path's choices, call by call (forward and recompute alike),
+    and how many of its own would have differed is reported; a recurrent
+    family's plain path runs its scans through the kernels' plain versions
+    (``_scan_without_roundings``).  At full depth a randomly drawn recurrent
+    model carries a difference of one rounding to far beyond these limits,
+    so for them the full-depth comparison is reported and not held: beside
+    it ``witness``, how far that plain path's losses and first-step
+    gradients move when 1 % of the first step's embeddings are moved by one
+    ulp (``_moved_prompt``), and ``meets_granite_limit``.  What holds them is
+    ``_train_layers``: every layer on the same input on both paths, its
+    output and its gradients at 3e-2 of their largest value; it needs
+    ``params``."""
     from repro_torch import kernels
     from repro_torch.launch import train
     from repro_torch.models.layers import Runtime
     from repro_torch.models.param import tree_leaves, tree_map
 
-    kept = {}
+    names = list(_leaf_sizes(harness))
+    recurrent = harness.family in ("ssm", "hybrid")
 
-    def keep(step, loss, grads, payload, wire):
-        if step == 0:
-            kept["grads"] = [g.to("cpu") for g in tree_leaves(grads)]
-            kept["q"] = [q.to("cpu") for q, _ in wire]
+    def keeper(into: dict):
+        def keep(step, loss, grads, payload, wire):
+            if step == 0:
+                into["grads"] = [g.to("cpu") for g in tree_leaves(grads)]
+                into["q"] = [q.to("cpu") for q, _ in wire]
+        return keep
 
     def weights():
         return None if params is None else tree_map(torch.clone, params)
 
-    torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
-    res = train.run(args, harness=harness, params=weights(), observe=keep)
-    counts = kernels.launch_counts()
-    expected = _train_expected_launches(harness, args.steps, len(kept["grads"]))
+    def run(rt=None, into=None):
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        res = train.run(args, harness=harness, params=weights(), rt=rt, observe=keeper(into))
+        return res, kernels.launch_counts()
+
+    kern, plain_kept, moved_kept = {}, {}, {}
+    with _routing() as kern_calls:
+        res, counts = run(into=kern)
+    expected = _train_expected_launches(harness, args.steps, len(kern["grads"]), args.compression)
     if counts != expected:
         raise SystemExit(f"{where}: the kernel path launched {counts}, expected {expected}")
+    with contextlib.ExitStack() as stack:
+        if recurrent:
+            stack.enter_context(_scan_without_roundings())
+        plain_calls = stack.enter_context(_routing(replay=kern_calls if harness.family == "moe" else None))
+        ref, plain_counts = run(Runtime(use_kernels=False), plain_kept)
+        if recurrent:
+            with _moved_prompt(args.seed):
+                moved, _ = run(Runtime(use_kernels=False), moved_kept)
 
-    cmp = {"grad_worst_of_limit": 0.0, "grad_worst_leaf": None, "grad_max_abs_err": 0.0,
-           "int8_differ": 0, "int8_values": 0}
+    def leaf_errs(a: list, b: list) -> list[float]:
+        return [(x.float() - y.float()).abs().max().item() for x, y in zip(a, b)]
 
-    def compare(step, loss, grads, payload, wire):
-        if step != 0:
-            return
-        names = list(_granite_leaf_sizes(harness.cfg.n_layers))
-        for name, g, gk, (q, _), qk in zip(names, tree_leaves(grads), kept["grads"], wire, kept["q"]):
-            gk = gk.to(g.device)
-            err = (g.float() - gk.float()).abs().max().item()
-            limit = 2e-5 if dt == torch.float32 else 3e-2 * g.float().abs().max().item()
-            cmp["grad_max_abs_err"] = max(cmp["grad_max_abs_err"], err)
-            if err / max(limit, 1e-30) > cmp["grad_worst_of_limit"]:
-                cmp["grad_worst_of_limit"], cmp["grad_worst_leaf"] = err / max(limit, 1e-30), name
-            cmp["int8_differ"] += int((q != qk.to(q.device)).sum())
-            cmp["int8_values"] += q.numel()
-            del gk
-
-    torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
-    ref = train.run(args, harness=harness, params=weights(), rt=Runtime(use_kernels=False), observe=compare)
-    plain_counts = kernels.launch_counts()
+    errs = leaf_errs(kern["grads"], plain_kept["grads"])
+    scales = [g.float().abs().max().item() for g in plain_kept["grads"]]
+    limits = [2e-5 if dt == torch.float32 else 3e-2 * sc for sc in scales]
     loss_err = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
     loss_limit = 1e-4 if dt == torch.float32 else 3e-2
-    out = {"loss_max_abs_err": loss_err, "loss_limit": loss_limit, **cmp,
-           "int8_differ_share": cmp["int8_differ"] / cmp["int8_values"],
-           "plain_losses": ref["losses"], "plain_grad_norms": ref["grad_norms"],
-           "plain_step_ms": ref["step_ms"], "plain_launches": plain_counts}
+    out = {"loss_max_abs_err": loss_err, "loss_limit": loss_limit, "granite_loss_limit": loss_limit}
+    if recurrent:
+        witness = leaf_errs(moved_kept["grads"], plain_kept["grads"])
+        out["witness"] = {"loss_max_abs_err": max(abs(a - b) for a, b in zip(moved["losses"], ref["losses"])),
+                          "grad_worst_of_granite_limit": max(w / max(3e-2 * sc, 1e-30)
+                                                             for w, sc in zip(witness, scales))}
+    of_limit = [e / max(lim, 1e-30) for e, lim in zip(errs, limits)]
+    worst = max(range(len(names)), key=lambda i: of_limit[i])
+    out.update({"grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
+                "grad_max_abs_err": max(errs)})
+    out["meets_granite_limit"] = loss_err <= loss_limit and of_limit[worst] <= 1.0
+    if kern["q"]:
+        differ = sum(int((q != qk).sum()) for q, qk in zip(plain_kept["q"], kern["q"]))
+        values = sum(q.numel() for q in kern["q"])
+        out.update({"int8_differ": differ, "int8_values": values, "int8_differ_share": differ / values})
+    if harness.family == "moe":
+        out["routing"] = {"calls": len(kern_calls),
+                          "own_choices_differ": sum(int((k[0] != p[0]).any(-1).sum())
+                                                    for k, p in zip(kern_calls, plain_calls)),
+                          "decisions": sum(int(k[0][..., 0].numel()) for k in kern_calls)}
+    out.update({"plain_losses": ref["losses"], "plain_grad_norms": ref["grad_norms"],
+                "plain_step_ms": ref["step_ms"], "plain_peak_memory_gb": ref["peak_memory_gb"],
+                "plain_launches": plain_counts})
     if any(plain_counts.values()) or not all(map(math.isfinite, res["losses"] + ref["losses"])):
         raise SystemExit(f"{where}: plain path launched {plain_counts} or a loss is not finite: {out}")
-    if not loss_err <= loss_limit or not cmp["grad_worst_of_limit"] <= 1.0:
+    if recurrent:
+        out["layers"] = _train_layers(args, harness, params, where)
+    elif not out["meets_granite_limit"]:
         raise SystemExit(f"{where}: kernel path vs plain path: {out}")
     return res, counts, out
+
+
+def _train_layers(args, harness, params, where: str) -> dict:
+    """A recurrent model's first training step layer by layer, at the first
+    training batch and the initial weights.  Every sub-layer that runs a
+    kernel — an RWKV-6 block's time mix (its layer norm, projections and
+    scan), a hybrid's Mamba2 layer (norm and mixer) and each shared call's
+    attention (norm and attention) — is given the SAME input on both paths
+    (the plain path's hidden state entering it) under autograd, with the
+    scans of the plain path through the kernels' plain versions
+    (``_scan_without_roundings``), and a random projection of what it adds
+    to the residual stream is differentiated with respect to its input and
+    every one of its weights.  Held to 3e-2 of the plain path's largest
+    |value|: that increment, and each of those gradients.  The scans'
+    backward is their plain version on both paths, so a gradient differs
+    only where the kernel's forward values enter it (the products after the
+    scan): a kernel that computed a wrong y would move the increment and the
+    weights' gradients alike.  The hidden state then goes on through the
+    whole layer on the plain path."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.models import hybrid, rwkv_lm
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.mamba2 import mamba2_apply
+    from repro_torch.models.param import cast_floats, tree_leaves, tree_map
+    from repro_torch.models.rwkv6 import timemix_apply
+
+    cfg = harness.cfg
+    p = cast_floats(params, cfg.dtype)
+    device = p["embed"]["tok"].device
+    kern, plain = Runtime(use_kernels=True), Runtime(use_kernels=False)
+    data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq, vocab_size=cfg.vocab_size, seed=0)
+    pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg, start_step=0)
+    try:
+        tokens = torch.from_numpy(next(pipeline)["tokens"]).to(device)
+    finally:
+        pipeline.close()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    positions = torch.arange(args.seq, device=device)
+    worst: dict[str, float] = {"increment": 0.0, "input_grad": 0.0, "weight_grad": 0.0}
+    worst_at = {}
+
+    def of_limit(a, b) -> float:
+        d = (a.float() - b.float()).abs().max().item()
+        return 0.0 if d == 0 else d / (3e-2 * b.float().abs().max().item())
+
+    def unit(fn, x, tree, label) -> None:
+        """fn(rt, h, tree) -> what the sub-layer adds, on both paths."""
+        x_in = x.detach().requires_grad_()
+        weights = tree_map(lambda t: t.detach().requires_grad_(), tree)
+        leaves = tree_leaves(weights)
+        runs = []
+        for rt in (kern, plain):
+            with torch.enable_grad():
+                y = fn(rt, x_in, weights)
+                go = _rand(gen, y.shape, y.dtype, 1.0) if not runs else runs[0][2]
+                runs.append((y.detach(), torch.autograd.grad(y, [x_in] + leaves, go), go))
+        (yk, gk, _), (yp, gp, _) = runs
+        for key, r in (("increment", of_limit(yk, yp)), ("input_grad", of_limit(gk[0], gp[0])),
+                       ("weight_grad", max(of_limit(a, b) for a, b in zip(gk[1:], gp[1:])))):
+            if r > worst[key]:
+                worst[key], worst_at[key] = r, label
+
+    with _scan_without_roundings(), torch.no_grad():
+        if harness.family == "ssm":
+            x = L.layernorm(p["ln_in"], L.embed(plain, p["embed"], tokens)).to(cfg.dtype)
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], p["blocks"])
+                unit(lambda rt, h, w: timemix_apply(rt, w["tm"], L.layernorm(w["ln1"], h), cfg.inner)[0], x,
+                     {"tm": lp["tm"], "ln1": lp["ln1"]}, f"block {i}")
+                x = rwkv_lm._block(plain, cfg, lp, x)[0]
+        else:
+            x = L.embed(plain, p["embed"], tokens).to(cfg.dtype)
+            sp = p["shared"]
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], p["mamba_blocks"])
+                unit(lambda rt, h, w: mamba2_apply(rt, w["mamba"], L.rmsnorm(w["norm"], h), cfg.mamba)[0],
+                     x, lp, f"mamba {i}")
+                x = (x + mamba2_apply(plain, lp["mamba"], L.rmsnorm(lp["norm"], x), cfg.mamba)[0]).to(cfg.dtype)
+                if (i + 1) % cfg.share_every == 0 and i + 1 < cfg.n_layers:
+                    unit(lambda rt, h, w: L.attention(rt, w["attn"], L.rmsnorm(w["ln1"], h), cfg.attn,
+                                                      positions)[0],
+                         x, {"attn": sp["attn"], "ln1": sp["ln1"]}, f"shared attention after {i}")
+                    x = hybrid._shared_block(plain, cfg, sp, x, positions)[0]
+    if not max(worst.values()) <= 1.0:
+        raise SystemExit(f"{where}: a layer's kernel path vs plain path on the same input under autograd "
+                         f"exceeds 3e-2 of the largest value: {worst} of it, at {worst_at}")
+    return {"max_err_of_limit": worst, "at": worst_at, "layers": cfg.n_layers}
+
+
+def _restart_check() -> dict:
+    """Checkpoint/restart on the card: granite-3-2b smoke through the kernel
+    path, int8, ``RESTART["cut"]`` steps, a save, a new run from fresh trees
+    that restores it and trains to ``RESTART["steps"]``; against the same
+    steps straight from the same weights.  Every weight within 1e-2 (the
+    reference's ``TestCheckpointRestart``), and every leaf of the two runs'
+    final saves but the residual (AdamW's ``m``, ``v``, ``master``, the
+    weights; ``step`` exactly) within 1e-2 of its largest |value|; not bit
+    for bit, since the embedding's backward adds with atomics on the card
+    (the CPU tests hold it bit for bit).  The saves go to a temporary
+    directory, removed afterwards."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import load
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_init, tree_leaves
+
+    harness = load(RESTART["arch"], smoke=True)
+    names = list(_leaf_sizes(harness))
+
+    def weights(seed=RESTART["seed"]):
+        return tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(seed),
+                         torch.bfloat16, "cuda")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        def args(ckpt_dir):
+            return train.build_parser().parse_args([
+                "--arch", RESTART["arch"], "--steps", str(RESTART["steps"]), "--batch", str(RESTART["batch"]),
+                "--seq", str(RESTART["seq"]), "--lr", "1e-3", "--compression", RESTART["compression"],
+                "--ckpt-every", str(RESTART["cut"]), "--ckpt-dir", os.path.join(tmp, ckpt_dir)])
+
+        def save_at(ckpt_dir, step) -> dict:
+            src = os.path.join(tmp, ckpt_dir, f"step_{step:08d}")
+            with open(os.path.join(src, "meta.json")) as f:
+                keys = json.load(f)["keys"]
+            return {k: np.load(os.path.join(src, k.replace("/", "__") + ".npy")) for k in keys}
+
+        straight = weights()
+        a = train.run(args("straight"), params=straight)
+        first = train.run(args("cut"), params=weights(), stop_at=RESTART["cut"])
+        resumed = weights(RESTART["seed"] + 1)          # fresh trees: the restore overwrites them
+        c = train.run(args("cut"), params=resumed)
+        end_a, end_c = save_at("straight", RESTART["steps"]), save_at("cut", RESTART["steps"])
+    # the two runs' whole state at the end, key by key, as a share of the
+    # key's largest |value|: a restore that lost the moments, the master
+    # weights or the step would show here; the residual is reported (a
+    # rounding apart can move an int8 value across a step)
+    if sorted(end_a) != sorted(end_c):
+        raise SystemExit(f"restart on the card: the final saves hold other keys: {sorted(end_a)} {sorted(end_c)}")
+    end_share = {k: float(np.abs(end_a[k].astype(np.float64) - end_c[k]).max()
+                          / max(float(np.abs(end_a[k]).max()), 1e-30)) for k in end_a}
+    held = {k: v for k, v in end_share.items() if not k.startswith("residual/")}
+    diffs = {n: (x.float() - y.float()).abs().max().item()
+             for n, x, y in zip(names, tree_leaves(straight), tree_leaves(resumed))}
+    out = {"config": f"{RESTART['arch']} smoke", "steps": RESTART["steps"], "cut_after": RESTART["cut"],
+           "compression": RESTART["compression"], "resumed_from": c["resumed_from"],
+           "start_step": c["start_step"], "residual_restored": c["residual_restored"],
+           "max_abs_diff_by_leaf": diffs, "limit": 1e-2,
+           "loss_max_abs_diff_after_restart": max(abs(x - y) for x, y in zip(a["losses"][RESTART["cut"]:],
+                                                                          c["losses"])),
+           "first_losses_equal": a["losses"][:RESTART["cut"]] == first["losses"],
+           "final_save_worst_share_of_largest": max(held.values()), "final_save_worst_key": max(held, key=held.get),
+           "final_save_share_limit": 1e-2,
+           "final_residual_worst_share_of_largest": max((v for k, v in end_share.items()
+                                                         if k.startswith("residual/")), default=None),
+           "final_step_saved": int(end_c["opt/step"])}
+    if not (c["start_step"] == RESTART["cut"] and len(c["losses"]) == RESTART["steps"] - RESTART["cut"]
+            and c["residual_restored"] and max(diffs.values()) <= 1e-2 and max(held.values()) <= 1e-2
+            and int(end_c["opt/step"]) == RESTART["steps"]):
+        raise SystemExit(f"restart on the card: {out}")
+    return out
 
 
 def phase_train() -> dict[str, dict[str, int]]:
     """granite-8b training: the smoke config's kernel and plain paths in fp32
     and bf16 and its loss falling over 40 steps, then the main path at full
-    width and 8 layers.  Returns the main path's launch counts."""
+    width and 8 layers; then the other families' training paths
+    (``TRAIN_FAMILIES``), each after the last one's state is released; then
+    a restart from a checkpoint (``_restart_check``).  Returns each training
+    path's launch counts."""
     import numpy as np
 
     from repro_torch.configs import load
@@ -1518,7 +1881,7 @@ def phase_train() -> dict[str, dict[str, int]]:
     kernels.reset_launch_counts()
     res = train.run(args)
     losses, counts = res["losses"], kernels.launch_counts()
-    expected = _train_expected_launches(load("granite-8b", smoke=True), args.steps, 12)
+    expected = _train_expected_launches(load("granite-8b", smoke=True), args.steps, 12, args.compression)
     if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.5) or counts != expected:
         raise SystemExit(f"train smoke: 40 steps lowered the loss from {losses[0]} to {losses[-1]} "
                          f"(needs more than 0.5), launches {counts} (expected {expected})")
@@ -1536,7 +1899,37 @@ def phase_train() -> dict[str, dict[str, int]]:
          steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
          step_ms=res["step_ms"], tokens_per_s_after_the_first_step=res["tokens_per_s"],
          peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
-    return {f"granite-8b train ({TRAIN['n_layers']} layers)": counts}
+    by_path = {f"granite-8b train ({TRAIN['n_layers']} layers)": counts}
+    del res
+
+    for spec in TRAIN_FAMILIES:
+        spec = {**TRAIN_FAMILY, **spec}
+        harness = load(spec["arch"])
+        argv = ["--arch", spec["arch"], "--no-smoke", "--steps", str(spec["steps"]), "--batch", str(spec["batch"]),
+                "--seq", str(spec["seq"]), "--compression", spec["compression"], "--seed", str(spec["seed"]),
+                "--log-every", "1"]
+        if "n_layers" in spec:
+            harness = harness.clone(n_layers=spec["n_layers"])
+            argv += ["--n-layers", str(spec["n_layers"])]
+        params = None
+        if harness.family in ("ssm", "hybrid"):     # kept for the layer-by-layer check
+            params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                               torch.bfloat16, "cuda")
+            # the reference's zero mixes, decay bias and bonus, drawn
+            _draw_time_mix(harness, params, spec["seed"] + 1)
+        args = train.build_parser().parse_args(argv)
+        res, counts, vs_plain = _train_kernel_vs_plain(args, harness, torch.bfloat16, f"train {spec['arch']}",
+                                                       params=params)
+        emit("train", arch=spec["arch"], n_layers=harness.cfg.n_layers, d_model=harness.cfg.d_model,
+             params=res["params"], batch=args.batch, seq=args.seq, compression=args.compression,
+             steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
+             step_ms=res["step_ms"], tokens_per_s_after_the_first_step=res["tokens_per_s"],
+             peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
+        by_path[f"{spec['arch']} train ({harness.cfg.n_layers} layers)"] = counts
+        del params, res
+
+    emit("restart", **_restart_check())
+    return by_path
 
 
 def phase_serve() -> dict[str, dict[str, int]]:

@@ -16,9 +16,9 @@ function serves prefill (``q_start=0``) and a decode step over the cache
 (``Sq=1, q_start=pos``).  Every query row must see at least one key.
 
 Gradients: where autograd records (grad mode on and an input that requires
-grad), the kernel runs inside ``_Attention``, a ``torch.autograd.Function``
-whose backward is the gradient of ``flash_attention_plain``, recomputed from
-the saved q, k and v.  The reference has no backward kernel to port; a
+grad), the kernel runs inside ``_autograd.PlainGradient``, a
+``torch.autograd.Function`` whose backward is the gradient of
+``flash_attention_plain``, recomputed from the saved q, k and v.  The reference has no backward kernel to port; a
 hand-written one is later work.
 
 On the card the function is bound by bytes (q, k, v read once, o written
@@ -45,6 +45,7 @@ import math
 import torch
 
 from . import _build
+from ._autograd import PlainGradient
 
 NEG_INF = -1e30          # the kernel's finite mask fill (reference: NEG_INF)
 HEAD_DIMS = (32, 64, 128)
@@ -183,26 +184,6 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
     return o
 
 
-class _Attention(torch.autograd.Function):
-    """``forward(q, k, v, **kw)`` computes the output; the backward is the
-    gradient of ``flash_attention_plain`` at the saved inputs.  On the card
-    ``forward`` is the kernel's launch; the tests hand it the plain version."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, forward, kw):
-        ctx.save_for_backward(q, k, v)
-        ctx.kw = kw
-        return forward(q, k, v, **kw)
-
-    @staticmethod
-    def backward(ctx, grad_o):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = flash_attention_plain(*inputs, **ctx.kw)
-        return (*torch.autograd.grad(o, inputs, grad_o), None, None)
-
-
 def flash_attention(
     q: torch.Tensor,            # (B, K, G, Sq, D)
     k: torch.Tensor,            # (B, K, Sk, D)
@@ -223,7 +204,8 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Attention.apply(q, k, v, _launch, kw)
+        return PlainGradient.apply(lambda *t: _launch(*t, **kw),
+                                   lambda *t: flash_attention_plain(*t, **kw), q, k, v)
     return _launch(q, k, v, **kw)
 
 

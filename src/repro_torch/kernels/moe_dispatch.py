@@ -7,10 +7,12 @@ kernel of ``csrc/moe_dispatch.cu`` (built at first use, see ``_build.py``) or
 raises; on CPU tensors, and only there, it computes the same function with
 ``moe_dispatch_plain``.  There is no fallback from the kernel to the plain
 version.  ``moe_dispatch.launches`` counts kernel launches, one a call (a
-decode step, T = 1, launches a kernel of its own, see the CUDA source).  The
-kernel has no backward yet: asked for one (a CUDA input that requires grad,
-grad mode on) the wrapper raises rather than return an output cut from the
-graph.
+decode step, T = 1, launches a kernel of its own, see the CUDA source).
+Under autograd (a CUDA input that requires grad, grad mode on) the launch
+goes through ``_autograd.PlainGradient``: the kernel's output, and in the
+backward the gradient of ``moe_dispatch_plain`` recomputed at the saved
+inputs, for x and, only where it requires one, disp (the routing's one-hot
+weights do not); no backward kernel yet.
 
 The function is the reference's, ``out[e, c, :] = sum_t disp[t, e, c] *
 x[t, :]`` accumulated in fp32, output in x's type, for ``disp (T, E, C)`` and
@@ -30,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._autograd import PlainGradient
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,11 +106,10 @@ def moe_dispatch(disp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return moe_dispatch_plain(disp, x)
     if x.device.type != "cuda":
         raise ValueError(f"moe_dispatch runs on cuda or cpu tensors, not {x.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (disp, x)):
-        raise RuntimeError("moe_dispatch has no backward yet (the kernel's output would cut the graph): "
-                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
     if disp.ndim == 3:
-        return _launch(disp[None], x[None])[:, 0]
+        return moe_dispatch(disp[None], x[None])[:, 0]
+    if torch.is_grad_enabled() and (disp.requires_grad or x.requires_grad):
+        return PlainGradient.apply(_launch, moe_dispatch_plain, disp, x)
     return _launch(disp, x)
 
 

@@ -8,9 +8,11 @@ factored at 16-row tile edges (``tc::``), for fp32 the first design's FMA
 kernel (``fma::``); the C entry point picks by the type alone.  On CPU
 tensors, and only there, it computes the same function with
 ``rwkv6_scan_plain``.  There is no fallback from the kernel to the plain
-version.  ``rwkv6_scan.launches`` counts kernel launches.  The kernel has no
-backward yet: asked for one (a CUDA input that requires grad, grad mode on)
-the wrapper raises rather than return an output cut from the graph.
+version.  ``rwkv6_scan.launches`` counts kernel launches.  Under autograd (a
+CUDA input that requires grad, grad mode on) the launch goes through
+``_autograd.PlainGradient``: the kernel's output, and in the backward the
+gradient of ``rwkv6_scan_plain`` recomputed at the saved inputs, for y, the
+final state or both; no backward kernel yet.
 
 The function is the reference's: per head a state ``S (N, N)`` and, token by
 token, ``y_t = r_t (S + diag(u) k_t v_t^T)``, ``S <- diag(w_t) S + k_t v_t^T``,
@@ -31,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._autograd import PlainGradient
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128          # rows of a chunk the kernel holds in shared memory
@@ -169,9 +172,11 @@ def rwkv6_scan(
         return rwkv6_scan_plain(r, k, v, w, u, chunk=chunk, s0=s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors, not {r.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
-        raise RuntimeError("rwkv6_scan has no backward yet (the kernel's output would cut the graph): "
-                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
+    inputs = (r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return PlainGradient.apply(
+            lambda *t: _launch(*t[:5], chunk, t[5]),
+            lambda *t: rwkv6_scan_plain(*t[:5], chunk=chunk, s0=t[5]), *inputs)
     return _launch(r, k, v, w, u, chunk, s0)
 
 

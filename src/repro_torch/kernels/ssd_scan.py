@@ -7,9 +7,11 @@ for bf16 inputs, what the model serves, the tensor-core design (``tc::``),
 for fp32 the first design's FMA kernel (``fma::``).  On CPU tensors, and
 only there, it computes the same function with
 ``ssd_scan_plain``.  There is no fallback from the kernel to the plain
-version.  ``ssd_scan.launches`` counts kernel launches.  The kernel has no
-backward yet: asked for one (a CUDA input that requires grad, grad mode on)
-the wrapper raises rather than return an output cut from the graph.
+version.  ``ssd_scan.launches`` counts kernel launches.  Under autograd (a
+CUDA input that requires grad, grad mode on) the launch goes through
+``_autograd.PlainGradient``: the kernel's output, and in the backward the
+gradient of ``ssd_scan_plain`` recomputed at the saved inputs, for y, the
+final state or both; no backward kernel yet.
 
 The function is the reference's: ``xh (B,S,H,P)``, ``log_l (B,S,H) <= 0``,
 ``Bm, Cm (B,S,N)`` give ``y (B,S,H,P)`` in xh's type and the final state
@@ -28,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._autograd import PlainGradient
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128          # rows of a chunk the kernel holds in shared memory
@@ -158,9 +161,11 @@ def ssd_scan(
         return ssd_scan_plain(xh, log_l, Bm, Cm, chunk=chunk, h0=h0)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {xh.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (xh, log_l, Bm, Cm, h0)):
-        raise RuntimeError("ssd_scan has no backward yet (the kernel's output would cut the graph): "
-                           "call it under torch.no_grad(), or use the plain path (use_kernels=False)")
+    inputs = (xh, log_l, Bm, Cm, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return PlainGradient.apply(
+            lambda *t: _launch(*t[:4], chunk, t[4]),
+            lambda *t: ssd_scan_plain(*t[:4], chunk=chunk, h0=t[4]), *inputs)
     return _launch(xh, log_l, Bm, Cm, chunk, h0)
 
 

@@ -7,8 +7,11 @@ idle share over a few warm steps, as one JSON object::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --no-smoke \\
         --n-layers 8 --compression int8
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-1.6b \\
+        --no-smoke --compression int8
 
-Takes the flags of ``repro_torch.launch.train`` (``--steps`` is set from
+Takes the flags of ``repro_torch.launch.train`` (``--arch``, default
+granite-8b, any family the port trains; ``--steps`` is set from
 ``--warm`` and ``--active``) plus ``--top`` (kernels listed), ``--warm``
 (steps run before the profiled ones: the first builds the kernels and warms
 the allocator) and ``--active`` (steps profiled).  The idle share is given
@@ -34,7 +37,10 @@ from . import train
 
 # kinds of kernels, by a piece of their names (first match wins)
 KINDS = [
-    ("flash_attention", ("flash_fwd_kernel",)),
+    ("flash_attention", ("flash_fwd", "flash_decode", "flash_combine")),
+    ("moe_dispatch", ("moe_dispatch",)),
+    ("ssd_scan", ("ssd_scan",)),
+    ("rwkv6_scan", ("rwkv6_scan",)),
     ("ccu_reduce", ("ccu_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("reduction", ("reduce", "norm", "softmax", "logsumexp")),

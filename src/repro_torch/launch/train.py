@@ -11,17 +11,29 @@ The reference's flags, plus ``--smoke/--no-smoke`` (the reference's
 on the CPU), ``--n-layers`` (the config at that depth, widths unchanged: at 8
 of its 36 layers granite-8b's training state of 20 bytes a parameter, 42.95
 GB, fits one 80 GB card) and ``--seed`` (the weights' draw; the data's seed
-is 0, as the reference's).  ``--ckpt-dir`` and ``--auto-parallel`` raise:
-checkpoint/restart and the planner come with their slices.
+is 0, as the reference's).  ``--auto-parallel`` raises: the planner comes
+with its slice.  Every family the port serves trains: the transformers
+(dense and MoE), rwkv6 and zamba2.
 
 One step: the loss and its gradients (``value_and_grad`` of the harness's
-loss, attention through the flash kernel and its recompute under the
-config's remat policy), the gradients compressed (``--compression``; in int8
-every leaf's payload goes through the ``ccu_reduce`` kernel), then AdamW.
-The int8 error-feedback residual is carried from step to step; the
-reference's step passes none and drops the one it gets back, so there the
-residual never acts.  ``run(args)`` is the whole loop and returns what it
-measured; ``main`` prints it.
+loss, with the family's kernels and their recompute under remat), the
+gradients compressed (``--compression``; in int8 every leaf's payload goes
+through the ``ccu_reduce`` kernel), then AdamW.  The int8 error-feedback
+residual is carried from step to step; the reference's step passes none and
+drops the one it gets back, so there the residual never acts.  ``run(args)``
+is the whole loop and returns what it measured; ``main`` prints it.
+
+Checkpoints (``--ckpt-dir``, ``checkpoint/manager.py``, the reference's
+layout): ``{"params", "opt"}`` and, once there is one, the int8 residual
+under ``"residual"``, every ``--ckpt-every`` updates and at the end.  Each
+save is labelled with the number of updates it holds, which is
+``opt["step"]``, and a run resumes from the latest save at
+``int(opt["step"])``: its data and its step range start there.  The
+reference labels its periodic saves one short (its save after step ``s``
+holds ``s + 1`` updates and is labelled ``s``) and resumes at the label, so
+it runs batch ``s`` twice; reading ``opt["step"]`` resumes its saves at the
+batch after their last update too.  A save without a residual (the
+reference's) resumes with a zero one, and says so.
 """
 
 from __future__ import annotations
@@ -32,11 +44,12 @@ import time
 import torch
 from torch.profiler import record_function
 
+from ..checkpoint.manager import CheckpointManager
 from ..configs import load
 from ..data.pipeline import DataConfig, Pipeline, SyntheticSource
 from ..kernels import launch_counts
 from ..models.layers import Runtime
-from ..models.param import param_count, tree_init, value_and_grad
+from ..models.param import param_count, tree_init, tree_map, value_and_grad
 from ..optim import adamw
 from ..optim.compression import CompressionConfig, compress_grads
 from ..runtime.fault_tolerance import TrainingSupervisor
@@ -71,25 +84,33 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe=None,
-        log=None) -> dict:
-    """Train ``args.steps`` steps from fresh weights and optimizer state.
+        log=None, stop_at: int | None = None) -> dict:
+    """Train up to ``args.steps`` updates, from fresh weights and optimizer
+    state or from the latest save in ``args.ckpt_dir``.
 
     ``harness`` and ``params`` replace the loaded config and the drawn
     weights (the parity tests carry the reference's weights across that way;
-    ``params`` is updated in place); ``rt`` replaces the default runtime
-    (``Runtime(use_kernels=False)`` is the plain path, for the model and the
-    compression's reduce alike).  ``observe(step, loss, grads, payload,
-    wire)``, if given, is called every step after the compression and before
-    the update, with the gradients, the payload AdamW gets and, in int8 mode,
-    each leaf's int8 values and scale ``(q, scale)`` (else an empty list);
-    its time is left out of the step's.  ``log`` takes each line the loop
-    would print.
+    ``params`` is updated in place, by a restore too); ``rt`` replaces the
+    default runtime (``Runtime(use_kernels=False)`` is the plain path, for
+    the model and the compression's reduce alike).  ``observe(step, loss,
+    grads, payload, wire)``, if given, is called every step after the
+    compression and before the update, with the gradients, the payload AdamW
+    gets and, in int8 mode, each leaf's int8 values and scale ``(q, scale)``
+    (else an empty list); its time is left out of the step's.  ``log`` takes
+    each line the loop would print.  ``stop_at`` ends the loop after that
+    many updates, as a run cut there would end, but with its save written
+    (with ``--ckpt-dir``): a later call resumes from it.  A run that resumes
+    with nothing left to do writes no save, so that no label ever names
+    fewer updates than its save holds.
 
-    Returns per step the loss, the gradient norm, the learning rate and the
-    wall time (host clock ended by a device synchronise), the peak device
+    Returns per step run the loss, the gradient norm, the learning rate and
+    the wall time (host clock ended by a device synchronise), the peak device
     memory, tokens per second over the steps' wall times with the first step
-    left out where there are more (it builds the kernels) and the kernels'
-    launch counts over the loop.  The three parts of a step are marked for
+    left out where there are more (it builds the kernels; None if no step
+    ran), the kernels' launch counts over the loop, the update count the run
+    started from (``start_step``), the label of the save it resumed from
+    (``resumed_from``, else None) and whether that save held the residual
+    (``residual_restored``).  The three parts of a step are marked for
     ``torch.profiler`` as ``train.grad``, ``train.compress`` and
     ``train.adamw`` (``launch/profile_train.py`` reads them).
     """
@@ -99,10 +120,9 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             "--device cuda asked for, but torch.cuda.is_available() is False; "
             "pass --device cpu to run the plain versions on the CPU"
         )
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir: checkpoint/restart is not ported yet (ROADMAP A10)")
     if args.auto_parallel:
         raise NotImplementedError("--auto-parallel: the planner is not ported yet (ROADMAP A12)")
+    say = log if log is not None else (lambda line: None)
     harness = harness if harness is not None else load(args.arch, smoke=args.smoke)
     if args.n_layers is not None:
         harness = harness.clone(n_layers=args.n_layers)
@@ -117,16 +137,45 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = tree_init(harness.param_specs(), gen, torch.bfloat16, device)
-    opt_state = adamw.init_opt_state(params)
     residual = None
+    manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir is not None else None
+    label = None if manager is None else manager.latest_step()
+    residual_restored = None
+    if label is None:
+        opt_state = adamw.init_opt_state(params)
+    else:
+        # the optimizer state is read into new tensors, the weights into the
+        # caller's; the label is only where to look: the run resumes at the
+        # number of updates the save holds
+        opt_specs = adamw.opt_state_specs(harness.param_specs())
+        state = manager.restore(label, {"params": params, "opt": opt_specs}, device=device)
+        with torch.no_grad():
+            tree_map(lambda p, r: p.copy_(r), params, state["params"])
+        opt_state = state["opt"]
+        del state
+        if comp.mode == "int8":
+            try:
+                residual = manager.restore(label, {"residual": opt_specs["m"]}, device=device)["residual"]
+                residual_restored = True
+            except KeyError:
+                residual_restored = False
+                say(f"[train] save {label} holds no int8 residual: resuming with a zero residual")
+    start = int(opt_state["step"])
+    stop = args.steps if stop_at is None else min(stop_at, args.steps)
+    if label is not None:
+        say(f"[train] resuming from save {label}: {start} updates done, running steps {start}..{stop - 1}")
+
+    def saved_state() -> dict:
+        tree = {"params": params, "opt": opt_state}
+        return tree if residual is None else {**tree, "residual": residual}
 
     data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq, vocab_size=cfg.vocab_size, seed=0)
-    pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
+    pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg, start_step=start)
     supervisor = TrainingSupervisor(n_workers=1)
     out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": []}
     launches0 = launch_counts()
     try:
-        for step in range(args.steps):
+        for step in range(start, stop):
             batch = next(pipeline)
             batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("tokens", "labels")}
             t0 = time.perf_counter()
@@ -155,14 +204,23 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             if log is not None and (step % args.log_every == 0 or step == args.steps - 1):
                 log(f"[train] step={step} loss={out['losses'][-1]:.4f} "
                     f"gnorm={out['grad_norms'][-1]:.3f} lr={out['lrs'][-1]:.2e} dt={dt * 1e3:.0f}ms")
+            if manager is not None and (step + 1) % args.ckpt_every == 0 and step + 1 < stop:
+                manager.save(step + 1, saved_state())
+        if manager is not None and start < stop:      # the periodic saves stop short of stop
+            manager.save(stop, saved_state(), blocking=True)
     finally:
         pipeline.close()
+        if manager is not None:
+            manager.wait()
     warm = out["step_ms"][1:] or out["step_ms"]
-    out["tokens_per_s"] = len(warm) * args.batch * args.seq * 1e3 / sum(warm)
+    out["tokens_per_s"] = len(warm) * args.batch * args.seq * 1e3 / sum(warm) if warm else None
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
     out["params"] = param_count(harness.param_specs())
     out["launches"] = {k: n - launches0[k] for k, n in launch_counts().items()}
     out["device"] = str(device)
+    out["start_step"] = start
+    out["resumed_from"] = label
+    out["residual_restored"] = residual_restored
     return out
 
 
@@ -172,6 +230,9 @@ def main(argv: list[str] | None = None) -> None:
           f"compression={args.compression}")
     res = run(args, log=print)
     losses = res["losses"]
+    if not losses:
+        print(f"[train] nothing to run: the save holds {res['start_step']} of {args.steps} updates")
+        return
     print(f"[train] params={res['params']:.4g} peak={res['peak_memory_gb']} GB "
           f"kernel launches={res['launches']}")
     print(f"[train] done. first loss={losses[0]:.4f} last loss={losses[-1]:.4f} "

@@ -5,11 +5,10 @@
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
 callables), ``serve_state_specs(cell)`` (KV-cache or recurrent-state spec
-tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``;
-``TransformerHarness`` also the training half, ``loss(rt)`` (a callable
-``(params, batch) -> loss``) and ``train_input_specs(cell)``.  The training
-half of the other families (the base class's raises ``NotImplementedError``,
-naming ROADMAP A13) and the other model families come with their slices.
+tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``, and the training
+half, ``loss(rt)`` (a callable ``(params, batch) -> loss``) and
+``train_input_specs(cell)``.  The other model families (encoder-decoder,
+vision prefix) come with their slices.
 
 ``RWKVHarness.prefill`` and ``HybridHarness.prefill`` differ from the
 reference's on purpose: they return the state the prompt leaves
@@ -76,14 +75,8 @@ class Harness:
 
     # subclasses implement:
     def param_specs(self) -> Any: ...
-    def loss(self, rt: Runtime) -> Callable:
-        raise NotImplementedError(
-            f"training {self.arch_id or type(self).__name__} ({self.family}) is not ported yet (ROADMAP A13)")
-
-    def train_input_specs(self, cell: ShapeCell) -> dict:
-        raise NotImplementedError(
-            f"training {self.arch_id or type(self).__name__} ({self.family}) is not ported yet (ROADMAP A13)")
-
+    def loss(self, rt: Runtime) -> Callable: ...
+    def train_input_specs(self, cell: ShapeCell) -> dict: ...
     def prefill(self, rt: Runtime) -> Callable: ...
     def decode(self, rt: Runtime) -> Callable: ...
     def serve_state_specs(self, cell: ShapeCell) -> Any: ...
@@ -173,6 +166,20 @@ class RWKVHarness(Harness):
     def param_specs(self):
         return rwkv_lm.lm_specs(self.cfg)
 
+    # -- training -----------------------------------------------------------
+    def loss(self, rt: Runtime):
+        def fn(params, batch):
+            return rwkv_lm.loss_fn(rt, self.cfg, params, batch)
+
+        return fn
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        B, S = cell.global_batch, cell.seq_len
+        return {
+            "tokens": _tok((B, S), ("batch", None)),
+            "labels": _tok((B, S), ("batch", None)),
+        }
+
     # -- serving ------------------------------------------------------------
     def serve_state_specs(self, cell: ShapeCell):
         return rwkv_lm.state_specs(self.cfg, cell.global_batch)
@@ -211,6 +218,20 @@ class HybridHarness(Harness):
 
     def param_specs(self):
         return hybrid.lm_specs(self.cfg)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, rt: Runtime):
+        def fn(params, batch):
+            return hybrid.loss_fn(rt, self.cfg, params, batch)
+
+        return fn
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        B, S = cell.global_batch, cell.seq_len
+        return {
+            "tokens": _tok((B, S), ("batch", "sp")),
+            "labels": _tok((B, S), ("batch", "sp")),
+        }
 
     # -- serving ------------------------------------------------------------
     def serve_state_specs(self, cell: ShapeCell):

@@ -2,10 +2,16 @@
 backbone and ONE shared (weight-tied) attention + MLP block that runs after
 every ``share_every``-th Mamba2 block, except after the last.
 
-Ported: ``HybridConfig``, ``lm_specs``, ``_shared_block``, ``forward``
-(without rematerialization, which comes with training), ``state_specs`` and
-``decode_step``.  Where the reference scans over the stacked layer dim, the
-port loops in Python over views of the stacked leaves: no per-layer copy.
+Ported: ``HybridConfig``, ``lm_specs``, ``_shared_block``, ``forward``,
+``loss_fn``, ``state_specs`` and ``decode_step``.  Where the reference scans
+over the stacked layer dim, the port loops in Python over views of the
+stacked leaves: no per-layer copy.  Under grad mode every Mamba2 body of
+``forward`` is recomputed in the backward (``remat.remat`` under
+``"nothing"``), as the reference's ``jax.checkpoint(..., nothing_saveable)``
+does whatever ``remat_policy`` says, and the shared attention block is not;
+so a training step runs each Mamba2 layer's scan twice and each shared
+call's attention once.  Serving runs without grad mode and recomputes
+nothing.
 
 New here: ``prefill``, one pass over the prompt that returns the last
 token's logits and the state the prompt leaves: each Mamba2 layer's final
@@ -30,7 +36,8 @@ import torch
 
 from . import layers as L
 from .mamba2 import Mamba2Config, mamba2_apply, mamba2_specs, mamba2_state_specs
-from .param import cast_floats, round_up, stack_specs, tree_map
+from .param import cast_floats, round_up, stack_specs
+from .remat import remat, unbind_layers
 
 
 @dataclass(frozen=True)
@@ -46,7 +53,7 @@ class HybridConfig:
     ssm_state: int = 64
     share_every: int = 6
     rope_theta: float = 10000.0
-    remat_policy: str = "nothing"  # kept for field parity; used by training
+    remat_policy: str = "nothing"  # kept for field parity: Mamba2 bodies are always recomputed
     unroll: bool = False           # kept for field parity; the port always loops
     dtype: torch.dtype = torch.bfloat16
 
@@ -126,8 +133,9 @@ def _run(rt, cfg: HybridConfig, params, tokens, state, pos: int, step: bool):
         ssm = {"h": state["ssm"]["h"], "conv": conv.to(promoted)}
         kv = state["kv"]
 
-    def mamba_body(h, i):
-        lp = tree_map(lambda t: t[i], params["mamba_blocks"])
+    layers = unbind_layers(params["mamba_blocks"], cfg.n_layers)
+
+    def mamba_body(h, lp, i):
         prev = {"h": ssm["h"][i], "conv": ssm["conv"][i]} if step else None
         y, new = mamba2_apply(rt, lp["mamba"], L.rmsnorm(lp["norm"], h), cfg.mamba, state=prev)
         if ssm is not None:
@@ -135,12 +143,14 @@ def _run(rt, cfg: HybridConfig, params, tokens, state, pos: int, step: bool):
             ssm["conv"][i].copy_(new["conv"])
         return (h + y).to(cfg.dtype)
 
+    if state is None:
+        mamba_body = remat("nothing", mamba_body)
     done, call = 0, 0
     group = cfg.share_every
     while done < cfg.n_layers:
         size = min(group, cfg.n_layers - done)
         for i in range(done, done + size):
-            x = mamba_body(x, i)
+            x = mamba_body(x, layers[i], i)
         done += size
         if done % group == 0 and done < cfg.n_layers:
             cache = None if state is None else (kv["k"][call], kv["v"][call])
@@ -157,6 +167,11 @@ def forward(rt, cfg: HybridConfig, params, tokens):
     """Scoring forward over a whole sequence.  Returns the logits."""
     x, params, _ = _run(rt, cfg, params, tokens, None, 0, step=False)
     return L.unembed(rt, params["embed"], x)
+
+
+def loss_fn(rt, cfg: HybridConfig, params, batch) -> torch.Tensor:
+    logits = forward(rt, cfg, params, batch["tokens"])
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 def state_specs(cfg: HybridConfig, batch: int, max_attn_len: int) -> dict:

@@ -2,10 +2,13 @@
 ``repro/models/rwkv_lm.py``.
 
 Ported: ``RWKVLMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
-``forward`` (without rematerialization, which comes with training),
-``state_specs`` and ``decode_step``.  Where the reference scans over the
-stacked layer dim, the port loops in Python over views of the stacked leaves:
-no per-layer copy.
+``forward``, ``loss_fn``, ``state_specs`` and ``decode_step``.  Where the
+reference scans over the stacked layer dim, the port loops in Python over
+views of the stacked leaves: no per-layer copy.  Under grad mode every block
+of ``forward`` is recomputed in the backward (``remat.remat`` under
+``"nothing"``), as the reference's ``jax.checkpoint(..., nothing_saveable)``
+does whatever ``remat_policy`` says; so a training step runs each layer's
+scan twice.  Serving runs without grad mode and recomputes nothing.
 
 New here: ``prefill``, one pass over the prompt from the zero state that
 returns the last token's logits and the state the prompt leaves: each
@@ -31,7 +34,8 @@ from dataclasses import dataclass
 import torch
 
 from . import layers as L
-from .param import cast_floats, round_up, stack_specs, tree_map
+from .param import cast_floats, round_up, stack_specs
+from .remat import remat, unbind_layers
 from .rwkv6 import (
     RWKV6Config,
     channelmix_apply,
@@ -51,7 +55,7 @@ class RWKVLMConfig:
     vocab_size: int
     head_dim: int = 64
     chunk: int = 128
-    remat_policy: str = "nothing"  # kept for field parity; used by training
+    remat_policy: str = "nothing"  # kept for field parity: blocks are always recomputed
     unroll: bool = False           # kept for field parity; the port always loops
     dtype: torch.dtype = torch.bfloat16
 
@@ -107,13 +111,16 @@ def _run(rt, cfg: RWKVLMConfig, params, tokens, state, step: bool):
     params = cast_floats(params, cfg.dtype)
     x = L.embed(rt, params["embed"], tokens)
     x = L.layernorm(params["ln_in"], x).to(cfg.dtype)
-    if state is not None:
+    layers = unbind_layers(params["blocks"], cfg.n_layers)
+    if state is None:
+        block = remat("nothing", lambda h, lp: _block(rt, cfg, lp, h)[0])
+        for lp in layers:
+            x = block(x, lp)
+    else:
         state = {name: t.to(torch.promote_types(t.dtype, cfg.dtype)) for name, t in state.items()}
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda t: t[i], params["blocks"])
-        prev = {name: t[i] for name, t in state.items()} if step else None
-        x, new = _block(rt, cfg, lp, x, prev)
-        if state is not None:
+        for i, lp in enumerate(layers):
+            prev = {name: t[i] for name, t in state.items()} if step else None
+            x, new = _block(rt, cfg, lp, x, prev)
             for name, t in new.items():
                 state[name][i].copy_(t)
     x = L.layernorm(params["final_norm"], x)
@@ -124,6 +131,11 @@ def forward(rt, cfg: RWKVLMConfig, params, tokens):
     """Scoring forward over a whole sequence.  Returns the logits."""
     x, params, _ = _run(rt, cfg, params, tokens, None, step=False)
     return L.unembed(rt, params["embed"], x)
+
+
+def loss_fn(rt, cfg: RWKVLMConfig, params, batch) -> torch.Tensor:
+    logits = forward(rt, cfg, params, batch["tokens"])
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 def state_specs(cfg: RWKVLMConfig, batch: int) -> dict:

@@ -4,7 +4,7 @@ One config class parameterizes GQA/MQA attention (RoPE, optional sliding
 window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP or an MoE
 layer (``models/moe.py``), and a gemma-style sqrt(d) embedding scale.
 
-Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``, ``_remat``,
+Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
 ``forward``, ``loss_fn``, ``cache_specs``, ``prefill`` and ``decode_step``.
 Where the reference scans over the stacked layer dim, the port loops in Python
 over views of the stacked leaves: no per-layer copy.  The KV cache is written
@@ -14,29 +14,23 @@ beside the cache, and ``forward`` the sum of them beside the logits, as the
 reference's do; ``loss_fn`` adds that sum to the cross-entropy.  The modality
 prefix comes with its slice.
 
-``_remat`` maps the reference's ``remat_policy`` onto
-``torch.utils.checkpoint`` (non-reentrant) around each block: ``"nothing"``
-saves nothing and recomputes the block in the backward, ``"dots"`` saves the
-outputs of the matrix products without batch dimensions (the projections; the
-reference's ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
-``"none"`` recomputes nothing.  Under ``"nothing"`` and ``"dots"`` a layer's
-attention runs twice a training step, once in the forward and once in the
-recompute.
+Each block runs under the config's ``remat_policy`` (``remat.remat``): under
+``"nothing"`` and ``"dots"`` a layer's attention runs twice a training step,
+once in the forward and once in the recompute.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .moe import MoEConfig, moe_apply, moe_specs
-from .param import cast_floats, param_count, round_up, stack_specs, tree_map
+from .param import cast_floats, param_count, round_up, stack_specs
+from .remat import remat, unbind_layers
 
 
 @dataclass(frozen=True)
@@ -57,7 +51,7 @@ class LMConfig:
     moe: MoEConfig | None = None
     prefix_len: int = 0            # VLM/audio stub prefix (train/prefill)
     embed_scale: bool = False      # gemma: x *= sqrt(d_model)
-    remat_policy: str = "nothing"  # nothing | dots | none: recompute in the backward (_remat)
+    remat_policy: str = "nothing"  # nothing | dots | none: recompute in the backward (remat.remat)
     attn_impl: str = "reference"   # kept for field parity; see Runtime.use_kernels
     unroll: bool = False           # kept for field parity; the port always loops
     dtype: torch.dtype = torch.bfloat16
@@ -161,43 +155,6 @@ def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor) -> 
     return x.to(cfg.dtype)
 
 
-_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _save_matmuls(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of ``"dots"``: keep the outputs of the
-    products without batch dimensions, recompute everything else."""
-    if op in _MATMULS:
-        return ckpt.CheckpointPolicy.MUST_SAVE
-    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat(cfg: LMConfig, fn):
-    if cfg.remat_policy == "none":
-        return fn
-    if cfg.remat_policy == "dots":
-        context_fn = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_matmuls)
-    elif cfg.remat_policy == "nothing":
-        context_fn = ckpt.noop_context_fn
-    else:
-        raise ValueError(f"remat_policy {cfg.remat_policy!r} (nothing | dots | none)")
-
-    def wrapped(*args):
-        if not torch.is_grad_enabled():     # nothing to save for a backward
-            return fn(*args)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
-
-    return wrapped
-
-
-def _layers(blocks: dict, n_layers: int) -> list[dict]:
-    """Every layer's parameters as views of the stacked leaves, cut in one
-    ``unbind`` a leaf, so that the backward stacks each leaf's gradient once
-    rather than adding a full-size tensor a layer."""
-    parts = tree_map(lambda t: t.unbind(0), blocks)
-    return [tree_map(lambda u: u[i], parts) for i in range(n_layers)]
-
-
 def forward(
     rt: L.Runtime,
     cfg: LMConfig,
@@ -214,9 +171,9 @@ def forward(
         h, _, a = _block(rt, cfg, lp, h, positions)
         return h, a
 
-    block = _remat(cfg, body)
+    block = remat(cfg.remat_policy, body)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(params["blocks"], cfg.n_layers):
+    for lp in unbind_layers(params["blocks"], cfg.n_layers):
         x, a = block(x, lp)
         aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
@@ -244,7 +201,7 @@ def _serve(rt, cfg, params, tokens, cache, pos: int) -> tuple[torch.Tensor, dict
     params = cast_floats(params, cfg.dtype)
     x = _embed(rt, cfg, params, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
-    for i, lp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
         x, _, _ = _block(
             rt, cfg, lp, x, positions,
             cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,

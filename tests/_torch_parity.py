@@ -11,11 +11,25 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.models.param import from_reference
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, restored after it.  The tests'
+    tensors are small; with several test workers on one machine, each
+    worker's threads mostly wait on each other's (a test taking 7 s alone
+    took 236 s beside five other workers).  Import it with
+    ``pytestmark = pytest.mark.usefixtures("one_thread")``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -385,26 +385,79 @@ def test_flash_attention_gradients_match_plain(cuda, dtype):
         assert torch.equal(a, b)
 
 
-def test_forward_only_kernels_raise_under_autograd(cuda):
-    """moe_dispatch, ssd_scan and rwkv6_scan have no backward yet: asked for
-    one they raise instead of cutting the graph; under no_grad they run."""
+def _autograd_case(cuda, kernel, kind, dtype):
+    """(wrapper call, plain version, inputs, indices of the inputs that need
+    a gradient) for one kernel at an edge: a ragged last chunk with an
+    initial state (scans), the batched form with disp not needing a
+    gradient (dispatch)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_plain
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
-    x = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
-    disp = torch.zeros(1, 8, 2, 4, device=cuda)
-    xh = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
-    log_l = -torch.rand(1, 16, 2, device=cuda)
-    Bm = Cm = torch.randn(1, 16, 16, device=cuda)
-    r = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
-    w = torch.rand(1, 16, 2, 16, device=cuda) * 0.5 + 0.4
-    u = torch.randn(2, 16, device=cuda)
-    calls = [lambda: ops.moe_dispatch(disp, x), lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=16),
-             lambda: ops.rwkv6_scan(r, r.detach(), r.detach(), w, u, chunk=16)]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="no backward"):
-            call()
-        with torch.no_grad():
-            call()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(shape, scale=0.5, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale).to(dt)
+
+    if kernel == "rwkv6_scan":
+        B, S, H, N = 2, 200, 2, 64
+        w = torch.sigmoid(rnd((B, S, H, N), 1.0, torch.float32)) * 0.98 + 0.01
+        inputs = [rnd((B, S, H, N)), rnd((B, S, H, N)), rnd((B, S, H, N)), w, rnd((H, N), 0.3),
+                  rnd((B, H, N, N), 0.5, torch.float32) if kind == "state" else None]
+        return (lambda *t: ops.rwkv6_scan(*t[:5], chunk=128, s0=t[5]),
+                lambda *t: rwkv6_scan_plain(*t[:5], chunk=128, s0=t[5]), inputs,
+                [0, 1, 2, 3, 4] + ([5] if kind == "state" else []))
+    if kernel == "ssd_scan":
+        B, S, H, P, N = 2, 200, 4, 64, 64
+        log_l = -torch.nn.functional.softplus(rnd((B, S, H), 1.0, torch.float32))
+        inputs = [rnd((B, S, H, P)), log_l, rnd((B, S, N)), rnd((B, S, N)),
+                  rnd((B, H, P, N), 0.5, torch.float32) if kind == "state" else None]
+        return (lambda *t: ops.ssd_scan(*t[:4], chunk=128, h0=t[4]),
+                lambda *t: ssd_scan_plain(*t[:4], chunk=128, h0=t[4]), inputs,
+                [0, 1, 2, 3] + ([4] if kind == "state" else []))
+    B, T, E, C, D = 2, 77, 8, 24, 256
+    idx = torch.randint(0, E, (B, T), generator=gen, device=cuda)
+    disp = torch.nn.functional.one_hot(idx, E)[..., None] * (torch.arange(C, device=cuda) == 0)
+    return (ops.moe_dispatch, moe_dispatch_plain, [disp.to(dtype), rnd((B, T, D))],
+            [1] if kind == "plain" else [0, 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,kind", [("rwkv6_scan", "plain"), ("rwkv6_scan", "state"), ("ssd_scan", "plain"),
+                                         ("ssd_scan", "state"), ("moe_dispatch", "plain"),
+                                         ("moe_dispatch", "disp_grad")])
+def test_kernel_gradients_match_plain(cuda, kernel, kind, dtype):
+    """Under autograd the wrapper launches its kernel once (its output that
+    of the call without autograd, bit for bit) and the gradients are those
+    of the plain version at the same inputs, bit for bit (the backward
+    recomputes it), for a non-contiguous incoming gradient, for y alone and,
+    with an initial state, for the final state too."""
+    from repro_torch import kernels
+
+    call, plain, inputs, grad_of = _autograd_case(cuda, kernel, kind, dtype)
+    with torch.no_grad():
+        no_grad = call(*inputs)
+    runs = []
+    for fn in (call, plain):
+        xs = [None if t is None else t.detach().requires_grad_(i in grad_of) for i, t in enumerate(inputs)]
+        kernels.reset_launch_counts()
+        outs = fn(*xs)
+        launched = kernels.launch_counts()[kernel]
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        used = outs if kind == "state" else outs[:1]
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        gos = [torch.randn((*o.shape[:-1], 2 * o.shape[-1]), generator=gen, device=cuda).to(o.dtype)[..., ::2]
+               for o in used]
+        assert all(o.grad_fn is not None for o in used)
+        runs.append((outs, torch.autograd.grad(used, [xs[i] for i in grad_of], gos), launched))
+    (outs, g, launched), (_, gp, plain_launched) = runs
+    assert launched == 1 and plain_launched == 0
+    no_grad = no_grad if isinstance(no_grad, tuple) else (no_grad,)
+    for a, b in zip(outs, no_grad):
+        assert torch.equal(a.detach(), b)
+    for a, b in zip(g, gp):
+        assert torch.equal(a, b) and torch.isfinite(a.float()).all()
 
 
 def test_train_kernel_path_matches_plain_path(cuda):

@@ -6,6 +6,8 @@ another order), bfloat16 2e-2 (one rounding of the output, |out| < 1); SSD
 and RWKV-6 scans 5e-5 on y and the final state (RWKV-6's extreme decay
 5e-4); MoE dispatch 1e-5."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,9 +18,10 @@ from _hypothesis_compat import given, settings, st  # hypothesis or skip-shim
 from repro.kernels import moe_dispatch as ref_moe, ops as ref_ops, ref as ref_ref
 from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+from repro_torch.kernels._autograd import PlainGradient
 from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
 from repro_torch.kernels.flash_attention import (
-    _Attention, decode_splits, flash_attention, flash_attention_plain)
+    decode_splits, flash_attention, flash_attention_plain)
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -258,21 +261,23 @@ def test_decode_splits(bk, Sk, splits):
     dict(causal=False, window=None, prefix_len=0, q_start=0),
 ])
 def test_attention_function_gradcheck(kw):
-    """The backward of ``_Attention`` (the plain version's gradient at the
-    saved inputs) against finite differences, in float64, GQA with G = 2."""
+    """The backward of flash attention under autograd (``PlainGradient``: the
+    plain version's gradient at the saved inputs) against finite
+    differences, in float64, GQA with G = 2."""
     rng = np.random.default_rng(3)
     Sk = 6 + kw["q_start"]
     q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
                for s in [(1, 2, 2, 6, 32), (1, 2, Sk, 32), (1, 2, Sk, 32)])
     kw = {**kw, "sm_scale": 1 / np.sqrt(32)}
-    assert torch.autograd.gradcheck(
-        lambda q, k, v: _Attention.apply(q, k, v, flash_attention_plain, kw), (q, k, v))
+    plain = functools.partial(flash_attention_plain, **kw)
+    assert torch.autograd.gradcheck(lambda q, k, v: PlainGradient.apply(plain, plain, q, k, v), (q, k, v))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_function_matches_plain_autograd(dtype):
-    """Forward and gradients of ``_Attention`` are those of autograd through
-    the plain version, bit for bit, in the model's layout (strided views)."""
+    """Forward and gradients of flash attention through ``PlainGradient`` are
+    those of autograd through the plain version, bit for bit, in the model's
+    layout (strided views)."""
     rng = np.random.default_rng(4)
     B, S, N, K, D = 2, 40, 4, 2, 32
     base = [torch.from_numpy(rand(rng, (B, S, h * D))).to(TDT[dtype]) for h in (N, K, K)]
@@ -281,7 +286,8 @@ def test_attention_function_matches_plain_autograd(dtype):
     kw = dict(causal=True, window=None, prefix_len=0, q_start=0, sm_scale=1 / np.sqrt(D))
     go = torch.from_numpy(rand(rng, (B, K, N // K, S, D))).to(TDT[dtype])
     outs = []
-    for fn in (lambda *t: _Attention.apply(*t, flash_attention_plain, kw), lambda *t: flash_attention_plain(*t, **kw)):
+    plain = functools.partial(flash_attention_plain, **kw)
+    for fn in (lambda *t: PlainGradient.apply(plain, plain, *t), plain):
         leaves = [t.clone().requires_grad_() for t in base]
         o = fn(*views(*leaves))
         o.backward(go)

@@ -324,23 +324,11 @@ def test_train_main_prints(capsys):
     assert out.count("[train] step=") == 4 and "done. first loss=" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--ckpt-dir", "ckpt"], "A10"), (["--auto-parallel"], "A12")])
+@pytest.mark.parametrize("flag,item", [(["--auto-parallel"], "A12")])
 def test_train_flags_not_ported_raise(flag, item):
     args = train.build_parser().parse_args(["--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match=item):
         train.run(args)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
-def test_train_families_not_ported_raise(arch):
-    """A family without a training half says so, naming the queue item,
-    instead of failing with a TypeError at the first step."""
-    args = train.build_parser().parse_args(["--device", "cpu", "--arch", arch, "--steps", "1",
-                                            "--batch", "2", "--seq", "32", "--compression", "int8"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.run(args)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_configs.load(arch, smoke=True).train_input_specs(ShapeCell("train_4k", "train", 32, 2))
 
 
 def test_train_smoke_flag_and_depth():

@@ -1,0 +1,300 @@
+"""Training of the families beside the dense transformer against the
+reference: rwkv6-1.6b, zamba2-1.2b, mixtral-8x22b and dbrx-132b smoke.  The
+loss and every gradient leaf (``value_and_grad`` of the port's harness loss
+vs ``jax.value_and_grad`` of the reference's) on the plain path and on the
+kernel path with each scan and dispatch through its ``autograd.Function``
+(``kernels/_autograd.PlainGradient``, the plain version handed to its
+forward, as the card hands it the kernel); three whole train steps through
+``launch/train.run`` vs the reference's functions; 40 steps lowering the loss
+by more than 0.5, as ``tests/test_e2e.py::test_loss_decreases_rwkv`` asks of
+the reference (whose own 40 steps at batch 8, seq 64 drop zamba2's loss by
+3.62 and mixtral's by 2.52, so the same bound holds for them).
+
+Tolerances, as ``tests/test_torch_train.py``: float32 loss and gradients
+2e-5; bfloat16 loss within 2e-2 of its value, each gradient leaf within 2e-2
+of that leaf's largest |g| or, where the reference's own bf16 gradient lies
+farther from its float32 one (``test_reference_bf16_gradient_noise`` names
+those leaves), twice that distance.  MoE in bf16: one token routed apart
+moves its gradients by O(1), so the MoE cases use a seed and batch (2 x 16)
+whose every routing decision has a margin of more than 4 bf16 ulps
+(``_torch_parity.routing_margins``).
+rwkv6's zero-initialised mixes, decay bias and bonus are drawn
+(``_torch_parity.draw_time_mix``)."""
+
+import contextlib
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as ref_configs
+import repro.data.pipeline as ref_pipeline
+import repro.models.param as ref_param
+from repro.models.api import ShapeCell as RefCell
+from repro.models.layers import Runtime as RefRuntime
+from repro.optim import adamw as RA, compression as RC
+import repro_torch.configs as port_configs
+from repro_torch.kernels import ops
+from repro_torch.kernels._autograd import PlainGradient
+from repro_torch.kernels.moe_dispatch import moe_dispatch_plain
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.launch import train
+from repro_torch.models.api import ShapeCell
+from repro_torch.models.layers import Runtime
+from repro_torch.models.param import tree_leaves, value_and_grad
+
+from _torch_parity import JDT, TDT, carry, draw_time_mix, max_err, one_thread, routing_margins, to_np  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+RRT = RefRuntime(rules=None)
+ARCHS = ["rwkv6-1.6b", "zamba2-1.2b", "mixtral-8x22b", "dbrx-132b"]
+# (weights' seed, batch, seq): the MoE seed routes every token of its batch
+# with a margin of more than 4 bf16 ulps on both paths
+SETUP = {"rwkv6-1.6b": (7, 4, 32), "zamba2-1.2b": (7, 4, 32), "mixtral-8x22b": (5, 2, 16),
+         "dbrx-132b": (5, 2, 16)}
+MIN_MARGIN_ULPS = 4
+
+
+def harnesses(arch, dtype):
+    return (ref_configs.load(arch, smoke=True).clone(dtype=JDT[dtype]),
+            port_configs.load(arch, smoke=True).clone(dtype=TDT[dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def ref_weights(arch):
+    """float32 numpy weights of the reference's draw (rwkv6's zero leaves drawn)."""
+    h, _ = harnesses(arch, "float32")
+    seed = SETUP[arch][0]
+    params = to_np(ref_param.tree_init(h.param_specs(), jax.random.PRNGKey(seed)))
+    if h.family == "ssm":
+        draw_time_mix(params["blocks"]["tm"], params["blocks"]["cm"], np.random.default_rng(seed))
+    return params
+
+
+def batch(arch, step=0):
+    _, B, S = SETUP[arch]
+    cfg = ref_pipeline.DataConfig(global_batch=B, seq_len=S, vocab_size=512, seed=0)
+    raw = ref_pipeline.SyntheticSource(cfg).batch_at(step)
+    return {"tokens": raw[:, :-1], "labels": raw[:, 1:]}
+
+
+@functools.lru_cache(maxsize=None)
+def reference_loss_and_grads(arch, dtype, weights_as=None):
+    """The reference's loss and gradient leaves (numpy) at the arch's batch;
+    ``weights_as`` rounds the weights to that type first."""
+    rh, _ = harnesses(arch, dtype)
+    w = ref_weights(arch)
+    if weights_as is not None:
+        w = to_np(jax.tree.map(lambda a: jnp.asarray(a, JDT[weights_as]), w))
+    params = jax.tree.map(lambda a: jnp.asarray(a, JDT[dtype]), w)
+    loss, grads = jax.jit(jax.value_and_grad(rh.loss(RRT)))(params, jax.tree.map(jnp.asarray, batch(arch)))
+    return float(loss), [to_np(g) for g in jax.tree.leaves(grads)]
+
+
+def reference_bf16_noise(arch):
+    """Per leaf, how far the reference's bf16 gradients lie from its float32
+    gradients of the same (bf16-valued) weights."""
+    _, r16 = reference_loss_and_grads(arch, "bfloat16")
+    _, r32 = reference_loss_and_grads(arch, "float32", weights_as="bfloat16")
+    return [max_err(a, b) for a, b in zip(r16, r32)]
+
+
+@contextlib.contextmanager
+def through_functions():
+    """The kernel path with every scan and dispatch through
+    ``PlainGradient``, its plain version handed to the forward (on the card
+    the kernel's launch).  Yields the number of calls made so far."""
+    calls = [0]
+    saved = ops.rwkv6_scan, ops.ssd_scan, ops.moe_dispatch
+
+    def apply(plain, *inputs):
+        calls[0] += 1
+        return PlainGradient.apply(plain, plain, *inputs)
+
+    ops.rwkv6_scan = lambda r, k, v, w, u, *, chunk=128, s0=None: apply(
+        lambda *t: rwkv6_scan_plain(*t[:5], chunk=chunk, s0=t[5]), r, k, v, w, u, s0)
+    ops.ssd_scan = lambda xh, log_l, Bm, Cm, *, chunk=128, h0=None: apply(
+        lambda *t: ssd_scan_plain(*t[:4], chunk=chunk, h0=t[4]), xh, log_l, Bm, Cm, h0)
+    ops.moe_dispatch = lambda disp, x: apply(moe_dispatch_plain, disp, x)
+    try:
+        yield calls
+    finally:
+        ops.rwkv6_scan, ops.ssd_scan, ops.moe_dispatch = saved
+
+
+def port_loss_and_grads(arch, dtype, path):
+    _, ph = harnesses(arch, dtype)
+    params = carry(ref_weights(arch), TDT[dtype])
+    b = {k: torch.from_numpy(v) for k, v in batch(arch).items()}
+    fn = value_and_grad(ph.loss(Runtime(use_kernels=path == "kernels")))
+    with routing_margins() as margins, through_functions() as calls:
+        loss, grads = fn(params, b)
+    if ph.family == "moe" and dtype == "bfloat16":
+        assert min(margins) > MIN_MARGIN_ULPS, margins
+    # a scan or dispatch a layer, twice under remat (forward and recompute)
+    n_fn = {"ssm": 2 * ph.cfg.n_layers, "hybrid": 2 * ph.cfg.n_layers, "moe": 2 * ph.cfg.n_layers}[ph.family]
+    assert calls[0] == (n_fn if path == "kernels" else 0)
+    return float(loss), tree_leaves(grads)
+
+
+def grad_limits(arch, dtype, ref):
+    """float32: 2e-5.  bfloat16: 2e-2 of the leaf's largest |g|, or twice the
+    reference's own bf16 distance from float32 where that is larger: two
+    bf16 computations may each lie that far from the float32 result, on
+    either side of it."""
+    if dtype == "float32":
+        return [2e-5] * len(ref)
+    noise = reference_bf16_noise(arch)
+    return [max(2e-2 * float(np.abs(a).max()), 2 * n) for a, n in zip(ref, noise)]
+
+
+@pytest.mark.parametrize("path", ["kernels", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_reference(arch, dtype, path):
+    r_loss, r_grads = reference_loss_and_grads(arch, dtype)
+    p_loss, p_grads = port_loss_and_grads(arch, dtype, path)
+    assert abs(p_loss - r_loss) <= (2e-5 if dtype == "float32" else 2e-2 * abs(r_loss))
+    assert len(p_grads) == len(r_grads)
+    for i, (g, a, limit) in enumerate(zip(p_grads, r_grads, grad_limits(arch, dtype, r_grads))):
+        assert g.dtype == TDT[dtype] and tuple(g.shape) == a.shape
+        assert max_err(g, a) <= limit, (i, max_err(g, a), limit)
+
+
+# the leaves where the reference's own bf16 gradient lies beyond 2e-2 of the
+# leaf's largest |g| from its float32 one, at each arch's seed and batch
+NOISY = {
+    "rwkv6-1.6b": {"['blocks']['cm']['mu']", "['blocks']['ln1']['bias']", "['blocks']['ln1']['scale']",
+                   "['blocks']['ln2']['bias']", "['blocks']['ln2']['scale']", "['blocks']['tm']['mu']",
+                   "['final_norm']['scale']", "['ln_in']['bias']", "['ln_in']['scale']"},
+    "mixtral-8x22b": {"['blocks']['attn']['wq']", "['blocks']['moe']['router']"},
+    "dbrx-132b": {"['blocks']['attn']['wq']", "['blocks']['moe']['router']"},
+}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reference_bf16_gradient_noise(arch):
+    """The control of the bf16 limits above.  rwkv6: only the norms' scales
+    and biases and the token-shift mixes, sums over every token, lie beyond
+    2e-2.  MoE: the router's and the queries' gradients.  zamba2: nearly
+    every leaf (the reference rounds each Mamba2 layer's conv, SiLU, gates
+    and, in its scan, ``att`` and the carried state to bf16)."""
+    rh, _ = harnesses(arch, "bfloat16")
+    names = [jax.tree_util.keystr(k) for k, _ in jax.tree_util.tree_flatten_with_path(
+        rh.param_specs(), is_leaf=lambda x: hasattr(x, "logical"))[0]]
+    _, r16 = reference_loss_and_grads(arch, "bfloat16")
+    over = {n for n, a, e in zip(names, r16, reference_bf16_noise(arch)) if e > 2e-2 * float(np.abs(a).max())}
+    if arch == "zamba2-1.2b":
+        assert len(over) >= 0.75 * len(names), sorted(over)
+    else:
+        assert over == NOISY[arch], sorted(over)
+
+
+def test_autograd_functions_change_nothing():
+    """Through the ``autograd.Function``s (plain forward, recomputed plain
+    gradient) the loss and gradients equal autograd through the plain
+    versions directly, bit for bit, on every family's float32 smoke."""
+    for arch in ARCHS[:3]:
+        _, ph = harnesses(arch, "float32")
+        params = carry(ref_weights(arch), torch.float32)
+        b = {k: torch.from_numpy(v) for k, v in batch(arch).items()}
+        fn = value_and_grad(ph.loss(Runtime(use_kernels=True)))
+        direct = fn(params, b)
+        with through_functions():
+            via = fn(params, b)
+        assert torch.equal(direct[0], via[0])
+        for a, c in zip(tree_leaves(direct[1]), tree_leaves(via[1])):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_train_input_specs_match_reference(arch):
+    rh, ph = harnesses(arch, "bfloat16")
+    r = rh.train_input_specs(RefCell("t", "train", 64, 8))
+    p = ph.train_input_specs(ShapeCell("t", "train", 64, 8))
+    assert sorted(p) == sorted(r)
+    for k in r:
+        assert (p[k].shape, p[k].logical, p[k].init) == (r[k].shape, r[k].logical, r[k].init)
+        assert p[k].dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# whole steps through train.run
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def reference_steps(arch, steps, lr=1e-3):
+    """The reference's functions in its train script's order, float32, int8
+    with the residual carried (which that script does not do)."""
+    rh, _ = harnesses(arch, "float32")
+    _, B, S = SETUP[arch]
+    comp = RC.CompressionConfig(mode="int8")
+    opt_cfg = RA.OptConfig(lr=lr, warmup_steps=10, decay_steps=steps)
+    params = jax.tree.map(jnp.asarray, ref_weights(arch))
+    state, residual, out = RA.init_opt_state(params), None, []
+    grad_fn = jax.jit(jax.value_and_grad(rh.loss(RRT)))
+    for step in range(steps):
+        loss, grads = grad_fn(params, jax.tree.map(jnp.asarray, batch(arch, step)))
+        payload, residual = RC.compress_grads(comp, grads, residual)
+        params, state, _ = RA.apply(opt_cfg, params, payload, state)
+        out.append({"loss": float(loss), "grads": [to_np(g) for g in jax.tree.leaves(grads)],
+                    "payload": [to_np(p) for p in jax.tree.leaves(payload)]})
+    return out, [to_np(m) for m in jax.tree.leaves(state["master"])]
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_steps_match_reference(arch, use_kernels):
+    """Three float32 steps from the same weights through ``train.run`` (int8,
+    residual carried) and the reference's functions: step 0's loss and
+    gradients within 2e-5, every step's loss within 1e-4.  The masters
+    after the last step lie within 1e-6 of the reference's at every element
+    whose int8 value was the same on both sides at every step, and within
+    twice the learning rates summed everywhere: where two gradients straddle
+    a rounding boundary the int8 values differ by one, and AdamW's first
+    steps move an element by about lr whatever the size of its gradient."""
+    ref, ref_master = reference_steps(arch, 3)
+    _, ph = harnesses(arch, "float32")
+    _, B, S = SETUP[arch]
+    seen = []
+    params = carry(ref_weights(arch), torch.float32)
+    args = train.build_parser().parse_args(["--device", "cpu", "--steps", "3", "--batch", str(B), "--seq", str(S),
+                                            "--lr", "1e-3", "--compression", "int8"])
+    res = train.run(args, harness=ph, params=params, rt=Runtime(use_kernels=use_kernels),
+                    observe=lambda step, loss, grads, payload, wire: seen.append((grads, tree_leaves(payload))))
+    assert abs(res["losses"][0] - ref[0]["loss"]) <= 2e-5
+    for g, a in zip(tree_leaves(seen[0][0]), ref[0]["grads"]):
+        assert max_err(g, a) <= 2e-5
+    for s in range(3):
+        assert abs(res["losses"][s] - ref[s]["loss"]) <= 1e-4
+    for i, (a, b) in enumerate(zip(ref_master, tree_leaves(params))):
+        d = np.abs(to_np(b) - a)
+        moved_apart = np.zeros(d.shape, bool)
+        for s in range(3):
+            r = ref[s]["payload"][i]
+            moved_apart |= np.abs(to_np(seen[s][1][i]) - r) > 0.5 * np.abs(r).max() / 127
+        # an element straddles with a chance of about |g_port - g_ref| / (its
+        # leaf's int8 step): at most 0.25 % of a leaf here (40 of zamba2's
+        # 16384 shared-attention weights over the three steps); a fault in the
+        # step would move far more
+        assert moved_apart.sum() <= max(4, 1e-2 * d.size)
+        assert (d[~moved_apart] <= 1e-6).all()
+        assert d.max() <= 2 * sum(res["lrs"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b", "mixtral-8x22b"])
+def test_train_lowers_the_loss(arch):
+    """40 steps of the smoke config at lr 1e-3, batch 8, seq 64 (bf16 weights,
+    int8) lower the loss by more than 0.5, on the kernel path (the plain
+    versions on the CPU)."""
+    args = train.build_parser().parse_args(["--arch", arch, "--device", "cpu", "--steps", "40", "--batch", "8",
+                                            "--seq", "64", "--lr", "1e-3", "--compression", "int8"])
+    losses = train.run(args)["losses"]
+    assert len(losses) == 40 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 0.5
