@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's four serving paths through ``repro_torch.launch.serve.run``
+Drives the port's six serving paths through ``repro_torch.launch.serve.run``
 — granite-8b at full width and depth (attention through the flash-attention
 kernel), mixtral-8x22b at full width and 8 of its 56 layers (attention, and
 every MoE layer's dispatch through the moe-dispatch kernel), zamba2-1.2b at
 full width and depth (every Mamba2 layer's prefill scan through the ssd-scan
-kernel, the shared attention block through the flash kernel) and rwkv6-1.6b
+kernel, the shared attention block through the flash kernel), rwkv6-1.6b
 at full width and depth (every layer's prefill scan through the rwkv6-scan
-kernel) — and its training paths through ``repro_torch.launch.train.run``:
+kernel), paligemma-3b at full width and depth with 256 prefix embeddings
+(attention at head_dim 256 through the flash kernel, the prefix
+bidirectional) and whisper-base (6 + 6 layers) over 1536 frames (the
+encoder's and the cross-attention's attention through the flash kernel with
+no mask) — and its training paths through ``repro_torch.launch.train.run``:
 granite-8b at full width and 8 of its 36 layers with int8-compressed
 gradients (attention and its recompute through the flash kernel, every
 gradient leaf's int8 payload through the ccu-reduce kernel), rwkv6-1.6b and
@@ -32,10 +36,13 @@ training shapes.  Phases, one JSON line each:
                 plain version's), with times (CUDA events), the least time
                 the card could take (``bound_ms``) and one library call as a
                 yardstick (``library_ms``; the port never calls it)
-4. ``slice``    granite-8b, mixtral-8x22b, zamba2-1.2b and rwkv6-1.6b smoke
-                configs: kernel path vs plain path, fp32 and bf16
+4. ``slice``    granite-8b, mixtral-8x22b, zamba2-1.2b, rwkv6-1.6b,
+                paligemma-3b and whisper-base smoke configs: kernel path vs
+                plain path, fp32 and bf16
 5. ``serve``    granite-8b (36 layers), then mixtral-8x22b (8 layers), then
-                zamba2-1.2b (38 layers), then rwkv6-1.6b (24 layers), each
+                zamba2-1.2b (38 layers), then rwkv6-1.6b (24 layers), then
+                paligemma-3b (18 layers, 256 prefix embeddings), then
+                whisper-base (6 + 6 layers, 1536 frames, prompt 64), each
                 after the last one's weights are released, bf16, batch 4,
                 prompt 512, 16 tokens, greedy; each batch again through the
                 plain path, logits and ids compared; each path's kernel
@@ -92,6 +99,11 @@ SERVE = dict(arch="granite-8b", batch=4, prompt_len=512, gen=16, seed=0)
 MIXTRAL = dict(SERVE, arch="mixtral-8x22b", n_layers=8)
 ZAMBA = dict(SERVE, arch="zamba2-1.2b")
 RWKV = dict(SERVE, arch="rwkv6-1.6b")
+# paligemma-3b (head_dim 256, one KV head) at full width and depth with its
+# 256 prefix embeddings drawn from the seed; whisper-base (6 + 6 layers) with
+# its 1536 frames drawn from the seed and a prompt of 64
+PALIGEMMA = dict(SERVE, arch="paligemma-3b")
+WHISPER = dict(SERVE, arch="whisper-base", prompt_len=64)
 # The training path: granite-8b at full width and 8 of its 36 layers (the
 # training state is 20 bytes a parameter, 42.95 GB at 8 layers, 162 GB at 36),
 # the reference train script's batch, sequence and int8 compression.
@@ -242,7 +254,7 @@ def _flash_cases():
                dict(causal=False), dict(causal=True, window=32, prefix_len=16)]:
         for dt in (f32, bf16):
             cases.append((2, 2, 2, 256, 256, 64, dt, kw))
-    for D in (32, 64, 128):
+    for D in (32, 64, 128, 256):
         for dt in (f32, bf16):
             # ragged prefill, ragged continuation at q_start, sliding window at q_start
             cases.append((2, 2, 3, 100, 100, D, dt, dict(causal=True)))
@@ -253,6 +265,15 @@ def _flash_cases():
             cases.append((3, 2, 4, 1, 200, D, dt, dict(causal=True, q_start=199)))
             cases.append((2, 1, 9, 1, 131, D, dt, dict(causal=True, window=64, q_start=130)))
             cases.append((2, 2, 1, 1, 97, D, dt, dict(causal=True, window=16, prefix_len=8, q_start=96)))
+    for dt in (f32, bf16):
+        # head_dim 256: a prefix crossing key tiles (prefill and decode), no
+        # mask with Sq != Sk both ways, and a decode whose 256 kv heads leave
+        # each split several tiles (fp32's ring has one stage at this width)
+        cases.append((2, 1, 8, 100, 100, 256, dt, dict(causal=True, prefix_len=70)))
+        cases.append((1, 1, 8, 1, 300, 256, dt, dict(causal=True, prefix_len=100, q_start=299)))
+        cases.append((2, 2, 1, 64, 333, 256, dt, dict(causal=False)))
+        cases.append((2, 2, 3, 130, 40, 256, dt, dict(causal=False)))
+        cases.append((8, 32, 2, 1, 1000, 256, dt, dict(causal=True, q_start=999)))
     return cases
 
 
@@ -300,14 +321,20 @@ def _flash_main_shape(q, k, v, kw, where: str) -> dict:
 
     if kw.get("window") is not None and kw["window"] < k.shape[1]:
         raise SystemExit(f"the library yardstick at the {where} shape has no window mask")
+    mask = None
+    if kw.get("prefix_len", 0) > 0:
+        from repro_torch.kernels.flash_attention import visible
+        mask = visible(q.shape[1], k.shape[1], causal=kw.get("causal", True), window=None,
+                       prefix_len=kw["prefix_len"], q_start=kw.get("q_start", 0), device=q.device)
 
     def library():
         # prefill from position 0 is causal from the top left; a row at the
-        # cache's last position sees every key: no mask needed (a window, as
-        # mixtral's 4096, covers every key at these shapes)
+        # cache's last position sees every key, as does every row without a
+        # causal mask: no mask needed (a window, as mixtral's 4096, covers
+        # every key at these shapes); a bidirectional prefix takes the mask
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=(q.shape[1] > 1), enable_gqa=True,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=mask is None and kw.get("causal", True) and q.shape[1] > 1, enable_gqa=True,
         ).transpose(1, 2)
 
     o = ops.flash_attention_bsnd(q, k, v, **kw)
@@ -426,6 +453,7 @@ def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes:
 
 
 def _flash_row(gen) -> dict:
+    from repro_torch.configs import load
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.ref import attention_ref
 
@@ -467,12 +495,41 @@ def _flash_row(gen) -> dict:
         rows[path + "decode"] = _flash_main_shape(q_decode, ck[:, :decode_at + 1], cv[:, :decode_at + 1],
                                                   dict(causal=True, window=window, q_start=decode_at),
                                                   path + "decode")
+    # paligemma-3b: 8 heads on one KV head of 256 (G = 8), its 256 prefix
+    # embeddings before the prompt, every key of the prefix seen by every row;
+    # decoding at P + S + gen - 2 (the last step), the prefix behind the causal mask
+    P, N, K, D = load("paligemma-3b").prefix_tokens, 8, 1, 256
+    s_pali = P + S + PALIGEMMA["gen"] + 8
+    q_prefill, ck, cv = _qkv(gen, (B, P + S, N, D), (B, s_pali, K, D), dt)
+    rows["paligemma_prefill"] = _flash_main_shape(q_prefill, ck[:, :P + S], cv[:, :P + S],
+                                                  dict(causal=True, prefix_len=P, q_start=0), "paligemma prefill")
+    at = P + S + PALIGEMMA["gen"] - 2
+    rows["paligemma_decode"] = _flash_main_shape(_rand(gen, (B, 1, N, D), dt, 2.0), ck[:, :at + 1], cv[:, :at + 1],
+                                                 dict(causal=True, q_start=at), "paligemma decode")
+    # whisper-base: 8 heads of 64 (G = 1) over its 1536 frames, no mask: the
+    # encoder (every frame sees every frame), the decoder's cross-attention
+    # from the prompt's 64 rows and from a decode step's one
+    T, S_w, N, D = load("whisper-base").cfg.n_frames, WHISPER["prompt_len"], 8, 64
+    q_enc, k_enc, v_enc = _qkv(gen, (B, T, N, D), (B, T, N, D), dt)
+    no_mask = dict(causal=False, q_start=0)
+    rows["whisper_encoder"] = _flash_main_shape(q_enc, k_enc, v_enc, no_mask, "whisper encoder")
+    rows["whisper_cross_prefill"] = _flash_main_shape(_rand(gen, (B, S_w, N, D), dt, 2.0), k_enc, v_enc, no_mask,
+                                                      "whisper cross-attention prefill")
+    rows["whisper_cross_decode"] = _flash_main_shape(_rand(gen, (B, 1, N, D), dt, 2.0), k_enc, v_enc, no_mask,
+                                                     "whisper cross-attention decode")
     # granite-8b's training step: the whole sequence's q, k, v from the
     # projections, every layer's attention under autograd
     N, K, D = 32, 8, 128
     q, k, v = _qkv(gen, (TRAIN["batch"], TRAIN["seq"], N, D), (TRAIN["batch"], TRAIN["seq"], K, D), dt)
     rows["train"] = _flash_main_shape(q, k, v, dict(causal=True, q_start=0), "train")
     rows["train"]["gradients"] = _flash_gradients(gen, q, k, v, dict(causal=True, q_start=0))
+    # paligemma-3b's training shape: batch 8, its 256 prefix embeddings and
+    # 256 tokens, q (8, 1, 8, 512, 256) folded, under autograd
+    N, K, D = 8, 1, 256
+    q, k, v = _qkv(gen, (TRAIN["batch"], P + TRAIN["seq"], N, D), (TRAIN["batch"], P + TRAIN["seq"], K, D), dt)
+    kw = dict(causal=True, prefix_len=P, q_start=0)
+    rows["paligemma_train"] = _flash_main_shape(q, k, v, kw, "paligemma train")
+    rows["paligemma_train"]["gradients"] = _flash_gradients(gen, q, k, v, kw)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -485,7 +542,13 @@ def _flash_row(gen) -> dict:
         "mixtral_decode": rows["mixtral_decode"],
         "zamba2_prefill": rows["zamba2_prefill"],
         "zamba2_decode": rows["zamba2_decode"],
+        "paligemma_prefill": rows["paligemma_prefill"],
+        "paligemma_decode": rows["paligemma_decode"],
+        "whisper_encoder": rows["whisper_encoder"],
+        "whisper_cross_prefill": rows["whisper_cross_prefill"],
+        "whisper_cross_decode": rows["whisper_cross_decode"],
         "train": rows["train"],
+        "paligemma_train": rows["paligemma_train"],
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -1085,8 +1148,14 @@ def _expected_launches(harness, gen: int) -> dict[str, int]:
     the plain recurrence) and its shared attention block through the flash
     kernel at each of its calls, in prefill and every decode step.  An
     RWKV-6 model's layers go through the RWKV-6 scan kernel in prefill only
-    and launch nothing else."""
+    and launch nothing else.  An encoder-decoder's attention goes through the
+    flash kernel three times a layer in prefill (the encoder's, the
+    decoder's self- and cross-attention) and twice a decoder layer in each
+    decode step."""
     cfg = harness.cfg
+    if harness.family == "audio":
+        return {"flash_attention": 3 * cfg.n_layers + 2 * cfg.n_layers * (gen - 1), "moe_dispatch": 0,
+                "ssd_scan": 0, "rwkv6_scan": 0, "ccu_reduce": 0}
     if harness.family == "ssm":
         return {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": cfg.n_layers,
                 "ccu_reduce": 0}
@@ -1178,7 +1247,7 @@ def _moved_prompt(seed: int):
         layers.embed = embed
 
 
-def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[str, int], dict]:
+def _kernel_vs_plain(args, harness, params, dt, where: str, inputs=None) -> tuple[dict, dict[str, int], dict]:
     """One batch through the kernel path (use_kernels=True), every launch
     count set to 0 just before and read just after, then the same batch and
     weights through the plain path (sdpa + mask bias, the dispatch einsum,
@@ -1220,7 +1289,7 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
     cfg = harness.cfg
     kernels.reset_launch_counts()
     with _routing() as kern_calls:
-        res = serve.run(args, harness=harness, params=params)
+        res = serve.run(args, harness=harness, params=params, inputs=inputs)
     counts = kernels.launch_counts()
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if counts != _expected_launches(harness, args.gen):
@@ -1230,7 +1299,7 @@ def _kernel_vs_plain(args, harness, params, dt, where: str) -> tuple[dict, dict[
     def plain_run() -> tuple[dict, list]:
         kernels.reset_launch_counts()
         with _routing(replay=kern_calls) as plain_calls:
-            ref = serve.run(args, harness=harness, params=params, rt=Runtime(use_kernels=False))
+            ref = serve.run(args, harness=harness, params=params, rt=Runtime(use_kernels=False), inputs=inputs)
         if any(kernels.launch_counts().values()):
             raise SystemExit(f"{where}: the plain path launched {kernels.launch_counts()}")
         return ref, plain_calls
@@ -1495,7 +1564,9 @@ def phase_slice() -> None:
     of 128 and rwkv6's four of 16, so the scans carry their states across
     chunk boundaries (and the plain twins' whole-chunk assertions hold).
     rwkv6's zero-initialised mixes, decay bias and bonus are drawn
-    (``_draw_time_mix``)."""
+    (``_draw_time_mix``).  paligemma's smoke config is served with its 8
+    prefix embeddings and whisper's with its 24 frames, drawn
+    (``serve.stub_inputs``)."""
     from repro_torch.configs import load
     from repro_torch.launch import serve
     from repro_torch.models.param import tree_init
@@ -1504,7 +1575,9 @@ def phase_slice() -> None:
     for arch, argv in (("granite-8b", ["--prompt-len", "24", "--gen", "5", "--batch", "2"]),
                        ("mixtral-8x22b", ["--prompt-len", "80", "--gen", "5", "--batch", "2"]),
                        ("zamba2-1.2b", ["--prompt-len", "256", "--gen", "5", "--batch", "2"]),
-                       ("rwkv6-1.6b", ["--prompt-len", "64", "--gen", "5", "--batch", "2"])):
+                       ("rwkv6-1.6b", ["--prompt-len", "64", "--gen", "5", "--batch", "2"]),
+                       ("paligemma-3b", ["--prompt-len", "24", "--gen", "5", "--batch", "2"]),
+                       ("whisper-base", ["--prompt-len", "24", "--gen", "5", "--batch", "2"])):
         args = serve.build_parser().parse_args(["--arch", arch, *argv])
         out = {}
         for dt in (torch.float32, torch.bfloat16):
@@ -1512,7 +1585,9 @@ def phase_slice() -> None:
             params = tree_init(h.param_specs(), torch.Generator(device="cuda").manual_seed(1), dt, "cuda")
             _draw_time_mix(h, params, 2)
             name = str(dt).split(".")[-1]
-            _, _, out[name] = _kernel_vs_plain(args, h, params, dt, f"slice check {arch} {name}")
+            # the smoke configs' own stub sizes: paligemma's 8 patches, whisper's 24 frames
+            inputs = {k: t.to(dt) for k, t in serve.stub_inputs(h, args.batch, 3, "cuda").items()}
+            _, _, out[name] = _kernel_vs_plain(args, h, params, dt, f"slice check {arch} {name}", inputs=inputs)
         emit("slice", config=f"{arch} smoke", batch=args.batch, prompt_len=args.prompt_len,
              gen=args.gen, window=getattr(h.cfg, "window", None), **out)
 
@@ -1543,7 +1618,9 @@ def _serve_path(spec: dict) -> dict[str, int]:
     params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
     _draw_time_mix(harness, params, spec["seed"] + 1)
-    res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}")
+    inputs = serve.stub_inputs(harness, args.batch, spec["seed"] + 2, "cuda")
+    res, counts, vs_plain = _kernel_vs_plain(args, harness, params, torch.bfloat16, f"serve {args.arch}",
+                                             inputs=inputs)
     tok, lg = res["tokens"], res["logits"]
     if tok.shape != (args.batch, args.gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise SystemExit(f"serve {args.arch}: bad token ids, shape {tok.shape}")
@@ -1553,7 +1630,7 @@ def _serve_path(spec: dict) -> dict[str, int]:
          params=param_count(harness.param_specs()), batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
          prefill_ms=res["prefill_s"] * 1e3, decode_ms_per_token=res["decode_s_per_token"] * 1e3,
          peak_memory_gb=res["peak_memory_gb"], launches=counts, first_row=tok[0].tolist(),
-         vs_plain_path=vs_plain)
+         inputs={k: list(t.shape) for k, t in inputs.items()}, vs_plain_path=vs_plain)
     return counts
 
 
@@ -1933,10 +2010,10 @@ def phase_train() -> dict[str, dict[str, int]]:
 
 
 def phase_serve() -> dict[str, dict[str, int]]:
-    """granite-8b, then mixtral-8x22b, then zamba2-1.2b, then rwkv6-1.6b;
-    each path's weights are released when it returns.  Returns each path's
-    launch counts."""
-    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA, RWKV)}
+    """granite-8b, then mixtral-8x22b, then zamba2-1.2b, then rwkv6-1.6b,
+    then paligemma-3b, then whisper-base; each path's weights are released
+    when it returns.  Returns each path's launch counts."""
+    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA, RWKV, PALIGEMMA, WHISPER)}
 
 
 def main() -> int:

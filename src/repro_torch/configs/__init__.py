@@ -1,8 +1,7 @@
 """Architecture registry — port of ``repro/configs/__init__.py``.
 
-``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists the
-architectures ported so far (the four dense decoder-only ones, the zamba2
-hybrid, rwkv6 and the two MoE ones), in the reference's order.
+``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists all
+ten assigned architectures, in the reference's order.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ ARCH_IDS = [
     "rwkv6_1_6b",
     "mixtral_8x22b",
     "dbrx_132b",
+    "whisper_base",
+    "paligemma_3b",
 ]
 
 # pool ids use dashes
@@ -27,6 +28,6 @@ CANONICAL = {a.replace("_", "-"): a for a in ARCH_IDS}
 def load(arch_id: str, smoke: bool = False):
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
-        raise ValueError(f"arch {arch_id!r} is not ported yet; ported: {sorted(CANONICAL)}")
+        raise ValueError(f"unknown arch {arch_id!r}; known: {sorted(CANONICAL)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.get_harness(smoke=smoke)

@@ -22,9 +22,9 @@
 //    rows), so the model's (B, S, heads, Dh) layout and KV-cache slices are
 //    read in place.
 //
-// What bounds it: at every main-path shape (granite-8b, mixtral-8x22b and
-// zamba2-1.2b prefill and decode, granite-8b's training step) the function is
-// bound by bytes (q, k, v read once, o written once) on this card.  At
+// What bounds it: at every main-path shape (granite-8b, mixtral-8x22b,
+// zamba2-1.2b, paligemma-3b and whisper-base prefill and decode, granite-8b's
+// training step) the function is bound by bytes (q, k, v read once, o written once) on this card.  At
 // prefill the operations are level with them: with P split in two (below)
 // the granite-8b prompt's visible (query, key) pairs need about 12.9 GFLOP,
 // about as long at the published bf16 peak as its bytes take at the memory
@@ -49,7 +49,13 @@
 //     version.  Per tile: start S of the next tile and O += P.V of this one,
 //     then the next tile's softmax runs while O's product is on the tensor
 //     cores.  The output is staged through shared memory and written as
-//     16-byte rows.
+//     16-byte rows.  At head_dim 256 (paligemma-3b) a block has two
+//     warpgroups, each owning 128 of the output's columns: O alone would be
+//     128 fp32 registers a thread in one warpgroup.  Each warpgroup computes
+//     the same S and softmax of the block's rows itself (a third more
+//     tensor-core work than sharing P through shared memory, and no barrier
+//     between them beyond the ring's); the ring's three stages of 64 x 256
+//     K and V take 192 KB, so one block runs on an SM.
 //  2. Folded rows G*Sq <= 16 (a decode step), bf16 and fp32:
 //     `flash_decode_kernel` + `flash_combine_kernel`.  The keys are split
 //     across blocks, grid (B*K, splits), the split count chosen by the caller
@@ -57,7 +63,8 @@
 //     range of 64-key tiles (a cp.async ring; K and V in their own type in
 //     shared memory, not widened) with fp32 SIMT arithmetic (16 rows would
 //     leave an m64 tile mostly empty, and the work is bound by bytes) and
-//     writes fp32 partials (acc, m, l) to a workspace from the caller.  The
+//     writes fp32 partials (acc, m, l) to a workspace from the caller (fp32
+//     at head_dim 256 has room for one stage of the ring only).  The
 //     combine kernel sums the splits in a fixed order with no atomics, so two
 //     calls give the same bits.
 //  3. fp32, folded rows > 16 (smoke sizes and tests, on no full-width path):
@@ -200,7 +207,6 @@ __device__ inline void load_wide(const T* p, float* out) {
 
 namespace tc {
 
-constexpr int NTHREADS = 128;          // one warpgroup: warp w owns rows 16 w .. 16 w + 15
 constexpr int BM = 64;                 // folded rows in a block (wgmma m64)
 constexpr int KN = BN;                 // keys in a tile
 constexpr int STAGES = 3;              // the K/V ring
@@ -212,12 +218,23 @@ struct Layout {
   // byte (c / 8) * R * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16.  D = 32 is
   // padded with zeros to one whole 128-byte block.
   static constexpr int DP = D < 64 ? 64 : D;
+  // Warpgroups a block: each owns DW of the output's columns and computes
+  // the scores and the softmax of the block's 64 rows itself (the same
+  // values in each).  One up to D = 128; at D = 256 two, so that a thread
+  // keeps 64 fp32 accumulators of O (one warpgroup would need 128 beside
+  // the scores and both P fragments, past the 255 registers a thread has).
+  static constexpr int NWG = DP > 128 ? 2 : 1;
+  static constexpr int NTHREADS = 128 * NWG;
+  static constexpr int DW = DP / NWG;
   static constexpr int QBYTES = BM * DP * 2;
   static constexpr int KVBYTES = KN * DP * 2;          // a K or a V tile
   static constexpr int LDO = D + 8;                    // the output's staging rows
   // Q, the ring of (K, V) tiles, each row's bounds; the tiles start 1024-aligned
   static constexpr int SMEM_BYTES = QBYTES + STAGES * 2 * KVBYTES + BM * 8;
-  static_assert(2 * (SMEM_BYTES + 1024) <= 233472, "two blocks an SM");
+  // two blocks an SM up to D = 128; at D = 256 the ring alone is 192 KB: one
+  static constexpr int MIN_BLOCKS = DP > 128 ? 1 : 2;
+  static_assert(MIN_BLOCKS * (SMEM_BYTES + 1024) <= 233472, "blocks an SM");
+  static_assert(BM * LDO * 2 <= STAGES * 2 * KVBYTES, "the output is staged in the K/V ring");
 };
 
 __device__ inline int swizzled(int r, int c, int rows) {
@@ -229,8 +246,10 @@ __device__ inline int swizzled(int r, int c, int rows) {
 template <int D, int ROWS, typename RowPtr>
 __device__ inline void load_tile_async(unsigned char* dst, RowPtr row_ptr, const bf16* any, int tid) {
   constexpr int CH = Layout<D>::DP / 8;
+  constexpr int NT = Layout<D>::NTHREADS;
+  static_assert(ROWS * CH % NT == 0, "whole rounds of 16-byte chunks");
 #pragma unroll
-  for (int c0 = 0; c0 < ROWS * CH; c0 += NTHREADS) {
+  for (int c0 = 0; c0 < ROWS * CH; c0 += NT) {
     const int c = c0 + tid;
     const int r = c / CH;
     const int ch = c % CH;
@@ -315,10 +334,12 @@ __device__ inline void split(float x0, float x1, unsigned& hi, unsigned& lo) {
 // The A fragment from registers of a k16 step is the mma.m16n8k16 one, so the
 // probabilities go from the score accumulators to A fragments in place.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_tc_kernel(const Params p) {
+__global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) flash_fwd_tc_kernel(const Params p) {
   using L = Layout<D>;
   constexpr int DP = L::DP;
-  constexpr int NO = DP / 8;            // n tiles of the output
+  constexpr int DW = L::DW;             // the warpgroup's output columns
+  constexpr int NO = DW / 8;            // ... in n tiles of 8
+  constexpr int NT = L::NTHREADS;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* Qs = smem_raw;
@@ -326,7 +347,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_tc_kernel(const Params 
   int2* bounds = reinterpret_cast<int2*>(KV + STAGES * 2 * L::KVBYTES);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;             // warpgroup: output columns wg * DW ..
+  const int warp = tid / 32 % 4;        // warp of the warpgroup: rows 16 warp ..
   const int lane = tid % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -376,7 +398,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_tc_kernel(const Params 
   // each row's visible keys, [lo, hi] (besides the prefix): the mask of a
   // tile the causal / window test cuts is then two compares an element
   const int prefix = min(p.prefix_len, p.Sk);
-  for (int r = tid; r < BM; r += NTHREADS) {
+  for (int r = tid; r < BM; r += NT) {
     const int qpos = p.q_start + (r0 + r) / p.G;
     bounds[r] = make_int2(p.window >= 0 ? qpos - p.window + 1 : 0,
                           p.causal ? min(qpos, p.Sk - 1) : p.Sk - 1);
@@ -489,14 +511,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_tc_kernel(const Params 
     // started at the last tile too (on a stage no load is writing, its scores
     // unused): a wgmma under a branch makes ptxas serialise every wgmma
     start_scores(s, (stage + 1) % 3);
-    const unsigned char* Vs = KV + stage * 2 * L::KVBYTES + L::KVBYTES;
+    // the warpgroup's columns start at 128-byte column block wg * DW / 64
+    const unsigned char* Vs = KV + stage * 2 * L::KVBYTES + L::KVBYTES + wg * (DW / 64) * KN * 128;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       // keys 16kk..: two groups of 8 rows, 1024 bytes each; 128-byte column blocks KN * 128 apart
       const uint64_t vd = descriptor(Vs + kk * 2048, KN * 128, 1024);
-      wgmma_rs<DP>(o, hi[kk], vd);
-      wgmma_rs<DP>(o, lo[kk], vd);
+      wgmma_rs<DW>(o, hi[kk], vd);
+      wgmma_rs<DW>(o, lo[kk], vd);
     }
     wgmma_commit();
     wgmma_wait<1>();                     // S(jn)
@@ -522,26 +545,27 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_tc_kernel(const Params 
   __syncthreads();                       // the K/V ring is reused for the output
 
   // ---- out = acc / max(l, 1e-20), staged through shared memory ----------------
-  bf16* Os = reinterpret_cast<bf16*>(KV) + warp * 16 * L::LDO;
+  bf16* Os = reinterpret_cast<bf16*>(KV) + warp * 16 * L::LDO + wg * DW;
   // one division a row: o * (1 / l) lies within an fp32 ulp of o / l
   const float inv0 = 1.f / fmaxf(l[0], 1e-20f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-20f);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < (D < DW ? D : DW) / 8; ++n) {
     *reinterpret_cast<unsigned*>(Os + g * L::LDO + n * 8 + 2 * t) = pack(o[4 * n] * inv0, o[4 * n + 1] * inv0);
     *reinterpret_cast<unsigned*>(Os + (g + 8) * L::LDO + n * 8 + 2 * t) =
         pack(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
-  __syncwarp();
+  __syncthreads();                       // a row's columns come from every warpgroup
+  const bf16* Ob = reinterpret_cast<const bf16*>(KV);
 #pragma unroll
-  for (int c0 = 0; c0 < 16 * (D / 8); c0 += 32) {
-    const int c = c0 + lane;
+  for (int c0 = 0; c0 < BM * (D / 8); c0 += NT) {
+    const int c = c0 + tid;
     const int r = c / (D / 8);
     const int d = (c % (D / 8)) * 8;
-    const int rg = r0 + warp * 16 + r;
+    const int rg = r0 + r;
     if (rg < R)
       *reinterpret_cast<uint4*>(ob + (long long)(rg / p.G) * p.o_ss + (long long)(rg % p.G) * p.o_sg + d) =
-          *reinterpret_cast<const uint4*>(Os + r * L::LDO + d);
+          *reinterpret_cast<const uint4*>(Ob + r * L::LDO + d);
   }
 }
 
@@ -553,7 +577,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
                                          L::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.G * p.Sq + BM - 1) / BM, p.B * p.K);
-  kernel<<<grid, NTHREADS, L::SMEM_BYTES, stream>>>(p);
+  kernel<<<grid, L::NTHREADS, L::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -580,6 +604,11 @@ struct Layout {
   static constexpr int smem_bytes(int stages) {
     return (MAX_ROWS * D + NWARPS * RPW * BN) * 4 + stages * 2 * TILE * static_cast<int>(sizeof(T));
   }
+  // the ring's stages when a split walks several tiles: two where they fit a
+  // block's 227 KB (fp32 at D = 256 takes 280 KB with two), else one, and
+  // then the next tile's load waits for this tile's products
+  static constexpr int STAGES = smem_bytes(2) <= 232448 ? 2 : 1;
+  static_assert(smem_bytes(STAGES) <= 232448, "one stage fits");
 };
 
 // Partials: part[((bk * splits + split) * R + r) * (D + 2) + {0..D-1: acc, D: m, D+1: l}]
@@ -639,12 +668,16 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p, 
   int stage = 0;
   while (j < j_end) {
     const int jn = f.next(j + 1, j_end);
-    if (jn < j_end) {
-      T* Kn = KV + (stage ^ 1) * 2 * L::TILE;
-      load_kv_async<T, D, LD, NTHREADS>(Kn, Kn + L::TILE, kb, vb, p, jn * BN, tid);
+    if constexpr (L::STAGES == 2) {
+      if (jn < j_end) {
+        T* Kn = KV + (stage ^ 1) * 2 * L::TILE;
+        load_kv_async<T, D, LD, NTHREADS>(Kn, Kn + L::TILE, kb, vb, p, jn * BN, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    cp_async_commit();
-    cp_async_wait<1>();
     __syncthreads();
     if (nr > 0) {                        // uniform across the warp
       const T* Ks = KV + stage * 2 * L::TILE;
@@ -724,7 +757,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p, 
       }
     }
     __syncthreads();                     // before the next load overwrites this stage
-    stage ^= 1;
+    if constexpr (L::STAGES == 2) {
+      stage ^= 1;
+    } else {
+      if (jn < j_end) load_kv_async<T, D, LD, NTHREADS>(KV, KV + L::TILE, kb, vb, p, jn * BN, tid);
+      cp_async_commit();
+    }
     j = jn;
   }
   cp_async_wait<0>();
@@ -809,11 +847,11 @@ cudaError_t launch(const Params& p, float* part, int splits, cudaStream_t stream
   using L = Layout<T, D>;
   auto kernel = flash_decode_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::smem_bytes(2));
+                                         L::smem_bytes(L::STAGES));
   if (err != cudaSuccess) return err;
   const int n_tiles = (p.Sk + BN - 1) / BN;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  kernel<<<dim3(p.B * p.K, splits), NTHREADS, L::smem_bytes(tiles_per_split > 1 ? 2 : 1), stream>>>(
+  kernel<<<dim3(p.B * p.K, splits), NTHREADS, L::smem_bytes(tiles_per_split > 1 ? L::STAGES : 1), stream>>>(
       p, part, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1107,6 +1145,7 @@ extern "C" int flash_attention_fwd(
     case 32: err = launch_dim<32>(p, dtype, work, splits, s); break;
     case 64: err = launch_dim<64>(p, dtype, work, splits, s); break;
     case 128: err = launch_dim<128>(p, dtype, work, splits, s); break;
+    case 256: err = launch_dim<256>(p, dtype, work, splits, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

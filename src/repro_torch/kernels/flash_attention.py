@@ -48,7 +48,7 @@ from . import _build
 from ._autograd import PlainGradient
 
 NEG_INF = -1e30          # the kernel's finite mask fill (reference: NEG_INF)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_ROWS = 16         # folded rows G * Sq up to which the decode kernels run
 KEY_TILE = 64            # keys in a kernel's tile

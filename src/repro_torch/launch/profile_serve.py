@@ -13,6 +13,10 @@ widths unchanged, for an arch whose full depth does not fit one card::
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x22b \\
         --no-smoke --n-layers 8 --batch 4 --prompt-len 512 --gen 16
 
+Paligemma is served with its ``prefix_tokens`` prefix embeddings and
+whisper with its ``n_frames`` frames drawn from the seed (standard normal,
+bf16, ``serve.stub_inputs``), as ``chip_smoke.py`` serves them.
+
 The device's idle share is 1 - (summed kernel time / wall time) of
 the profiled run's prefill and decode; the profiler's own cost on the host is
 inside that wall time, so the unprofiled run's times are printed beside it.
@@ -46,10 +50,11 @@ def main(argv: list[str] | None = None) -> None:
         harness = harness.clone(n_layers=args.n_layers)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = tree_init(harness.param_specs(), gen, torch.bfloat16, args.device)
-    serve.run(args, harness=harness, params=params)   # warm-up: builds, library set-up
-    plain = serve.run(args, harness=harness, params=params)
+    inputs = serve.stub_inputs(harness, args.batch, args.seed + 2, args.device)
+    serve.run(args, harness=harness, params=params, inputs=inputs)   # warm-up: builds, library set-up
+    plain = serve.run(args, harness=harness, params=params, inputs=inputs)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced = serve.run(args, harness=harness, params=params)
+        traced = serve.run(args, harness=harness, params=params, inputs=inputs)
 
     # device-side events only: a host operator's row repeats its kernels' time
     rows = [
@@ -70,6 +75,7 @@ def main(argv: list[str] | None = None) -> None:
         "card": smi,
         "arch": args.arch, "smoke": args.smoke, "n_layers": harness.cfg.n_layers, "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
+        "inputs": {k: list(t.shape) for k, t in inputs.items()},
         "unprofiled": {"prefill_ms": plain["prefill_s"] * 1e3,
                        "decode_ms_per_token": plain["decode_s_per_token"] * 1e3},
         "profiled": {"prefill_ms": traced["prefill_s"] * 1e3,

@@ -1,10 +1,14 @@
 """Batched serving: prefill + decode (KV cache, the recurrent state of rwkv6,
-or recurrent state and the shared block's cache for zamba2) over the model
-harness — port of
+recurrent state and the shared block's cache for zamba2, or the decoder's
+cache and the encoder's output for whisper) over the model harness — port of
 ``main`` in ``repro/launch/serve.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --batch 4 --prompt-len 32 --gen 16        # --no-smoke for full
+
+As the reference's ``main`` does, the audio family (whisper-base) is prefilled
+with zero frames ``(batch, n_frames, d_model)`` and paligemma with no prefix;
+``run(..., inputs=...)`` gives either drawn frames or a prefix instead.
 
 Same flags as the reference plus ``--device`` (default ``cuda``).  With
 ``--device cuda`` and no card it raises; it never carries on on the CPU.
@@ -44,19 +48,36 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def stub_inputs(harness, batch: int, seed: int, device) -> dict:
+    """The stub frontends' outputs drawn from ``seed`` (standard normal,
+    bf16), for ``run(..., inputs=...)``: paligemma's ``prefix_tokens`` patch
+    embeddings or whisper's ``n_frames`` frame embeddings; none for the
+    other families."""
+    key, n = {"vlm": ("prefix_embeds", getattr(harness, "prefix_tokens", 0)),
+              "audio": ("frames", getattr(harness.cfg, "n_frames", 0))}.get(harness.family, (None, 0))
+    if key is None:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {key: torch.randn((batch, n, harness.cfg.d_model), generator=gen, device=device).to(torch.bfloat16)}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def run(args: argparse.Namespace, *, harness=None, params=None, rt=None) -> dict:
+def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, inputs=None) -> dict:
     """Serve one batch: make weights and the KV cache, prefill the prompts,
     decode ``args.gen - 1`` further tokens.
 
     ``harness`` and ``params`` replace the loaded config and the drawn weights
     (the parity tests carry the reference's weights across that way); ``rt``
     replaces the default runtime.  The prompts are drawn with numpy from
-    ``args.seed`` exactly as the reference draws them.
+    ``args.seed`` exactly as the reference draws them.  ``inputs`` gives the
+    stub frontend's output in place of the reference's: ``{"frames": (batch,
+    n_frames, d_model)}`` for the audio family (else zeros), or
+    ``{"prefix_embeds": (batch, P, d_model)}`` for a transformer (else no
+    prefix; with one the decode positions start at ``P + prompt_len``).
 
     Returns the generated ids ``(batch, gen)``, the logits each was chosen
     from ``(batch, gen, vocab)`` float32, the prefill and per-token decode
@@ -93,6 +114,19 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None) -> dict
     prompts = torch.from_numpy(
         rng.integers(0, vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
     ).to(device)
+    inputs = dict(inputs or {})
+    allowed = {"audio": {"frames"}, "ssm": set(), "hybrid": set()}.get(harness.family, {"prefix_embeds"})
+    if not set(inputs) <= allowed:
+        raise ValueError(f"{args.arch} ({harness.family}) takes inputs {sorted(allowed)}, got {sorted(inputs)}")
+    if harness.family == "audio":
+        frames = inputs.get("frames")
+        if frames is None:
+            frames = torch.zeros((args.batch, cfg.n_frames, cfg.d_model), dtype=torch.bfloat16, device=device)
+        extra = (frames,)
+    else:
+        extra = ()
+    prefix = inputs.get("prefix_embeds")
+    offset = 0 if prefix is None else prefix.shape[1]
 
     def sample(logits):
         lg = logits[:, -1, :vocab].float()
@@ -105,7 +139,10 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None) -> dict
     with torch.no_grad():
         _sync(device)
         t0 = time.perf_counter()
-        logits, state = prefill(params, state, prompts)
+        if prefix is None:
+            logits, state = prefill(params, state, *extra, prompts)
+        else:
+            logits, state = prefill(params, state, prompts, prefix)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -113,7 +150,7 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None) -> dict
         out_logits, out_tokens = [lg], [tok]
         t1 = time.perf_counter()
         for i in range(args.gen - 1):
-            logits, state = decode(params, state, tok[:, None], args.prompt_len + i)
+            logits, state = decode(params, state, tok[:, None], offset + args.prompt_len + i)
             lg, tok = sample(logits)
             out_logits.append(lg)
             out_tokens.append(tok)

@@ -12,8 +12,10 @@ on the CPU), ``--n-layers`` (the config at that depth, widths unchanged: at 8
 of its 36 layers granite-8b's training state of 20 bytes a parameter, 42.95
 GB, fits one 80 GB card) and ``--seed`` (the weights' draw; the data's seed
 is 0, as the reference's).  ``--auto-parallel`` raises: the planner comes
-with its slice.  Every family the port serves trains: the transformers
-(dense and MoE), rwkv6 and zamba2.
+with its slice.  The transformers (dense, MoE, and paligemma text-only as the
+reference's train script trains it), rwkv6 and zamba2 train.  whisper-base
+raises: the reference's train script feeds tokens and labels only, and its
+encoder-decoder loss reads frames (ROADMAP C5).
 
 One step: the loss and its gradients (``value_and_grad`` of the harness's
 loss, with the family's kernels and their recompute under remat), the
@@ -124,6 +126,11 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
         raise NotImplementedError("--auto-parallel: the planner is not ported yet (ROADMAP A12)")
     say = log if log is not None else (lambda line: None)
     harness = harness if harness is not None else load(args.arch, smoke=args.smoke)
+    if harness.family == "audio":
+        raise ValueError(
+            f"--arch {args.arch}: the training loop feeds tokens and labels only, and the "
+            "encoder-decoder's loss reads frames; the reference's train script fails the same "
+            "way with a KeyError (ROADMAP C5)")
     if args.n_layers is not None:
         harness = harness.clone(n_layers=args.n_layers)
     cfg = harness.cfg

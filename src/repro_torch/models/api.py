@@ -1,14 +1,14 @@
 """Unified model harness — port of ``repro/models/api.py`` (``ShapeCell``,
 ``SHAPES``, ``Harness``, ``TransformerHarness``, ``RWKVHarness``,
-``HybridHarness``).
+``HybridHarness``, ``EncDecHarness``): one interface over all ten
+architectures.
 
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
 callables), ``serve_state_specs(cell)`` (KV-cache or recurrent-state spec
 tree), ``serve_input_specs(cell)`` and ``skip_reason(shape)``, and the training
 half, ``loss(rt)`` (a callable ``(params, batch) -> loss``) and
-``train_input_specs(cell)``.  The other model families (encoder-decoder,
-vision prefix) come with their slices.
+``train_input_specs(cell)``.
 
 ``RWKVHarness.prefill`` and ``HybridHarness.prefill`` differ from the
 reference's on purpose: they return the state the prompt leaves
@@ -26,7 +26,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import hybrid, rwkv_lm, transformer
+from . import encdec, hybrid, rwkv_lm, transformer
 from .layers import Runtime
 from .param import ParamSpec
 
@@ -83,8 +83,15 @@ class Harness:
     def serve_input_specs(self, cell: ShapeCell) -> dict: ...
 
 
+def _embeds(B: int, P: int, D: int) -> ParamSpec:
+    """A stub frontend's output (paligemma's patches, whisper's frames)."""
+    return ParamSpec((B, P, D), ("batch", "sp", None), init="normal", dtype=torch.bfloat16)
+
+
 class TransformerHarness(Harness):
-    """Dense and MoE decoder-only transformers."""
+    """Dense, MoE and VLM-backbone decoder-only transformers.  A VLM
+    (``prefix_tokens`` > 0) takes ``prefix_embeds (B, prefix_tokens,
+    d_model)`` in training and prefill, before the tokens."""
 
     def __init__(
         self,
@@ -92,11 +99,13 @@ class TransformerHarness(Harness):
         cfg: transformer.LMConfig,
         *,
         family: str = "dense",
+        prefix_tokens: int = 0,          # VLM stub patches (prepended)
         long_context_ok: bool = False,
     ):
         self.arch_id = arch_id
         self.cfg = cfg
         self.family = family
+        self.prefix_tokens = prefix_tokens
         self.long_context_ok = long_context_ok
         self.moe_strategy = cfg.moe.strategy if cfg.moe else None
 
@@ -112,14 +121,17 @@ class TransformerHarness(Harness):
 
     def train_input_specs(self, cell: ShapeCell) -> dict:
         B, S = cell.global_batch, cell.seq_len
-        return {
+        specs = {
             "tokens": _tok((B, S), ("batch", "sp")),
             "labels": _tok((B, S), ("batch", "sp")),
         }
+        if self.prefix_tokens:
+            specs["prefix_embeds"] = _embeds(B, self.prefix_tokens, self.cfg.d_model)
+        return specs
 
     # -- serving ------------------------------------------------------------
     def serve_state_specs(self, cell: ShapeCell):
-        max_len = cell.seq_len
+        max_len = cell.seq_len + self.prefix_tokens
         if self.cfg.window is not None and cell.name == "long_500k":
             # SWA: the live window bounds the cache; window+slack keeps the
             # mask exact
@@ -129,15 +141,18 @@ class TransformerHarness(Harness):
     def serve_input_specs(self, cell: ShapeCell) -> dict:
         B = cell.global_batch
         if cell.kind == "prefill":
-            return {"tokens": _tok((B, cell.seq_len), ("batch", "sp"))}
+            specs = {"tokens": _tok((B, cell.seq_len), ("batch", "sp"))}
+            if self.prefix_tokens:
+                specs["prefix_embeds"] = _embeds(B, self.prefix_tokens, self.cfg.d_model)
+            return specs
         return {
             "tokens": _tok((B, 1), ("batch", None)),
             "pos": ParamSpec((), (), init="zeros", dtype=POS),
         }
 
     def prefill(self, rt: Runtime):
-        def fn(params, cache, tokens):
-            return transformer.prefill(rt, self.cfg, params, tokens, cache)
+        def fn(params, cache, tokens, prefix_embeds=None):
+            return transformer.prefill(rt, self.cfg, params, tokens, cache, prefix_embeds)
 
         return fn
 
@@ -256,5 +271,63 @@ class HybridHarness(Harness):
     def decode(self, rt: Runtime):
         def fn(params, state, tokens, pos):
             return hybrid.decode_step(rt, self.cfg, params, tokens, state, pos)
+
+        return fn
+
+
+class EncDecHarness(Harness):
+    """Whisper: an encoder over stub frame embeddings and a decoder with
+    self-attention and cross-attention over its output."""
+
+    family = "audio"
+    long_context_ok = False
+
+    def __init__(self, arch_id: str, cfg: encdec.EncDecConfig):
+        self.arch_id = arch_id
+        self.cfg = cfg
+
+    def param_specs(self):
+        return encdec.model_specs(self.cfg)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, rt: Runtime):
+        def fn(params, batch):
+            return encdec.loss_fn(rt, self.cfg, params, batch)
+
+        return fn
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        B, S = cell.global_batch, cell.seq_len
+        return {
+            "frames": _embeds(B, self.cfg.n_frames, self.cfg.d_model),
+            "tokens": _tok((B, S), ("batch", "sp")),
+            "labels": _tok((B, S), ("batch", "sp")),
+        }
+
+    # -- serving ------------------------------------------------------------
+    def serve_state_specs(self, cell: ShapeCell):
+        return encdec.cache_specs(self.cfg, cell.global_batch, cell.seq_len)
+
+    def serve_input_specs(self, cell: ShapeCell) -> dict:
+        B = cell.global_batch
+        if cell.kind == "prefill":
+            return {
+                "frames": _embeds(B, self.cfg.n_frames, self.cfg.d_model),
+                "tokens": _tok((B, cell.seq_len), ("batch", "sp")),
+            }
+        return {
+            "tokens": _tok((B, 1), ("batch", None)),
+            "pos": ParamSpec((), (), init="zeros", dtype=POS),
+        }
+
+    def prefill(self, rt: Runtime):
+        def fn(params, cache, frames, tokens):
+            return encdec.prefill(rt, self.cfg, params, frames, tokens, cache)
+
+        return fn
+
+    def decode(self, rt: Runtime):
+        def fn(params, cache, tokens, pos):
+            return encdec.decode_step(rt, self.cfg, params, tokens, cache, pos)
 
         return fn

@@ -6,10 +6,13 @@ nested dicts of tensors with the reference's keys and shapes (weights stay
 so ``rules`` is always None and ``shard`` is the identity.
 
 Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
-``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention``, ``init_kv_cache``,
+``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention`` (with
+``kv_override``, the encoder-decoder's cross-attention), ``init_kv_cache``,
 ``swiglu``, ``gelu_mlp``, their ``*_specs``, ``embed_specs``, ``embed``,
-``unembed``, ``cross_entropy``.  ``blocked_sdpa`` and ``kv_override``
-(cross-attention) come with the encoder-decoder models.  Beside
+``unembed``, ``cross_entropy``.  The reference's ``blocked_sdpa`` (its eager
+twin under ``AttnConfig.impl == "blocked"``, which only its TPU hill-climb
+benchmark sets) is not ported: ``impl`` is kept for field parity and ignored,
+the kernel path's attention being the flash kernel.  Beside
 them, ``_silu`` and ``_sigmoid``: the reference's framework's SiLU and
 sigmoid as they round in bfloat16, for the Mamba2 and RWKV-6 blocks.
 
@@ -212,8 +215,14 @@ def attention(
     positions: torch.Tensor,         # (S,) global positions of the q tokens
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B,Smax,K,Dh) x2
     cache_pos: int | None = None,    # write offset into the cache
+    kv_override: torch.Tensor | None = None,   # (B, T, D) encoder states: cross-attention
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Full attention layer.  Returns (out, cache).
+
+    With ``kv_override`` the keys and values are projected from it (no
+    rope) and every query sees every one of them: the kernel path calls
+    flash attention with ``causal=False``, no prefix, ``q_start=0``, the
+    plain path ``sdpa`` with no bias.
 
     The cache is written IN PLACE at ``cache_pos`` (the reference, whose
     arrays are immutable, builds a new one with ``dynamic_update_slice``); the
@@ -230,17 +239,18 @@ def attention(
     N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = N // K
 
+    kv_src = kv_override if kv_override is not None else x
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, N, Dh)
-    k = k.reshape(B, S, K, Dh)
-    v = v.reshape(B, S, K, Dh)
+    k = k.reshape(B, kv_src.shape[1], K, Dh)
+    v = v.reshape(B, kv_src.shape[1], K, Dh)
     q = rt.shard(q, "batch", "sp", None, None)
 
-    if cfg.rope_theta is not None:
+    if cfg.rope_theta is not None and kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
@@ -250,25 +260,27 @@ def attention(
         ck, cv = kv_cache
         if cache_pos is not None:
             q_start = int(cache_pos)
-            ck[:, q_start:q_start + S] = k.to(ck.dtype)
-            cv[:, q_start:q_start + S] = v.to(cv.dtype)
+            ck[:, q_start:q_start + k.shape[1]] = k.to(ck.dtype)
+            cv[:, q_start:q_start + v.shape[1]] = v.to(cv.dtype)
         k, v = ck, cv
         new_cache = (ck, cv)
 
     if rt.use_kernels:
-        if kv_cache is not None:
-            k, v = k[:, :q_start + S], v[:, :q_start + S]
-        out = ops.flash_attention_bsnd(
-            q, k.to(q.dtype), v.to(q.dtype),
-            causal=cfg.causal, window=cfg.window, prefix_len=cfg.prefix_len,
-            q_start=q_start,
-        )
+        if kv_override is not None:
+            mask = dict(causal=False, window=None, prefix_len=0, q_start=0)
+        else:
+            if kv_cache is not None:
+                k, v = k[:, :q_start + S], v[:, :q_start + S]
+            mask = dict(causal=cfg.causal, window=cfg.window, prefix_len=cfg.prefix_len, q_start=q_start)
+        out = ops.flash_attention_bsnd(q, k.to(q.dtype), v.to(q.dtype), **mask)
     else:
-        k_pos = (
-            torch.arange(k.shape[1], device=x.device) if kv_cache is not None
-            else positions
-        )
-        bias = _mask_bias(positions, k_pos, cfg.causal, cfg.window, cfg.prefix_len)
+        bias = None
+        if kv_override is None:
+            k_pos = (
+                torch.arange(k.shape[1], device=x.device) if kv_cache is not None
+                else positions
+            )
+            bias = _mask_bias(positions, k_pos, cfg.causal, cfg.window, cfg.prefix_len)
         out = sdpa(q.reshape(B, S, K, G, Dh), k, v, bias)
     out = out.reshape(B, S, N * Dh)
     y = out @ p["wo"]

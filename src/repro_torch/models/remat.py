@@ -5,7 +5,8 @@
 block in the backward, ``"dots"`` saves the outputs of the matrix products
 without batch dimensions (the projections; the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
-recomputes nothing.  The transformer applies its config's policy; the RWKV-6
+recomputes nothing.  The transformer and the encoder-decoder apply their
+config's policy; the RWKV-6
 and hybrid models apply ``"nothing"`` whatever the config says, as their
 references' ``jax.checkpoint(..., nothing_saveable)`` does.  Without grad
 mode a block runs as it is.

@@ -2,7 +2,8 @@
 
 One config class parameterizes GQA/MQA attention (RoPE, optional sliding
 window, optional qkv bias), RMSNorm/LayerNorm, SwiGLU/GELU MLP or an MoE
-layer (``models/moe.py``), and a gemma-style sqrt(d) embedding scale.
+layer (``models/moe.py``), an optional bidirectional prefix (paligemma's
+SigLIP stub embeddings) and a gemma-style sqrt(d) embedding scale.
 
 Ported: ``LMConfig``, ``block_specs``, ``lm_specs``, ``_block``,
 ``forward``, ``loss_fn``, ``cache_specs``, ``prefill`` and ``decode_step``.
@@ -11,8 +12,12 @@ over views of the stacked leaves: no per-layer copy.  The KV cache is written
 in place (``layers.attention``), so ``prefill`` and ``decode_step`` return the
 cache they were given.  ``_block`` returns an MoE layer's router aux loss
 beside the cache, and ``forward`` the sum of them beside the logits, as the
-reference's do; ``loss_fn`` adds that sum to the cross-entropy.  The modality
-prefix comes with its slice.
+reference's do; ``loss_fn`` adds that sum to the cross-entropy.
+``forward``, ``loss_fn`` and ``prefill`` take ``prefix_embeds (B, P, D)``:
+put before the scaled token embeddings (the prefix itself is not scaled),
+every key among them visible to every query (``cfg.attn(prefix=P)``), and
+``forward``'s logits cut to the tokens' ``[:, P:]``.  ``decode_step`` takes
+no prefix: its causal mask already shows every prefix key.
 
 Each block runs under the config's ``remat_policy`` (``remat.remat``): under
 ``"nothing"`` and ``"dots"`` a layer's attention runs twice a training step,
@@ -130,10 +135,11 @@ def _block(
     positions: torch.Tensor,
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_pos: int | None = None,
+    prefix: int = 0,
 ):
     h = _apply_norm(cfg, p["ln1"], x)
     a, new_cache = L.attention(
-        rt, p["attn"], h, cfg.attn(), positions, cache, cache_pos
+        rt, p["attn"], h, cfg.attn(prefix), positions, cache, cache_pos
     )
     x = x + a
     h = _apply_norm(cfg, p["ln2"], x)
@@ -148,10 +154,13 @@ def _block(
     return rt.shard(x, "batch", "sp", None), new_cache, aux
 
 
-def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor,
+           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     x = L.embed(rt, params["embed"], tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x.to(cfg.dtype)
 
 
@@ -160,15 +169,18 @@ def forward(
     cfg: LMConfig,
     params: dict,
     tokens: torch.Tensor,                    # (B, S)
+    prefix_embeds: torch.Tensor | None = None,   # (B, P, D) modality stub
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training/scoring forward over a whole sequence.  Returns (logits,
-    aux_loss), the aux loss the sum of the MoE layers' (0 for dense ones)."""
+    aux_loss), the aux loss the sum of the MoE layers' (0 for dense ones);
+    the logits are the tokens', not the prefix's."""
     params = cast_floats(params, cfg.dtype)
-    x = _embed(rt, cfg, params, tokens)
+    x = _embed(rt, cfg, params, tokens, prefix_embeds)
+    prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(h, lp):
-        h, _, a = _block(rt, cfg, lp, h, positions)
+        h, _, a = _block(rt, cfg, lp, h, positions, prefix=prefix)
         return h, a
 
     block = remat(cfg.remat_policy, body)
@@ -177,11 +189,12 @@ def forward(
         x, a = block(x, lp)
         aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
-    return L.unembed(rt, params["embed"], x), aux
+    logits = L.unembed(rt, params["embed"], x)
+    return (logits[:, prefix:] if prefix else logits), aux
 
 
 def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
-    logits, aux = forward(rt, cfg, params, batch["tokens"])
+    logits, aux = forward(rt, cfg, params, batch["tokens"], batch.get("prefix_embeds"))
     return L.cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
 
 
@@ -194,17 +207,19 @@ def cache_specs(cfg: LMConfig, batch: int, max_len: int) -> dict:
     return L.init_kv_cache(cfg.attn(), batch, max_len, cfg.n_layers, cfg.dtype)
 
 
-def _serve(rt, cfg, params, tokens, cache, pos: int) -> tuple[torch.Tensor, dict]:
-    """Run tokens (B, S) at positions pos .. pos+S-1 through the stack,
-    writing their keys and values into the cache; returns the hidden states
-    after the final norm, and the parameters in the compute type."""
+def _serve(rt, cfg, params, tokens, cache, pos: int, prefix_embeds=None) -> tuple[torch.Tensor, dict]:
+    """Run tokens (B, S), after the prefix if one is given, at positions
+    pos, pos + 1, ... through the stack, writing their keys and values into
+    the cache; returns the hidden states after the final norm, and the
+    parameters in the compute type."""
     params = cast_floats(params, cfg.dtype)
-    x = _embed(rt, cfg, params, tokens)
+    x = _embed(rt, cfg, params, tokens, prefix_embeds)
+    prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = pos + torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
         x, _, _ = _block(
             rt, cfg, lp, x, positions,
-            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
+            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos, prefix=prefix,
         )
     return _apply_norm(cfg, params["final_norm"], x), params
 
@@ -215,9 +230,10 @@ def prefill(
     params: dict,
     tokens: torch.Tensor,       # (B, S)
     cache: dict,                # {"k","v"}: (L, B, Smax, K, Dh), written in place
+    prefix_embeds: torch.Tensor | None = None,   # (B, P, D): cache positions [0, P)
 ) -> tuple[torch.Tensor, dict]:
-    """Populate the cache positions [0, S); return last-token logits."""
-    x, params = _serve(rt, cfg, params, tokens, cache, 0)
+    """Populate the cache positions [0, P + S); return last-token logits."""
+    x, params = _serve(rt, cfg, params, tokens, cache, 0, prefix_embeds)
     return L.unembed(rt, params["embed"], x[:, -1:]), cache
 
 

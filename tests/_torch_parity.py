@@ -184,17 +184,28 @@ def reference_rwkv_scan_inputs(p, x, cfg):
 
 
 def flash_emulated(q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0,
-                   sm_scale=None, p_parts=2, splits=1, tile=64):
+                   sm_scale=None, p_parts=2, splits=1, tile=64, col_block=None):
     """The arithmetic of the port's CUDA flash-attention kernels, in PyTorch
     on the CPU: fp32 scores of the bf16 inputs, 64-key tiles with the online
     softmax (finite -1e30 fill), and O += P.V in fp32 with P cut into
     ``p_parts`` bf16 pieces (2: the tensor-core kernel's P_hi + P_lo; 1: a
     single bf16 P; None: P kept in fp32, as the decode kernel keeps it).  The
     key tiles are cut into ``splits`` ranges whose partials (acc, m, l) are
-    combined in split order, as the decode kernels do."""
+    combined in split order, as the decode kernels do.  ``col_block`` takes
+    the output's columns that many at a time, each block with its own scores
+    and softmax: the tensor-core kernel's two warpgroups at head_dim 256 (128
+    columns each, both computing the same S and P)."""
+    D = q.shape[4]
+    if col_block is not None and col_block < D:
+        kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start,
+                  sm_scale=sm_scale if sm_scale is not None else 1.0 / D ** 0.5,
+                  p_parts=p_parts, splits=splits, tile=tile)
+        return torch.cat([flash_emulated(q, k, v[..., c:c + col_block], **kw)
+                          for c in range(0, D, col_block)], dim=-1)
     from repro_torch.kernels.flash_attention import NEG_INF, visible
 
-    Sq, D, Sk = q.shape[3], q.shape[4], k.shape[2]
+    Sq, Sk = q.shape[3], k.shape[2]
+    Dv = v.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / D ** 0.5
     ok = visible(Sq, Sk, causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
     s_all = torch.einsum("bkgqd,bksd->bkgqs", q.float(), k.float()) * scale
@@ -206,7 +217,7 @@ def flash_emulated(q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
     for sp in range(splits):
         m = torch.full(s_all.shape[:-1], NEG_INF)
         l = torch.zeros(s_all.shape[:-1])
-        acc = torch.zeros(*s_all.shape[:-1], D)
+        acc = torch.zeros(*s_all.shape[:-1], Dv)
         for j in range(sp * per, min(n_tiles, (sp + 1) * per)):
             keys = slice(j * tile, (j + 1) * tile)
             s = s_all[..., keys]

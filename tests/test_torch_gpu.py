@@ -43,7 +43,7 @@ def _peaked_qkv(cuda, G, Sq, Sk, D, dtype, seed=0):
     (3, 1, 64, 63, None, 0), (3, 1, 128, 127, None, 0), (3, 1, 256, 255, None, 0),
     (3, 1, 1000, 999, None, 0), (3, 1, 4096, 4095, None, 0),
 ])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_attention_kernel_matches_plain(cuda, D, G, Sq, Sk, q_start, window, prefix_len, dtype):
     """Scores of standard deviation 3 and values of standard deviation 1: each
     row rests on a few keys chosen by q, and the outputs are of order 1.
@@ -65,17 +65,40 @@ def test_flash_attention_kernel_matches_plain(cuda, D, G, Sq, Sk, q_start, windo
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Sk", [
+    # whisper-base's cross-attention: a prompt over the encoder's frames, and
+    # a decode step over them; its encoder: every frame sees every frame
+    (1, 64, 1536), (1, 1, 1536), (1, 1536, 1536),
+    # ragged both ways, more queries than keys, folded rows about 16 and 64
+    (3, 77, 203), (3, 203, 77), (8, 2, 300), (8, 8, 65), (2, 33, 1),
+])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_attention_non_causal_kernel_matches_plain(cuda, D, G, Sq, Sk, dtype):
+    """No mask (cross-attention, a bidirectional encoder) with Sq != Sk, at
+    q_start 0 as ``layers.attention`` calls it; limits as above."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _peaked_qkv(cuda, G, Sq, Sk, D, dtype, seed=4)
+    o = flash_attention(q, k, v, causal=False).float()
+    r = flash_attention_plain(q, k, v, causal=False).float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sk,window", [(1000, None), (1000, 100), (527, None)])
-def test_flash_decode_splits_of_many_tiles(cuda, Sk, window, dtype):
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_decode_splits_of_many_tiles(cuda, D, Sk, window, dtype):
     """Many kv heads (B * K = 256) leave few key splits, each walking several
-    64-key tiles through the decode kernel's two-stage ring; limits as above."""
+    64-key tiles through the decode kernel's two-stage ring (one stage in
+    fp32 at D = 256); limits as above."""
     from repro_torch.kernels.flash_attention import decode_splits, flash_attention, flash_attention_plain
 
     assert (-(-Sk // 64)) > decode_splits(256, Sk, torch.cuda.get_device_properties(cuda).multi_processor_count)
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (
         (torch.randn(s, generator=gen, device=cuda) * scale).to(dtype)
-        for s, scale in [((8, 32, 2, 1, 128), 2.0), ((8, 32, Sk, 128), 1.5), ((8, 32, Sk, 128), 1.0)])
+        for s, scale in [((8, 32, 2, 1, D), 2.0), ((8, 32, Sk, D), 1.5), ((8, 32, Sk, D), 1.0)])
     kw = dict(causal=True, window=window, q_start=Sk - 1)
     o = flash_attention(q, k, v, **kw).float()
     r = flash_attention_plain(q, k, v, **kw).float()

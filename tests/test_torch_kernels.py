@@ -45,6 +45,7 @@ def qkv(seed, B, K, G, Sq, Sk, D, dtype):
     (2, 2, 3, 256, 64),
     (1, 4, 2, 256, 128),
     (2, 1, 8, 128, 32),     # MQA
+    (1, 1, 8, 128, 256),    # MQA at paligemma-3b's head_dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_shapes_dtypes(B, K, G, S, D, dtype):
@@ -222,6 +223,43 @@ def test_decode_arithmetic_within_one_ulp(G, Sk, kw):
     splits = decode_splits(2 * 2, Sk, 132)
     o = flash_emulated(q, k, v, causal=True, p_parts=None, splits=splits, **kw)
     assert one_ulp_excess(o, flash_attention_plain(q, k, v, causal=True, **kw)) <= 1.0
+
+
+@pytest.mark.parametrize("G,S,kw", [
+    (8, 128, dict(causal=True)),
+    (8, 96, dict(causal=True, prefix_len=40)),             # paligemma's bidirectional prefix
+    (2, 100, dict(causal=True, window=30, prefix_len=9)),
+    (1, 77, dict(causal=False)),
+])
+def test_tensor_core_arithmetic_at_head_dim_256(G, S, kw):
+    """At head_dim 256 the tensor-core kernel's two warpgroups each take 128
+    of the output's columns, each computing the same S and P: the split
+    changes no bit of the result.  Within one bf16 ulp of the plain version
+    and within the bf16 tolerance of the reference's Pallas kernel
+    (interpret mode)."""
+    q, k, v = peaked_qkv(63, 1, 1, G, S, S, 256)
+    o = flash_emulated(q, k, v, p_parts=2, col_block=128, **kw)
+    assert torch.equal(o, flash_emulated(q, k, v, p_parts=2, **kw))
+    assert one_ulp_excess(o, flash_attention_plain(q, k, v, **kw)) <= 1.0
+    if S % 32 == 0:                 # the reference's kernel takes whole blocks only
+        ref = ref_ops.flash_attention_bkgsd(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+                                            block_q=32, block_k=32, **kw)
+        assert max_err(o, ref) <= TOL["bfloat16"] * float(o.float().abs().max())
+
+
+@pytest.mark.parametrize("Sk,kw", [
+    (776, dict(q_start=775)),                                  # paligemma's decode: G = 8, Sk = P + S + i
+    (300, dict(window=16, prefix_len=100, q_start=299)),
+    (1536, dict(causal=False)),                                # whisper's cross-attention, at D = 256 here
+])
+def test_decode_arithmetic_at_head_dim_256(Sk, kw):
+    """The decode kernels at head_dim 256 (8 columns a lane, partials over
+    ``decode_splits`` of whole tiles): within one bf16 ulp of each element
+    of the plain version."""
+    kw = dict(causal=True) | kw
+    q, k, v = peaked_qkv(64, 2, 1, 8, 1, Sk, 256)
+    o = flash_emulated(q, k, v, p_parts=None, splits=decode_splits(2, Sk, 132), **kw)
+    assert one_ulp_excess(o, flash_attention_plain(q, k, v, **kw)) <= 1.0
 
 
 def test_single_bf16_p_breaks_one_ulp():

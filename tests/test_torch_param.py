@@ -17,15 +17,16 @@ from repro_torch.models import param as P
 from _torch_parity import carry, to_np
 
 ARCHS = ["granite_8b", "phi4_mini_3_8b", "granite_3_2b", "starcoder2_7b",
-         "zamba2_1_2b", "rwkv6_1_6b", "mixtral_8x22b", "dbrx_132b"]
+         "zamba2_1_2b", "rwkv6_1_6b", "mixtral_8x22b", "dbrx_132b",
+         "whisper_base", "paligemma_3b"]
 
 
 def test_registry():
-    assert port_configs.ARCH_IDS == ARCHS
-    assert set(ARCHS) <= set(ref_configs.ARCH_IDS)
-    assert port_configs.CANONICAL == {a.replace("_", "-"): a for a in ARCHS}
-    with pytest.raises(ValueError, match="not ported"):
-        port_configs.load("whisper-base")
+    """the reference's ten, in its order; an unknown id raises"""
+    assert port_configs.ARCH_IDS == ARCHS == ref_configs.ARCH_IDS
+    assert port_configs.CANONICAL == ref_configs.CANONICAL == {a.replace("_", "-"): a for a in ARCHS}
+    with pytest.raises(ValueError, match="unknown arch"):
+        port_configs.load("whisper-large")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -42,6 +43,10 @@ def test_param_count_full_config(arch):
         assert ref == 1_170_473_856
     if arch == "rwkv6_1_6b":
         assert ref == 1_584_046_080
+    if arch == "whisper_base":
+        assert ref == 97_355_776
+    if arch == "paligemma_3b":
+        assert ref == 2_432_055_296
 
 
 @pytest.mark.parametrize("smoke", [True, False])
