@@ -22,7 +22,9 @@ zamba2-1.2b at full width and depth with int8 (every layer's scan through
 its kernel, in the forward and in the remat's recompute; zamba2's shared
 attention through the flash kernel) and mixtral-8x22b at full width and 1
 of its 56 layers without compression (attention and dispatch through their
-kernels, forward and recompute); and a restart from a checkpoint.  It holds
+kernels, forward and recompute); the ZeRO-1 data-parallel train step of
+granite-8b on four ranks, every gradient sum through the ccu-reduce kernel
+at P = 2; and a restart from a checkpoint.  It holds
 every hand-written kernel of those paths against its plain PyTorch version
 on the card, the scans and the dispatch also under autograd at their
 training shapes.  Phases, one JSON line each:
@@ -59,10 +61,22 @@ training shapes.  Phases, one JSON line each:
                 (launches counted from 0) and the same steps from the same
                 drawn weights through the plain path; then rwkv6-1.6b,
                 zamba2-1.2b and mixtral-8x22b the same way (``TRAIN_FAMILIES``)
-7. ``restart``  last in the train phase: granite-3-2b smoke through the
-                kernel path, int8, 10 steps, a save, a new run from fresh
-                trees that resumes it for 10 more, held against 20 straight
-                (``_restart_check``)
+7. ``dist``     the ZeRO-1 data-parallel train step (``train.train_step``)
+                of granite-8b at full width and 2 layers on four ranks of a
+                (pod, data, model) = (2, 2, 1) mesh on the one card (spawned
+                after the build, gloo staged through host memory), 3 steps:
+                every rank's params bit-identical after every step, each
+                rank's ZeRO-1 shard equal to ``adamw.apply`` on the same
+                gradient, the ranks against one process
+                (``launch.train.run``) at global batch 8, the kernels'
+                launches a step and rank against the count PERF.md predicts,
+                and ``ccu_reduce`` timed at the P = 2 rows (``phase_dist``)
+8. ``restart``  granite-3-2b smoke through the kernel path, int8, 10 steps,
+                a save, a new run from fresh trees that resumes it for 10
+                more, held against 20 straight (``_restart_check``)
+
+The serve phase also runs rwkv6-1.6b and zamba2-1.2b at full depth in fp32,
+kernel path against plain path, forward only (``_fp32_full_depth``).
 
 Any failure ends the run with a non-zero exit code; without a GPU it exits
 before printing any result.  ``--phases`` runs a subset while debugging.
@@ -120,6 +134,14 @@ TRAIN_FAMILIES = [dict(arch="rwkv6-1.6b", compression="int8"), dict(arch="zamba2
                   dict(arch="mixtral-8x22b", n_layers=1, compression="none")]
 # checkpoint/restart: as the reference's TestCheckpointRestart, 10 + 10 == 20
 RESTART = dict(arch="granite-3-2b", steps=20, cut=10, batch=8, seq=64, seed=0, compression="int8")
+# The distribution path: granite-8b at full width and 2 of its 36 layers
+# (838,881,280 parameters), the ZeRO-1 data-parallel train step on four
+# ranks of a (pod, data, model) = (2, 2, 1) mesh, all on the one card (about
+# 11 GB a rank), the reference train script's global batch 8 (2 a rank),
+# seq 256, int8, 3 steps; the gradients summed by hierarchical_allreduce
+# with fast axis "data" and slow axis "pod"
+DIST = dict(arch="granite-8b", n_layers=2, mesh=(2, 2, 1), axes=("pod", "data", "model"), batch=8, seq=256,
+            steps=3, seed=0, compression="int8", lr=3e-4)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1933,9 +1955,8 @@ def phase_train() -> dict[str, dict[str, int]]:
     """granite-8b training: the smoke config's kernel and plain paths in fp32
     and bf16 and its loss falling over 40 steps, then the main path at full
     width and 8 layers; then the other families' training paths
-    (``TRAIN_FAMILIES``), each after the last one's state is released; then
-    a restart from a checkpoint (``_restart_check``).  Returns each training
-    path's launch counts."""
+    (``TRAIN_FAMILIES``), each after the last one's state is released.
+    Returns each training path's launch counts."""
     import numpy as np
 
     from repro_torch.configs import load
@@ -2004,22 +2025,347 @@ def phase_train() -> dict[str, dict[str, int]]:
              peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
         by_path[f"{spec['arch']} train ({harness.cfg.n_layers} layers)"] = counts
         del params, res
-
-    emit("restart", **_restart_check())
     return by_path
+
+
+def _digest(t: torch.Tensor) -> list[int]:
+    """Two sums of t's bits read as int16 (the plain sum, and the sum
+    weighted by position mod 251, + 1) in int64, which they cannot
+    overflow: equal for equal bits whatever device or order of sums
+    computes them, and moved by any one changed bit."""
+    bits = t.detach().contiguous().view(-1).view(torch.int16)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    chunk = 1 << 24
+    for i in range(0, bits.numel(), chunk):
+        x = bits[i:i + chunk].to(torch.int64)
+        s1 += x.sum()
+        s2 += (x * (torch.arange(i, i + x.numel(), device=t.device) % 251 + 1)).sum()
+    return [int(s1), int(s2)]
+
+
+def _dist_opt_cfg():
+    from repro_torch.optim import adamw
+
+    # as launch.train.run builds it, so that the ranks and one process agree
+    return adamw.OptConfig(lr=DIST["lr"], warmup_steps=10, decay_steps=DIST["steps"])
+
+
+def _dist_expected_launches(harness, n_leaves: int, slow_axes: int) -> dict[str, int]:
+    """A step of one rank: each gradient leaf's reduce-scatter over the fast
+    axis and its all-reduce over each slow axis are one ``ccu_reduce`` each,
+    and in int8 its payload one more (P = 1); each layer's attention runs in
+    the forward and in the remat's recompute."""
+    return {"flash_attention": 2 * harness.cfg.n_layers, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+            "ccu_reduce": n_leaves * (1 + slow_axes + (DIST["compression"] == "int8"))}
+
+
+def _dist_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the dist phase (a spawned process).  Anything it raises
+    ends the process with an error, which ``torch.multiprocessing.spawn``
+    raises in the parent."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import load
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import tree_init, tree_leaves, tree_map
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules, shard_slices, tree_zero1_pspecs
+    from repro_torch.train.train_step import build_train_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = make_mesh(DIST["mesh"], DIST["axes"])
+        harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
+        bundle = build_train_step(harness, ShapeCell("dist", "train", DIST["seq"], DIST["batch"]), mesh,
+                                  multi_pod=True, opt_cfg=_dist_opt_cfg(),
+                                  compression=CompressionConfig(mode=DIST["compression"]),
+                                  rules=make_rules(multi_pod=True))
+        params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(DIST["seed"]),
+                           torch.bfloat16, "cuda")
+        opt = bundle.init_opt_state(params)
+        data_cfg = DataConfig(global_batch=DIST["batch"], seq_len=DIST["seq"], vocab_size=harness.cfg.vocab_size,
+                              seed=0)
+        pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
+        share = DIST["batch"] // world
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": []}
+        residual, observe_s = None, 0.0
+
+        def keep(grads, payload):         # the first step's synchronised gradient and payload, rank 0
+            nonlocal observe_s
+            t = time.perf_counter()
+            torch.save([g.cpu() for g in tree_leaves(grads)], f"{tmp}/grads0.pt")
+            torch.save([g.cpu() for g in tree_leaves(payload)], f"{tmp}/payload0.pt")
+            observe_s = time.perf_counter() - t
+
+        try:
+            for step in range(DIST["steps"]):
+                batch = next(pipeline)
+                local = {k: torch.from_numpy(batch[k][rank * share:(rank + 1) * share]).to("cuda")
+                         for k in ("tokens", "labels")}
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # the last step under the profiler (CPU activity: the host's time in
+                # each part of the step, which the transport's waits are in)
+                with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+                      if step == DIST["steps"] - 1 else contextlib.nullcontext()) as prof:
+                    params, opt, metrics, residual = bundle.fn(params, opt, local, residual,
+                                                               keep if step == 0 and rank == 0 else None)
+                    torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
+                if prof is not None:
+                    out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                                                 if e.key.startswith("train.")}
+                observe_s = 0.0
+                out["launches"].append(kernels.launch_counts())
+                out["losses"].append(float(metrics["loss"]))
+                out["grad_norms"].append(float(metrics["grad_norm"]))
+                out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
+                if step == 0:
+                    out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
+        finally:
+            pipeline.close()
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["wire_bytes_per_step"] = {a: n // DIST["steps"] for a, n in bundle.fn.wire_bytes.items()}
+        specs, rules = harness.param_specs(), make_rules(multi_pod=True)
+        blocks = tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), tree_zero1_pspecs(specs, rules, 32), specs)
+        out["blocks"] = [[[sl.start, sl.stop] for sl in blk] for blk in tree_leaves(blocks)]
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ccu_dist_rows(harness) -> dict:
+    """``ccu_reduce`` at the dist phase's P = 2 rows, N half of each gradient
+    leaf: bf16 (the data axis's reduce-scatter of the gradients) and fp32
+    (the pod axis's all-reduce of the partial sums), each bit-equal to the
+    plain version; times summed over the 24 launches of one step and rank.
+    Bound: bytes, 2 rows read and the fp32 sums written; library:
+    ``bufs.float().sum(0)``, the same sum (two rows in one order)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ccu_reduce import ccu_reduce_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(DIST["seed"] + 7)
+    totals = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by_kind, largest = {}, None
+    for name, N in _leaf_sizes(harness).items():
+        for dt in (torch.bfloat16, torch.float32):
+            bufs = _rand(gen, (2, N // 2), dt, 1e-3)
+            o = ops.ccu_reduce(bufs)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, ccu_reduce_plain(bufs)) and torch.equal(o, ops.ccu_reduce(bufs))):
+                raise SystemExit(f"ccu_reduce at the dist rows of {name} ({dt}) is not bit-equal to plain")
+            ms, call_ms = time_ms(lambda: ops.ccu_reduce(bufs))
+            row = {"N": N // 2, "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(lambda: ccu_reduce_plain(bufs))[0],
+                   "library_ms": time_ms(lambda: bufs.float().sum(0))[0],
+                   "bound_ms": (bufs.numel() * bufs.element_size() + 4 * (N // 2)) / HBM_BYTES_PER_S * 1e3}
+            kind = str(dt).split(".")[-1]
+            for k in totals:
+                totals[k] += row[k]
+                by_kind.setdefault(kind, dict.fromkeys(totals, 0.0))[k] += row[k]
+            if dt == torch.bfloat16 and (largest is None or N // 2 > largest["N"]):
+                largest = {"leaf": name, **row}
+            del bufs, o
+    return {"shape": "P = 2 rows of N / 2 for each of the 12 leaves: bf16 (reduce-scatter over data) and fp32 "
+                     "(all-reduce over pod); 24 launches a step and rank",
+            **totals, "by_kind": by_kind, "largest_bf16_row": largest, "bit_equal_to_plain": True,
+            "library_call": "bufs.float().sum(0)"}
+
+
+def phase_dist() -> tuple[dict[str, int], dict]:
+    """The ZeRO-1 data-parallel step on four ranks of one card (``DIST``):
+    the ranks spawned once the kernels are built (``_dist_rank``), then held
+    here: every rank's params bit-identical after every step; each rank's
+    ZeRO-1 shard of master / m / v after the first step equal to
+    ``adamw.apply`` of the whole trees on rank 0's synchronised payload,
+    bit for bit (digests); the mean of the ranks' losses over the steps and
+    the first step's synchronised gradient within 3e-2 (of each leaf's
+    largest |g|) of one process's step at global batch 8
+    (``launch.train.run``, from the same drawn weights); the launches of
+    every step and rank equal to ``_dist_expected_launches``.  Then
+    ``ccu_reduce`` at the phase's P = 2 rows (``_ccu_dist_rows``).  The four
+    ranks share the card, so their times measure the port's overhead and the
+    kernels, not data-parallel scaling.  Returns the summed launches of the
+    ranks and the ccu rows."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import load
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_init, tree_leaves
+    from repro_torch.optim import adamw
+
+    _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])   # built once, here
+    harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
+    names = list(_leaf_sizes(harness))
+    world = math.prod(DIST["mesh"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_dist_rank, args=(world, tmp), nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        synced = torch.load(f"{tmp}/grads0.pt")
+        payload = torch.load(f"{tmp}/payload0.pt")
+
+    # 1. the same params on every rank after every step
+    identical = all(r["params_digest"] == ranks[0]["params_digest"] for r in ranks)
+    # 4. launches
+    expected = _dist_expected_launches(harness, len(names), slow_axes=1)
+    launches_ok = all(c == expected for r in ranks for c in r["launches"])
+    # 2. each shard against adamw.apply on the same payload, from the same weights
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(DIST["seed"]),
+                       torch.bfloat16, "cuda")
+    state = adamw.init_opt_state(params)
+    adamw.apply(_dist_opt_cfg(), params, _tree_like(params, [g.cuda() for g in payload]), state)
+    shard_mismatch = []
+    for r, res in enumerate(ranks):
+        for k in ("master", "m", "v"):
+            for i, (full, blk) in enumerate(zip(tree_leaves(state[k]), res["blocks"])):
+                if _digest(full[tuple(slice(a, b) for a, b in blk)]) != res["shard_digest"][k][i]:
+                    shard_mismatch.append((r, k, names[i]))
+    params_as_apply = [_digest(p) for p in tree_leaves(params)] == ranks[0]["params_digest"][0]
+    del params, state, payload
+    torch.cuda.empty_cache()
+
+    # 3. one process, global batch 8, from the same weights
+    args = train.build_parser().parse_args([
+        "--no-smoke", "--n-layers", str(DIST["n_layers"]), "--steps", str(DIST["steps"]),
+        "--batch", str(DIST["batch"]), "--seq", str(DIST["seq"]), "--compression", DIST["compression"],
+        "--seed", str(DIST["seed"]), "--lr", str(DIST["lr"])])
+    first = {}
+
+    def keep(step, loss, grads, payload, wire):
+        if step == 0:
+            first["grads"] = [g.cpu() for g in tree_leaves(grads)]
+
+    single = train.run(args, harness=harness, observe=keep)
+    mean_losses = [sum(r["losses"][s] for r in ranks) / world for s in range(DIST["steps"])]
+    loss_err = max(abs(a - b) for a, b in zip(mean_losses, single["losses"]))
+    of_limit = [(a.float() - b.float()).abs().max().item() / (3e-2 * b.float().abs().max().item())
+                for a, b in zip(synced, first["grads"])]
+    worst = max(range(len(names)), key=lambda i: of_limit[i])
+    del synced, first
+    torch.cuda.empty_cache()
+    ccu = _ccu_dist_rows(harness)
+
+    out = {"arch": DIST["arch"], "n_layers": DIST["n_layers"], "params": single["params"],
+           "mesh": dict(zip(DIST["axes"], DIST["mesh"])), "ranks": world, "global_batch": DIST["batch"],
+           "seq": DIST["seq"], "steps": DIST["steps"], "compression": DIST["compression"],
+           "transport": "gloo (torch.distributed), one process group a mesh axis; each CUDA tensor staged "
+                        "through host memory; every sum in ccu_reduce on the card",
+           "note": "four ranks share one card: the times measure the port's overhead and the kernels, "
+                   "not data-parallel scaling",
+           "step_ms_by_rank": [r["step_ms"] for r in ranks],
+           "last_step_parts_ms_by_rank": [r["last_step_parts_ms"] for r in ranks],
+           "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in ranks],
+           "wire_bytes_per_step_rank0": ranks[0]["wire_bytes_per_step"],
+           "losses_by_rank": [r["losses"] for r in ranks], "mean_losses": mean_losses,
+           "single_process": {"losses": single["losses"], "step_ms": single["step_ms"],
+                              "peak_memory_gb": single["peak_memory_gb"]},
+           "loss_max_abs_err": loss_err, "loss_limit": 3e-2,
+           "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst], "grad_limit": "3e-2 of the leaf's largest |g|",
+           "params_bit_identical_every_step": identical, "params_equal_adamw_apply": params_as_apply,
+           "shards_equal_adamw_apply": not shard_mismatch, "shard_mismatches": shard_mismatch[:10],
+           "launches_per_step_and_rank": ranks[0]["launches"][0], "expected_launches": expected,
+           "launches_as_expected": launches_ok, "spawn_to_exit_s": spawn_s, "ccu_reduce_p2": ccu}
+    emit("dist", **out)
+    if not (identical and params_as_apply and not shard_mismatch and launches_ok and loss_err <= 3e-2
+            and of_limit[worst] <= 1.0 and all(math.isfinite(x) for x in mean_losses)):
+        raise SystemExit(f"dist: a check failed: {out}")
+    summed = {k: sum(c[k] for r in ranks for c in r["launches"]) for k in expected}
+    return summed, ccu
+
+
+def _tree_like(tree, leaves: list):
+    """``leaves`` (in the order ``tree_leaves`` gives) in ``tree``'s shape."""
+    from repro_torch.models.param import tree_leaves, tree_map
+
+    by_id = {id(t): x for t, x in zip(tree_leaves(tree), leaves)}
+    return tree_map(lambda t: by_id[id(t)], tree)
 
 
 def phase_serve() -> dict[str, dict[str, int]]:
     """granite-8b, then mixtral-8x22b, then zamba2-1.2b, then rwkv6-1.6b,
     then paligemma-3b, then whisper-base; each path's weights are released
-    when it returns.  Returns each path's launch counts."""
-    return {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA, RWKV, PALIGEMMA, WHISPER)}
+    when it returns; then rwkv6-1.6b and zamba2-1.2b in fp32
+    (``_fp32_full_depth``).  Returns each path's launch counts."""
+    out = {spec["arch"]: _serve_path(spec) for spec in (SERVE, MIXTRAL, ZAMBA, RWKV, PALIGEMMA, WHISPER)}
+    for spec in (RWKV, ZAMBA):
+        out[f"{spec['arch']} fp32 forward"] = _fp32_full_depth(spec)
+    return out
+
+
+def _fp32_full_depth(spec: dict) -> dict[str, int]:
+    """ROADMAP C7: a recurrent model at full depth in fp32, the kernel path
+    (its scans through their fp32 kernels) against the plain path (the
+    kernels' plain versions), forward only, over a drawn prompt, on the same
+    drawn weights: all logits within 3e-2 of the largest |logit|.  In bf16
+    the two paths part by 4-17x that at full depth, as a one-ulp move of the
+    prompt does (PERF.md); fp32 rounds 2^16 times finer.  Returns the kernel
+    path's launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import load
+    from repro_torch.models import hybrid, rwkv_lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    harness = load(spec["arch"]).clone(dtype=torch.float32)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    params = tree_init(harness.param_specs(), gen, torch.float32, "cuda")
+    _draw_time_mix(harness, params, spec["seed"] + 1)
+    tokens = torch.randint(0, harness.cfg.vocab_size, (spec["batch"], spec["prompt_len"]), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    forward = rwkv_lm.forward if harness.family == "ssm" else hybrid.forward
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        kern = forward(Runtime(), harness.cfg, params, tokens)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        with _scan_without_roundings():
+            plain = forward(Runtime(use_kernels=False), harness.cfg, params, tokens)
+        plain_counts = kernels.launch_counts()
+    largest = plain.abs().max().item()
+    err = (kern - plain).abs().max().item()
+    n = harness.cfg.n_layers
+    expected = {"flash_attention": harness.cfg.n_shared_calls if harness.family == "hybrid" else 0,
+                "moe_dispatch": 0, "ssd_scan": n if harness.family == "hybrid" else 0,
+                "rwkv6_scan": n if harness.family == "ssm" else 0, "ccu_reduce": 0}
+    out = {"arch": spec["arch"], "dtype": "float32", "n_layers": n, "batch": spec["batch"],
+           "prompt_len": spec["prompt_len"], "logits_max_abs_err": err, "largest_logit": largest,
+           "of_limit": err / (3e-2 * largest), "limit": "3e-2 of the largest |logit|", "launches": counts}
+    emit("serve_fp32", **out)
+    if counts != expected or plain_counts != counts or not math.isfinite(err) or err > 3e-2 * largest:
+        raise SystemExit(f"fp32 {spec['arch']} at full depth: kernel path vs plain path {out}, "
+                         f"launches expected {expected}, plain path added {plain_counts}")
+    del params, kern, plain
+    return counts
+
+
+PHASES = ["device", "build", "kernels", "slice", "serve", "train", "dist", "restart"]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,slice,serve,train",
-                    help="comma-separated subset, for debugging")
+    ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset, for debugging")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2035,6 +2381,14 @@ def main() -> int:
     by_path = phase_serve() if "serve" in phases else {}
     if "train" in phases:
         by_path.update(phase_train())
+    if "dist" in phases:
+        counts, ccu_p2 = phase_dist()
+        by_path[f"{DIST['arch']} dist ({math.prod(DIST['mesh'])} ranks, {DIST['n_layers']} layers)"] = counts
+        for row in kernel_rows:
+            if row["name"] == "ccu_reduce":
+                row["dist_rows"] = ccu_p2
+    if "restart" in phases:
+        emit("restart", **_restart_check())
     for row in kernel_rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2042,7 +2396,7 @@ def main() -> int:
             raise SystemExit(f"the main paths never launched {row['name']}")
     print(device["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
-    ok = phases == ["device", "build", "kernels", "slice", "serve", "train"]
+    ok = phases == PHASES
     print(json.dumps({"ok": ok, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
     return 0 if ok else 2

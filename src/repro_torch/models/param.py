@@ -6,11 +6,18 @@ materialized tensors (``tree_init``) and parameter counts; weights made by
 the reference cross over by value through ``from_reference``.
 
 Ported: ``ParamSpec``, ``is_spec``, ``tree_init`` / ``_init_leaf``,
-``param_count``, ``param_bytes``, ``stack_specs``, ``round_up``,
-``cast_floats``.  New here: ``tree_map`` / ``tree_leaves`` (the small part of
-``jax.tree`` the port needs), ``value_and_grad`` (the part of
-``jax.value_and_grad`` it needs) and ``from_reference``.  ``ShardingRules``,
-``tree_pspecs`` and ``tree_abstract`` belong to the distribution slice.
+``tree_abstract`` (tensors on the ``meta`` device), ``ShardingRules`` /
+``pspec``, ``tree_pspecs``, ``tree_shardings``, ``param_count``,
+``param_bytes``, ``stack_specs``, ``round_up``, ``cast_floats``,
+``virtual_kv_heads``.  New here: ``tree_map`` / ``tree_leaves`` (the small
+part of ``jax.tree`` the port needs), ``value_and_grad`` (the part of
+``jax.value_and_grad`` it needs) and ``from_reference``.
+
+A partition spec is a tuple with one entry a tensor dim: None, a mesh-axis
+name, or a tuple of names (the first the major one), the trailing Nones
+popped, as the reference's ``PartitionSpec`` holds them (``tuple(P(...))``
+is the port's spec).  ``tree_shardings`` turns a spec into the placements of
+a ``DeviceMesh`` (``Shard(dim)`` / ``Replicate()``, one a mesh dim).
 
 Trees are nested dicts; leaves are flattened in sorted-key order, as
 ``jax.tree`` flattens dicts, so a reference tree and its port line up.
@@ -103,6 +110,77 @@ def _init_leaf(
     return draw(spec.shape)
 
 
+def tree_abstract(spec_tree: PyTree, dtype: torch.dtype | None = None) -> PyTree:
+    """Tensors on the ``meta`` device with each spec's shape and type (or
+    ``dtype``): the reference's ``ShapeDtypeStruct`` tree, no allocation."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"), spec_tree)
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical-axis -> mesh-axis mapping.
+
+    ``rules`` maps a logical name to a mesh axis name (or tuple of axes, or
+    None).  Unlisted logical names are unsharded.
+    """
+
+    rules: dict[str, Any]
+
+    def pspec(self, logical: tuple[str | None, ...]) -> tuple:
+        axes: list = []
+        used: set[str] = set()
+        for name in logical:
+            ax = self.rules.get(name) if name else None
+            if ax is None:
+                axes.append(None)
+                continue
+            # one mesh axis may shard only one tensor dim
+            flat = (ax,) if isinstance(ax, str) else tuple(ax)
+            flat = tuple(a for a in flat if a not in used)
+            if not flat:
+                axes.append(None)
+                continue
+            used.update(flat)
+            axes.append(flat[0] if len(flat) == 1 else flat)
+        while axes and axes[-1] is None:
+            axes.pop()
+        return tuple(axes)
+
+
+def tree_pspecs(spec_tree: PyTree, rules: ShardingRules) -> PyTree:
+    return tree_map(lambda s: rules.pspec(s.logical), spec_tree)
+
+
+def placements(pspec: tuple, mesh_dim_names: tuple[str, ...]) -> list:
+    """The DTensor placements of a partition spec on a mesh with these axis
+    names: ``Shard(i)`` on each mesh dim that shards tensor dim i, else
+    ``Replicate()``.  DTensor cuts a dim sharded by several mesh dims in the
+    mesh's order, so a spec's tuple of axes must list them in that order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out: list = [Replicate() for _ in mesh_dim_names]
+    for dim, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in names:
+            if a not in mesh_dim_names:
+                raise ValueError(f"spec {pspec} names axis {a!r}, not in the mesh's {mesh_dim_names}")
+        idx = [mesh_dim_names.index(a) for a in names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {pspec}: axes {names} are not in the mesh's order {mesh_dim_names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def tree_shardings(spec_tree: PyTree, rules: ShardingRules, mesh) -> PyTree:
+    """For each leaf, its placements on ``mesh`` (a ``DeviceMesh``), one a
+    mesh dim: the reference's ``NamedSharding`` tree."""
+    names = tuple(mesh.mesh_dim_names)
+    return tree_map(lambda s: placements(rules.pspec(s.logical), names), spec_tree)
+
+
 def tree_init(
     spec_tree: PyTree,
     generator: torch.Generator,
@@ -171,3 +249,12 @@ def cast_floats(tree: PyTree, dtype: torch.dtype) -> PyTree:
         return x
 
     return tree_map(cast, tree)
+
+
+def virtual_kv_heads(n_kv: int, tp: int = 16) -> int:
+    """Replicate KV heads so the kv-head dim divides the model axis."""
+    if n_kv % tp == 0:
+        return n_kv
+    if tp % n_kv == 0:
+        return tp
+    return round_up(n_kv, tp)

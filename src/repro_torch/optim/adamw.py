@@ -2,9 +2,9 @@
 
 Storage as in the reference: the params in their own type (bf16 on the main
 path), an fp32 master copy of each, fp32 moments ``m`` and ``v`` and an int32
-``step``.  The reference shards the masters and moments over the data-parallel
-axes (ZeRO-1); this port runs on one card, so nothing is sharded and that
-comes with the distribution slice.
+``step``.  ``apply`` updates whole trees; the ZeRO-1 step
+(``train/train_step.py``) updates each rank's shard of the masters and
+moments with the same ``step_scalars`` and ``update_leaf``.
 
 ``apply`` follows the reference's order exactly: the gradients cast to
 ``grad_dtype``, their global norm in fp32, the clip factor, the bias
@@ -81,31 +81,42 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def step_scalars(cfg: OptConfig, grads, state: dict) -> dict:
+    """What one update needs beside each leaf: the next step, the learning
+    rate, the global norm of ``grads`` (already in ``grad_dtype``), the clip
+    factor and the bias corrections, in the reference's order."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    return {"step": step, "lr": schedule(cfg, state["step"]), "gnorm": gnorm,
+            "scale": torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0),
+            "bc1": 1.0 - torch.pow(cfg.b1, step.to(torch.float32)),
+            "bc2": 1.0 - torch.pow(cfg.b2, step.to(torch.float32))}
+
+
+def update_leaf(cfg: OptConfig, k: dict, g, m, v, master) -> None:
+    """One leaf's update, in place on ``m``, ``v`` and ``master``.  Every
+    operation is elementwise with the same scalars, so a block of the leaf
+    (a ZeRO-1 shard) updates to the same bits as the whole leaf."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.to(torch.float32) * k["scale"]
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    del g
+    upd = (m / k["bc1"]).div_((v / k["bc2"]).sqrt_().add_(cfg.eps))
+    upd.add_(cfg.weight_decay * master)
+    master.sub_(k["lr"] * upd)
+
+
 @torch.no_grad()
 def apply(cfg: OptConfig, params, grads, state: dict) -> tuple[Any, dict, dict]:
     """One AdamW update.  Returns (params, state, metrics), the first two
     updated in place."""
-    step = state["step"] + 1
-    lr = schedule(cfg, state["step"])
     grads = tree_map(lambda g: g.to(cfg.grad_dtype), grads)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
-    bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
-
+    k = step_scalars(cfg, grads, state)
     flat = zip(tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
                tree_leaves(state["master"]), tree_leaves(params))
     for g, m, v, master, p in flat:
-        g = g.to(torch.float32) * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        del g
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        upd.add_(cfg.weight_decay * master)
-        master.sub_(lr * upd)
-        del upd
+        update_leaf(cfg, k, g, m, v, master)
         p.copy_(master)                     # rounds to the params' type
-    state["step"] = step
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    state["step"] = k["step"]
+    return params, state, {"grad_norm": k["gnorm"], "lr": k["lr"]}

@@ -9,15 +9,20 @@ Two modes around the data-parallel reduction:
   (rounding half to even, as the reference's), and the error
   ``acc - q * scale`` carried to the next step as the residual.
 
-The reference's wire format is "int8 quantize -> fp32 reduce of the
-dequantized value", realised on real hardware by the CCU-style reduce kernel.
-Here that kernel carries it: each leaf's int8 payload goes through
-``ops.ccu_reduce`` with its scale as the one peer's dequant scale.  This is one
-data-parallel rank on one card, so there is one peer, and the reduce computes
-``0 + q * scale`` in fp32, which is ``dequantize_int8(q, scale)`` bit for bit:
-the step equals the reference's, and the kernel carries the payload of every
-leaf every step.  A multi-rank run stacks its peers' payloads as the rows of
-``bufs`` (the distribution slice).
+The reference's docstring names the wire format "int8 quantize -> fp32
+reduce of the dequantized value", realised on real hardware by the CCU-style
+reduce kernel; its train step, though, compresses the gradient that its
+framework has already reduced over the data-parallel ranks
+(``repro/train/train_step.py:81-83``), so what it computes is Q and deQ of
+the global gradient, and no int8 crosses a link.  The port does the same:
+each leaf's int8 payload goes through ``ops.ccu_reduce`` with its scale as
+the one peer's dequant scale, ``0 + q * scale`` in fp32, which is
+``dequantize_int8(q, scale)`` bit for bit.  A multi-rank step
+(``train/train_step.py``) first sums the ranks' gradients with
+``parallel.collectives.hierarchical_allreduce`` (``ccu_reduce`` over the
+peers' rows, P > 1) and then compresses the full synchronised gradient here,
+at P = 1.  Quantising per rank and summing the peers' int8 rows would be a
+different result, and a feature the JAX package lacks.
 
 ``compress_grads`` returns the new residual, as the reference's does; the
 reference's own train step drops it, the port's carries it (``launch/train.py``).

@@ -1,0 +1,235 @@
+"""Topology-aware collectives — port of ``repro/parallel/collectives.py``
+(``hierarchical_allreduce``, ``flat_allreduce``, ``multipath_split``,
+``hierarchical_all_to_all``): the paper's §5.1 schedules, written out.
+
+Each function takes a ``DeviceMesh`` and axis names, as the reference takes
+a ``Mesh``, and returns a function of the rank's own local tensor (the
+reference's ``shard_map(in_specs=P())`` hands every device the same ``x``; a
+rank here may hold any).  Every rank of the mesh builds the function
+together (a collective over several axes makes a process group for them).
+
+**Every reduction is ``ops.ccu_reduce``** (the CCU kernel on the card, its
+plain version on the CPU) over the peers' rows stacked in rank order: the
+transport only moves bytes, into a ``(P, n)`` buffer, and the sum is taken
+in one fixed order in fp32.  So two ranks that reduce the same rows hold the
+same bits, and a result does not depend on how the transport scheduled its
+messages.
+
+* ``hierarchical_allreduce``: reduce-scatter over the FAST axis (an exchange
+  of chunks, then one ``ccu_reduce`` of the ``(n_fast, N / n_fast)`` rows:
+  each fast rank owns a chunk), all-reduce of the owned chunk over each SLOW
+  axis (a gather, then one ``ccu_reduce`` of ``(n_slow, N / n_fast)``), then
+  an all-gather over the fast axis.  The reference's ``psum_scatter -> psum
+  -> all_gather`` with the sum in a fixed order; wire bytes on the slow links
+  drop by the fast-axis size (the Multi-Ring tiering of Fig. 13).  ``x`` is
+  flattened and its last chunk padded with zeros where ``N`` does not divide.
+* ``flat_allreduce``: the baseline, one gather over all its axes and one
+  ``ccu_reduce``.
+* ``multipath_split``: Fig. 14-(a), half of ``x`` gathered over each of two
+  axes, both gathers in flight at once (``async_op``).
+* ``hierarchical_all_to_all``: Fig. 14-(b/c), an exchange within the local
+  clique first, then one across cliques.
+
+The sums come out in fp32 whatever the peers' type (``ccu_reduce`` widens
+each element and rounds each sum once to fp32).  The reference's ``psum`` of
+bf16 returns bf16; here a caller that wants its type back rounds once, after
+the whole sum (``train_step`` does, to the gradient's type), where the
+reference's framework may round after each stage.
+
+Transport (``Transport``): ``torch.distributed`` on the group of the named
+axes.  With NCCL (one GPU a rank) CUDA tensors go as they are.  gloo, the
+only backend that takes several ranks on one GPU (NCCL refuses them as
+duplicate GPUs), aborts the process on a CUDA tensor in torch 2.11
+(``gloo::IoException ... writev: Bad address`` at its first gather), so
+``Transport`` stages a gloo group's CUDA tensors through host memory: a copy
+to the host, the collective there, a copy back.  The sums still run on the
+card, in ``ccu_reduce``.
+
+Each returned function counts in ``fn.wire_bytes`` (axis -> bytes) the
+operand bytes of every collective it issues, under each axis the collective's
+group spans: the port's counterpart of what the reference's test reads from
+the compiled HLO (the operand size of each all-reduce).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from ..kernels import ops
+
+
+def axis_group(mesh, axes: tuple[str, ...]):
+    """The process group of this rank's peers along ``axes`` (the ranks that
+    share its coordinates on every other mesh axis), ranks ascending: the
+    first axis in the mesh's order is the major one.  A group of several
+    axes is made here, by every rank of the mesh together."""
+    names = tuple(mesh.mesh_dim_names)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    dims = sorted(names.index(a) for a in axes)
+    rest = [i for i in range(len(names)) if i not in dims]
+    ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(mesh.size(i) for i in dims))
+    group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return group
+
+
+class Transport:
+    """Moves bytes among the peers of one group of mesh axes; never sums.
+    gloo groups stage CUDA tensors through host memory (module docstring)."""
+
+    def __init__(self, mesh, axes: tuple[str, ...], wire_bytes: dict[str, int]):
+        self.axes = tuple(axes)
+        self.group = axis_group(mesh, self.axes)
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.ranks = dist.get_process_group_ranks(self.group)
+        self.staged = dist.get_backend(self.group) == "gloo"
+        self.wire_bytes = wire_bytes
+        for a in self.axes:
+            wire_bytes.setdefault(a, 0)
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """The tensor the backend sees for ``x``, counted on the wire."""
+        for a in self.axes:
+            self.wire_bytes[a] += x.numel() * x.element_size()
+        x = x.contiguous()
+        return x.cpu() if self.staged and x.is_cuda else x
+
+    def _buffer(self, shape, like: torch.Tensor) -> torch.Tensor:
+        device = "cpu" if self.staged else like.device
+        return torch.empty(shape, dtype=like.dtype, device=device)
+
+    def all_gather(self, x: torch.Tensor, *, async_op: bool = False):
+        """``(P, *x.shape)``, row p from group rank p.  With ``async_op`` the
+        gather is issued and a function returned that waits for it."""
+        src = self._out(x)
+        out = self._buffer((self.size, *x.shape), x)
+        work = dist.all_gather(list(out.unbind(0)), src, group=self.group, async_op=async_op)
+
+        def finish() -> torch.Tensor:
+            if work is not None:
+                work.wait()
+            return out.to(x.device)
+
+        return finish if async_op else finish()
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x (P, ...)``: row p goes to group rank p; row p of the result
+        came from group rank p."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all over {self.axes} needs {self.size} rows, got {tuple(x.shape)}")
+        src = self._out(x)
+        out = self._buffer(x.shape, x)
+        dist.all_to_all_single(out, src, group=self.group)
+        return out.to(x.device)
+
+    def isend(self, x: torch.Tensor, peer: int):
+        """Send ``x`` to group rank ``peer``; returns a function that waits
+        for the send (and keeps its buffer alive until then)."""
+        src = self._out(x)
+        work = dist.isend(src, dst=self.ranks[peer], group=self.group)
+
+        def finish() -> torch.Tensor:
+            work.wait()
+            return src
+
+        return finish
+
+    def irecv(self, like: torch.Tensor, peer: int):
+        """Receive a tensor shaped as ``like`` from group rank ``peer``;
+        returns a function that waits and gives it on ``like``'s device."""
+        out = self._buffer(like.shape, like)
+        work = dist.irecv(out, src=self.ranks[peer], group=self.group)
+
+        def finish() -> torch.Tensor:
+            work.wait()
+            return out.to(like.device)
+
+        return finish
+
+
+def hierarchical_allreduce(mesh, fast_axis: str, slow_axes: tuple[str, ...]):
+    """Returns fn(x) -> the sum of every rank's x over (fast, *slow), fp32,
+    as RS(fast) -> AR(slow) -> AG(fast), every sum one ``ccu_reduce``."""
+    wire: dict[str, int] = {}
+    fast = Transport(mesh, (fast_axis,), wire)
+    slows = [Transport(mesh, (ax,), wire) for ax in slow_axes]
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        n = fast.size
+        flat = x.reshape(-1)
+        N = flat.numel()
+        c = -(-N // n)
+        if c * n != N:
+            flat = torch.cat([flat, flat.new_zeros(c * n - N)])
+        # reduce-scatter over the fast axis: each fast rank owns chunk `rank`
+        part = ops.ccu_reduce(fast.all_to_all(flat.view(n, c)))
+        # all-reduce the owned chunk over the slow (long-range) axes
+        for t in slows:
+            part = ops.ccu_reduce(t.all_gather(part))
+        # gather the fast axis back
+        return fast.all_gather(part).view(-1)[:N].view(x.shape)
+
+    fn.wire_bytes = wire
+    return fn
+
+
+def flat_allreduce(mesh, axes: tuple[str, ...]):
+    """Baseline: one gather over all ``axes`` and one ``ccu_reduce`` (for
+    wire-byte comparison)."""
+    wire: dict[str, int] = {}
+    t = Transport(mesh, tuple(axes), wire)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        return ops.ccu_reduce(t.all_gather(x.reshape(-1))).view(x.shape)
+
+    fn.wire_bytes = wire
+    return fn
+
+
+def multipath_split(mesh, axis_a: str, axis_b: str):
+    """Fig. 14-(a): move a tensor across the mesh via TWO axes at once.
+
+    Splits x in half along dim 0; half 1 rides an all-gather over axis_a,
+    half 2 over axis_b, both in flight together.  Returns (a, b), each the
+    gathered halves concatenated along dim 0."""
+    wire: dict[str, int] = {}
+    ta = Transport(mesh, (axis_a,), wire)
+    tb = Transport(mesh, (axis_b,), wire)
+
+    def fn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        h = x.shape[0] // 2
+        wait_a = ta.all_gather(x[:h], async_op=True)
+        wait_b = tb.all_gather(x[h:], async_op=True)
+        a, b = wait_a(), wait_b()
+        return a.reshape(-1, *x.shape[1:]), b.reshape(-1, *x.shape[1:])
+
+    fn.wire_bytes = wire
+    return fn
+
+
+def hierarchical_all_to_all(mesh, intra_axis: str, inter_axis: str):
+    """Two-stage A2A: exchange within the local clique first, then one
+    exchange across cliques (the Fig. 14-(b/c) hierarchy).
+
+    x: (n_intra * n_inter, chunk, ...) — destination-major layout, viewed as
+    (n_inter, n_intra, ...).  Stage 1 sends ``x[:, j]`` to intra peer j and
+    puts what peer j sent at ``[:, j]``; stage 2 sends ``[k]`` to inter peer
+    k and puts what peer k sent at ``[k]``: the reference's two
+    ``all_to_all(..., tiled=False)`` over split = concat axes 1, then 0."""
+    wire: dict[str, int] = {}
+    ti = Transport(mesh, (intra_axis,), wire)
+    te = Transport(mesh, (inter_axis,), wire)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        rest = x.shape[1:]
+        y = x.reshape(te.size, ti.size, *rest)
+        y = ti.all_to_all(y.transpose(0, 1)).transpose(0, 1)
+        y = te.all_to_all(y)
+        return y.reshape(te.size * ti.size, *rest)
+
+    fn.wire_bytes = wire
+    return fn

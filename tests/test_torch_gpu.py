@@ -514,3 +514,22 @@ def test_train_kernel_path_matches_plain_path(cuda):
     assert max(abs(a - b) for a, b in zip(k["losses"], p["losses"])) <= 1e-5
     for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
         assert (a - b).abs().max() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [2048, 4096, 4194304, 16777216, 58720256, 100663296])
+def test_ccu_reduce_at_the_dist_rows(cuda, N, dtype):
+    """The rows of ``chip_smoke.py``'s dist phase: P = 2 peers, N half of one
+    of granite-8b's gradient leaves at 2 layers (bf16: the data axis's
+    reduce-scatter of the gradients; fp32: the pod axis's all-reduce of the
+    partial sums), bit-equal to the plain version and two runs bit-equal."""
+    from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    bufs = (torch.randn((2, N), generator=gen, device=cuda) * 1e-3).to(dtype)
+    before = ccu_reduce.launches
+    o, o2 = ccu_reduce(bufs), ccu_reduce(bufs)
+    torch.cuda.synchronize()
+    assert ccu_reduce.launches == before + 2
+    assert o.dtype == torch.float32 and o.shape == (N,)
+    assert torch.equal(o, ccu_reduce_plain(bufs)) and torch.equal(o, o2)
