@@ -24,7 +24,9 @@ attention through the flash kernel) and mixtral-8x22b at full width and 1
 of its 56 layers without compression (attention and dispatch through their
 kernels, forward and recompute); the ZeRO-1 data-parallel train step of
 granite-8b on four ranks, every gradient sum through the ccu-reduce kernel
-at P = 2; and a restart from a checkpoint.  It holds
+at P = 2, on (pod, data, model) = (2, 2, 1) and on the dense family's
+sequence-parallel (data, model) = (2, 2), with prefill on the model axis;
+and a restart from a checkpoint.  It holds
 every hand-written kernel of those paths against its plain PyTorch version
 on the card, the scans and the dispatch also under autograd at their
 training shapes.  Phases, one JSON line each:
@@ -69,8 +71,19 @@ training shapes.  Phases, one JSON line each:
                 rank's ZeRO-1 shard equal to ``adamw.apply`` on the same
                 gradient, the ranks against one process
                 (``launch.train.run``) at global batch 8, the kernels'
-                launches a step and rank against the count PERF.md predicts,
-                and ``ccu_reduce`` timed at the P = 2 rows (``phase_dist``)
+                launches a step and rank against the count PERF.md predicts;
+                then the same training on the dense family's model axis,
+                (data, model) = (2, 2) (4 sequences a data rank, 128
+                positions a model rank, each weight and K/V gathered over
+                "model", each gradient reduce-scattered there through the
+                ccu-reduce kernel), held the same way (the clip norm, a
+                sum over the model ranks, held first: the same on every
+                rank and within 1e-5 of the whole payload's), prefill on the model
+                axis (batch 4, prompt 512) against one process's, and the
+                dry-run's trace of that cell (``train_step.lower_bundle`` on
+                ``meta`` over a fake process group) against rank 0's
+                recorded bytes; ``ccu_reduce`` timed at both meshes' P = 2
+                rows (``phase_dist``)
 8. ``restart``  granite-3-2b smoke through the kernel path, int8, 10 steps,
                 a save, a new run from fresh trees that resumes it for 10
                 more, held against 20 straight (``_restart_check``)
@@ -142,6 +155,12 @@ RESTART = dict(arch="granite-3-2b", steps=20, cut=10, batch=8, seq=64, seed=0, c
 # with fast axis "data" and slow axis "pod"
 DIST = dict(arch="granite-8b", n_layers=2, mesh=(2, 2, 1), axes=("pod", "data", "model"), batch=8, seq=256,
             steps=3, seed=0, compression="int8", lr=3e-4)
+# The same training on the dense family's model axis: (data, model) = (2, 2),
+# 4 sequences a data rank and 128 positions a model rank, each weight sharded
+# on "model" gathered before use (the rules' sp); then prefill on the same
+# ranks: batch 4 (2 a data rank), prompt 512 (256 positions a model rank)
+DIST_MODEL = dict(DIST, mesh=(2, 2), axes=("data", "model"),
+                  prefill=dict(arch="granite-8b", n_layers=2, batch=4, prompt_len=512, seed=0))
 
 
 def emit(phase: str, **fields) -> None:
@@ -300,17 +319,20 @@ def _flash_cases():
 
 
 def _flash_bound_ms(q, k, v, mask_kw) -> tuple[float, str]:
-    """Least time for this call: bytes (q, k, v read once, o written once)
-    over the memory rate, against the operations the visible (query, key)
-    pairs need (two products, 2 flops a multiply-add) over the peak rate."""
+    """Least time for this call: bytes (q read once, o written once, and
+    each key and value that some row sees read once) over the memory rate,
+    against the operations the visible (query, key) pairs need (two
+    products, 2 flops a multiply-add) over the peak rate."""
     from repro_torch.kernels.flash_attention import visible
 
     B, Sq, N, D = q.shape
     Sk = k.shape[1]
     kw = dict(causal=True, window=None, prefix_len=0, q_start=0) | mask_kw
-    pairs = int(visible(Sq, Sk, **kw).sum())
+    seen = visible(Sq, Sk, **kw)
+    pairs = int(seen.sum())
     flops = 4 * D * pairs * B * N
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    keys = int(seen.any(0).sum())
+    nbytes = (2 * q.numel() + (k.numel() + v.numel()) * keys // Sk) * q.element_size()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -474,6 +496,62 @@ def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes:
     }
 
 
+def _flash_sp_shape(gen, B: int, Sq: int, Sk: int, q_start: int, where: str, chunk: int = 256) -> dict:
+    """The kernel at a sequence-parallel shape of the dense family: a model
+    rank's ``Sq`` rows of granite-8b (32 heads on 8 KV heads of 128, bf16)
+    at ``q_start`` against the ``Sk`` keys gathered over "model", causal.
+    Held per element against the plain version (one ulp; computed in row
+    blocks of ``chunk`` at their own offsets, so that its fp32 scores fit),
+    the float64 oracle (one ulp, on three blocks of 8 rows where ``Sq`` > 64:
+    the first, the middle and the last) and the library call (four ulps of
+    the row: ``scaled_dot_product_attention`` with the same offset causal
+    mask as a boolean mask, K and V repeated to the 32 heads so that its
+    memory-efficient kernel takes them).  Times: kernel, from the host, the
+    plain version (all its blocks), the library call, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain, visible
+    from repro_torch.kernels.ref import attention_ref
+
+    N, K, D, dt = 32, 8, 128, torch.bfloat16
+    q, k, v = _qkv(gen, (B, Sq, N, D), (B, Sk, K, D), dt)
+    kw = dict(causal=True, q_start=q_start)
+
+    def plain():
+        return torch.cat([_bsnd(flash_attention_plain, q[:, a:a + chunk], k, v, dict(kw, q_start=q_start + a))
+                          for a in range(0, Sq, chunk)], dim=1)
+
+    mask = visible(Sq, Sk, causal=True, window=None, prefix_len=0, q_start=q_start, device=q.device)
+    qt, kr, vr = q.transpose(1, 2), k.repeat_interleave(N // K, dim=2).transpose(1, 2), \
+        v.repeat_interleave(N // K, dim=2).transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask).transpose(1, 2)
+
+    o = ops.flash_attention_bsnd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    r = plain()
+    err, of_limit = _excess(o, r, dt)
+    lib_err, lib_of_limit = _excess(o, library(), dt, ulps=4, of_row=True)
+    blocks = [(0, Sq)] if Sq <= 64 else [(0, 8), (Sq // 2 - 4, Sq // 2 + 4), (Sq - 8, Sq)]
+    ref_of_limit = max(_excess(o[:, a:b], _bsnd(attention_ref, q[:, a:b], k, v, dict(kw, q_start=q_start + a),
+                                                torch.Tensor.double), dt)[1] for a, b in blocks)
+    if not (max(of_limit, lib_of_limit, ref_of_limit) <= 1.0 and torch.isfinite(o.float()).all()):
+        raise SystemExit(f"flash_attention at the sequence-parallel {where} shape: max_abs_err={err} vs plain "
+                         f"({of_limit} of its limit), {lib_err} vs the library call ({lib_of_limit}), "
+                         f"the float64 oracle {ref_of_limit} of its limit")
+    bound_ms, bound_by = _flash_bound_ms(q, k, v, kw)
+    ms, call_ms = time_ms(lambda: ops.flash_attention_bsnd(q, k, v, **kw))
+    return {
+        "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 {kw}",
+        "max_abs_err": err, "err_of_limit": of_limit, "oracle_err_of_limit": ref_of_limit,
+        "oracle_rows": blocks, "library_err_of_limit": lib_of_limit,
+        "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(plain, iters=5, warmup=1)[0],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library, iters=5, warmup=1)[0],
+    }
+
+
 def _flash_row(gen) -> dict:
     from repro_torch.configs import load
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -552,6 +630,14 @@ def _flash_row(gen) -> dict:
     kw = dict(causal=True, prefix_len=P, q_start=0)
     rows["paligemma_train"] = _flash_main_shape(q, k, v, kw, "paligemma train")
     rows["paligemma_train"]["gradients"] = _flash_gradients(gen, q, k, v, kw)
+    # the dense family's sequence-parallel shapes: the dist phase's (data,
+    # model) = (2, 2) train step (4 sequences a data rank, 128 rows a model
+    # rank against 256 keys, both ranks), and a model rank's share of
+    # prefill_32k on (16, 16) (2 sequences, 2048 rows against 32768 keys; the
+    # first rank and the last)
+    sp = {f"train_q{st}": _flash_sp_shape(gen, 4, 128, 256, st, f"train q_start {st}") for st in (0, 128)}
+    sp.update({f"prefill_32k_q{st}": _flash_sp_shape(gen, 2, 2048, 32768, st, f"prefill_32k q_start {st}")
+               for st in (0, 30720)})
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -571,6 +657,7 @@ def _flash_row(gen) -> dict:
         "whisper_cross_decode": rows["whisper_cross_decode"],
         "train": rows["train"],
         "paligemma_train": rows["paligemma_train"],
+        "sequence_parallel": sp,
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -2051,19 +2138,45 @@ def _dist_opt_cfg():
     return adamw.OptConfig(lr=DIST["lr"], warmup_steps=10, decay_steps=DIST["steps"])
 
 
-def _dist_expected_launches(harness, n_leaves: int, slow_axes: int) -> dict[str, int]:
+def _dist_expected_launches(harness, n_leaves: int, spec: dict) -> dict[str, int]:
     """A step of one rank: each gradient leaf's reduce-scatter over the fast
     axis and its all-reduce over each slow axis are one ``ccu_reduce`` each,
     and in int8 its payload one more (P = 1); each layer's attention runs in
-    the forward and in the remat's recompute."""
+    the forward and in the remat's recompute.  On a model axis of more than
+    one rank, besides: each gathered tensor's reduce-scatter over "model"
+    (a layer's 7 weights, its K and V; the token table and the unembedding),
+    and two sums over "model" (the losses with the replicated leaves'
+    gradients, then each leaf's sum of squares)."""
+    sizes = dict(zip(spec["axes"], spec["mesh"]))
+    slow = sum(1 for a in ("pod",) if sizes.get(a, 1) > 1)
+    model = 0 if sizes.get("model", 1) == 1 else 9 * harness.cfg.n_layers + 2 + 2
     return {"flash_attention": 2 * harness.cfg.n_layers, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-            "ccu_reduce": n_leaves * (1 + slow_axes + (DIST["compression"] == "int8"))}
+            "ccu_reduce": model + n_leaves * (1 + slow + (spec["compression"] == "int8"))}
 
 
-def _dist_rank(rank: int, world: int, tmp: str) -> None:
-    """One rank of the dist phase (a spawned process).  Anything it raises
-    ends the process with an error, which ``torch.multiprocessing.spawn``
-    raises in the parent."""
+def _local(tree, pspecs, mesh):
+    """This rank's block of each leaf of ``tree`` under ``pspecs``."""
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel.sharding import shard_slices
+
+    return tree_map(lambda t, ps: t[shard_slices(ps, tuple(t.shape), mesh)].contiguous(), tree, pspecs)
+
+
+def _blocks_of(pspecs, specs, mesh) -> list:
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import shard_slices
+
+    return [[[sl.start, sl.stop] for sl in blk]
+            for blk in tree_leaves(tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), pspecs, specs))]
+
+
+def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
+    """One rank of the dist phase (a spawned process) on ``spec``'s mesh.
+    Anything it raises ends the process with an error, which
+    ``torch.multiprocessing.spawn`` raises in the parent.  The ranks of the
+    first data-parallel index save their blocks of the first step's
+    synchronised gradient and payload; with ``spec["prefill"]`` the ranks
+    then prefill a drawn prompt and save their logits and cache blocks."""
     import datetime
 
     import torch.distributed as dist
@@ -2073,72 +2186,82 @@ def _dist_rank(rank: int, world: int, tmp: str) -> None:
     from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import ShapeCell
-    from repro_torch.models.param import tree_init, tree_leaves, tree_map
+    from repro_torch.models.param import tree_init, tree_leaves, tree_pspecs
     from repro_torch.optim.compression import CompressionConfig
-    from repro_torch.parallel.sharding import make_rules, shard_slices, tree_zero1_pspecs
+    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
     from repro_torch.train.train_step import build_train_step
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
                             timeout=datetime.timedelta(minutes=10))
     try:
-        mesh = make_mesh(DIST["mesh"], DIST["axes"])
-        harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
-        bundle = build_train_step(harness, ShapeCell("dist", "train", DIST["seq"], DIST["batch"]), mesh,
-                                  multi_pod=True, opt_cfg=_dist_opt_cfg(),
-                                  compression=CompressionConfig(mode=DIST["compression"]),
-                                  rules=make_rules(multi_pod=True))
-        params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(DIST["seed"]),
-                           torch.bfloat16, "cuda")
+        mesh = make_mesh(spec["mesh"], spec["axes"])
+        multi_pod = "pod" in spec["axes"]
+        rules = make_rules(multi_pod=multi_pod)
+        harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+        specs = harness.param_specs()
+        cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
+        bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=_dist_opt_cfg(),
+                                  compression=CompressionConfig(mode=spec["compression"]), rules=rules)
+        param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
+        coord = dict(zip(spec["axes"], mesh.get_coordinate()))
+        first_dp = all(coord[a] == 0 for a in ("pod", "data") if a in coord)
+        params = _local(tree_init(specs, torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                                  torch.bfloat16, "cuda"), param_ps, mesh)
         opt = bundle.init_opt_state(params)
-        data_cfg = DataConfig(global_batch=DIST["batch"], seq_len=DIST["seq"], vocab_size=harness.cfg.vocab_size,
+        data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
                               seed=0)
         pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
-        share = DIST["batch"] // world
         torch.cuda.reset_peak_memory_stats()
-        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": []}
+        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": [],
+               "wire_by_step": [], "coord": coord}
         residual, observe_s = None, 0.0
 
-        def keep(grads, payload):         # the first step's synchronised gradient and payload, rank 0
+        def keep(grads, payload):         # the first step's synchronised gradient and payload, by block
             nonlocal observe_s
             t = time.perf_counter()
-            torch.save([g.cpu() for g in tree_leaves(grads)], f"{tmp}/grads0.pt")
-            torch.save([g.cpu() for g in tree_leaves(payload)], f"{tmp}/payload0.pt")
+            torch.save([g.cpu() for g in tree_leaves(grads)], f"{tmp}/grads0_r{rank}.pt")
+            torch.save([g.cpu() for g in tree_leaves(payload)], f"{tmp}/payload0_r{rank}.pt")
             observe_s = time.perf_counter() - t
 
         try:
-            for step in range(DIST["steps"]):
+            for step in range(spec["steps"]):
                 batch = next(pipeline)
-                local = {k: torch.from_numpy(batch[k][rank * share:(rank + 1) * share]).to("cuda")
-                         for k in ("tokens", "labels")}
+                local = _local({k: torch.from_numpy(batch[k]).to("cuda") for k in ("tokens", "labels")},
+                               input_ps, mesh)
+                wire0 = dict(bundle.fn.wire_bytes)
                 kernels.reset_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 # the last step under the profiler (CPU activity: the host's time in
                 # each part of the step, which the transport's waits are in)
                 with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
-                      if step == DIST["steps"] - 1 else contextlib.nullcontext()) as prof:
+                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof:
                     params, opt, metrics, residual = bundle.fn(params, opt, local, residual,
-                                                               keep if step == 0 and rank == 0 else None)
+                                                               keep if step == 0 and first_dp else None)
                     torch.cuda.synchronize()
                 out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
                 if prof is not None:
                     out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
-                                                 if e.key.startswith("train.")}
+                                                 if e.key.startswith(("train.", "model."))}
                 observe_s = 0.0
                 out["launches"].append(kernels.launch_counts())
                 out["losses"].append(float(metrics["loss"]))
                 out["grad_norms"].append(float(metrics["grad_norm"]))
                 out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
+                out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
                 if step == 0:
                     out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
         finally:
             pipeline.close()
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["wire_bytes_per_step"] = {a: n // DIST["steps"] for a, n in bundle.fn.wire_bytes.items()}
-        specs, rules = harness.param_specs(), make_rules(multi_pod=True)
-        blocks = tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), tree_zero1_pspecs(specs, rules, 32), specs)
-        out["blocks"] = [[[sl.start, sl.stop] for sl in blk] for blk in tree_leaves(blocks)]
+        out["wire_bytes_per_step"] = {a: n // spec["steps"] for a, n in bundle.fn.wire_bytes.items()}
+        out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
+        out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
+        out["first_dp"] = first_dp
+        del params, opt, residual, bundle
+        if spec.get("prefill"):
+            out["prefill"] = _dist_prefill(rank, tmp, spec["prefill"], harness, mesh, rules)
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -2146,128 +2269,192 @@ def _dist_rank(rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def _ccu_dist_rows(harness) -> dict:
-    """``ccu_reduce`` at the dist phase's P = 2 rows, N half of each gradient
-    leaf: bf16 (the data axis's reduce-scatter of the gradients) and fp32
-    (the pod axis's all-reduce of the partial sums), each bit-equal to the
-    plain version; times summed over the 24 launches of one step and rank.
-    Bound: bytes, 2 rows read and the fp32 sums written; library:
-    ``bufs.float().sum(0)``, the same sum (two rows in one order)."""
+def _prompt(harness, spec: dict) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
+    return torch.randint(0, harness.cfg.vocab_size, (spec["batch"], spec["prompt_len"]), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def _dist_prefill(rank: int, tmp: str, spec: dict, harness, mesh, rules) -> dict:
+    """Prefill on the model axis (a rank of the dist phase): the drawn
+    prompt's rows of this rank's data-parallel share, its positions of each;
+    saves the logits and this rank's cache block, returns the launches and
+    the time."""
+    from repro_torch import kernels
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import tree_init, tree_leaves, tree_pspecs
+    from repro_torch.train.train_step import build_serve_step
+
+    torch.cuda.empty_cache()
+    cell = ShapeCell("prefill", "prefill", spec["prompt_len"], spec["batch"])
+    serve = build_serve_step(harness, cell, mesh, rules=rules)
+    specs, state = harness.param_specs(), harness.serve_state_specs(cell)
+    params = _local(tree_init(specs, torch.Generator(device="cuda").manual_seed(spec["seed"]), torch.bfloat16,
+                              "cuda"), tree_pspecs(specs, rules), mesh)
+    state_ps = tree_pspecs(state, rules)
+    cache = _local(tree_init(state, None, None, "cuda"), state_ps, mesh)
+    tokens = _local({"tokens": _prompt(harness, spec)}, tree_pspecs(harness.serve_input_specs(cell), rules), mesh)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = serve.fn(params, cache, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"logits": logits.cpu(), "cache": [c.cpu() for c in tree_leaves(cache)]}, f"{tmp}/prefill_r{rank}.pt")
+    return {"ms": ms, "launches": kernels.launch_counts(), "cache_blocks": _blocks_of(state_ps, state, mesh),
+            "wire_bytes": serve.fn.wire_bytes}
+
+
+def _ccu_dist_rows(rows: dict[str, tuple[int, int]], dtypes: tuple, what: str) -> dict:
+    """``ccu_reduce`` at the dist phase's P = 2 rows: for each of ``rows``
+    (name -> (N, launches a step and rank)) and each of ``dtypes`` (``what``
+    says which collectives sum them), bit-equal to the plain version; times
+    summed over the launches of a step and rank.  Bound: bytes, 2 rows read
+    and the fp32 sums written; library: ``bufs.float().sum(0)``, the same
+    sum (two rows in one order)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ccu_reduce import ccu_reduce_plain
 
     gen = torch.Generator(device="cuda").manual_seed(DIST["seed"] + 7)
     totals = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     by_kind, largest = {}, None
-    for name, N in _leaf_sizes(harness).items():
-        for dt in (torch.bfloat16, torch.float32):
-            bufs = _rand(gen, (2, N // 2), dt, 1e-3)
+    for name, (N, count) in rows.items():
+        for dt in dtypes:
+            bufs = _rand(gen, (2, N), dt, 1e-3)
             o = ops.ccu_reduce(bufs)
             torch.cuda.synchronize()
             if not (torch.equal(o, ccu_reduce_plain(bufs)) and torch.equal(o, ops.ccu_reduce(bufs))):
                 raise SystemExit(f"ccu_reduce at the dist rows of {name} ({dt}) is not bit-equal to plain")
             ms, call_ms = time_ms(lambda: ops.ccu_reduce(bufs))
-            row = {"N": N // 2, "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(lambda: ccu_reduce_plain(bufs))[0],
+            row = {"N": N, "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(lambda: ccu_reduce_plain(bufs))[0],
                    "library_ms": time_ms(lambda: bufs.float().sum(0))[0],
-                   "bound_ms": (bufs.numel() * bufs.element_size() + 4 * (N // 2)) / HBM_BYTES_PER_S * 1e3}
+                   "bound_ms": (bufs.numel() * bufs.element_size() + 4 * N) / HBM_BYTES_PER_S * 1e3}
             kind = str(dt).split(".")[-1]
             for k in totals:
-                totals[k] += row[k]
-                by_kind.setdefault(kind, dict.fromkeys(totals, 0.0))[k] += row[k]
-            if dt == torch.bfloat16 and (largest is None or N // 2 > largest["N"]):
-                largest = {"leaf": name, **row}
+                totals[k] += count * row[k]
+                by_kind.setdefault(kind, dict.fromkeys(totals, 0.0))[k] += count * row[k]
+            if dt == torch.bfloat16 and (largest is None or N > largest["N"]):
+                largest = {"rows": name, **row}
             del bufs, o
-    return {"shape": "P = 2 rows of N / 2 for each of the 12 leaves: bf16 (reduce-scatter over data) and fp32 "
-                     "(all-reduce over pod); 24 launches a step and rank",
-            **totals, "by_kind": by_kind, "largest_bf16_row": largest, "bit_equal_to_plain": True,
+    return {"shape": what, "launches": sum(c for _, c in rows.values()) * len(dtypes), **totals,
+            "by_kind": by_kind, "largest_bf16_row": largest, "bit_equal_to_plain": True,
             "library_call": "bufs.float().sum(0)"}
 
 
-def phase_dist() -> tuple[dict[str, int], dict]:
-    """The ZeRO-1 data-parallel step on four ranks of one card (``DIST``):
-    the ranks spawned once the kernels are built (``_dist_rank``), then held
-    here: every rank's params bit-identical after every step; each rank's
-    ZeRO-1 shard of master / m / v after the first step equal to
-    ``adamw.apply`` of the whole trees on rank 0's synchronised payload,
-    bit for bit (digests); the mean of the ranks' losses over the steps and
-    the first step's synchronised gradient within 3e-2 (of each leaf's
-    largest |g|) of one process's step at global batch 8
-    (``launch.train.run``, from the same drawn weights); the launches of
-    every step and rank equal to ``_dist_expected_launches``.  Then
-    ``ccu_reduce`` at the phase's P = 2 rows (``_ccu_dist_rows``).  The four
-    ranks share the card, so their times measure the port's overhead and the
-    kernels, not data-parallel scaling.  Returns the summed launches of the
-    ranks and the ccu rows."""
+def _model_axis_rows(harness, spec: dict) -> dict[str, tuple[int, int]]:
+    """The model axis's reduce-scatters in one step of ``spec``: (N, launches)
+    with N half of each gathered tensor (a layer's 7 weights, its K and V of
+    the rank's sequences, once a layer; the token table, the unembedding)."""
+    cfg, L = harness.cfg, harness.cfg.n_layers
+    sizes = _leaf_sizes(harness)
+    rows = {f"{k} (a layer)": (n // L // 2, L) for k, n in sizes.items()
+            if k.startswith("blocks.attn.w") or k.startswith("blocks.mlp.")}
+    rows.update({k: (n // 2, 1) for k, n in sizes.items() if k.startswith("embed.")})
+    dp = math.prod(n for a, n in zip(spec["axes"], spec["mesh"]) if a != "model")
+    kv = spec["batch"] // dp * spec["seq"] * cfg.n_kv_heads * cfg.head_dim
+    rows["k (a layer)"] = rows["v (a layer)"] = (kv // 2, L)
+    return rows
+
+
+def _spawn(spec: dict) -> tuple[list[dict], float, str]:
     import tempfile
 
     import torch.multiprocessing as mp
 
-    from repro_torch.configs import load
-    from repro_torch.kernels import _build
-    from repro_torch.launch import train
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    world = math.prod(spec["mesh"])
+    t0 = time.perf_counter()
+    mp.spawn(_dist_rank, args=(world, tmp, spec), nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(f"{tmp}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, spawn_s, tmp
+
+
+def _assemble(harness, ranks: list[dict], tmp: str, what: str) -> list[torch.Tensor]:
+    """The first step's ``what`` (grads or payload) whole, from the saved
+    blocks of the first data-parallel index's ranks."""
+    from repro_torch.models.param import tree_leaves
+
+    full = [torch.zeros(s.shape, dtype=torch.bfloat16) for s in tree_leaves(harness.param_specs())]
+    for r, res in enumerate(ranks):
+        if res["first_dp"]:
+            for f, g, blk in zip(full, torch.load(f"{tmp}/{what}0_r{r}.pt"), res["param_blocks"]):
+                f[tuple(slice(a, b) for a, b in blk)] = g
+    return full
+
+
+def _check_mesh(spec: dict, ranks: list[dict], tmp: str, harness, single: dict, names: list) -> dict:
+    """One mesh's ranks held (``phase_dist``); returns what ``emit`` prints."""
     from repro_torch.models.param import tree_init, tree_leaves
     from repro_torch.optim import adamw
 
-    _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])   # built once, here
-    harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
-    names = list(_leaf_sizes(harness))
-    world = math.prod(DIST["mesh"])
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
-        t0 = time.perf_counter()
-        mp.spawn(_dist_rank, args=(world, tmp), nprocs=world, join=True)
-        spawn_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(world):
-            with open(f"{tmp}/rank{r}.json") as f:
-                ranks.append(json.load(f))
-        synced = torch.load(f"{tmp}/grads0.pt")
-        payload = torch.load(f"{tmp}/payload0.pt")
-
-    # 1. the same params on every rank after every step
-    identical = all(r["params_digest"] == ranks[0]["params_digest"] for r in ranks)
+    world = len(ranks)
+    # 1. the same params on every rank of a model coordinate after every step
+    by_model = {}
+    for r in ranks:
+        by_model.setdefault(r["coord"].get("model", 0), []).append(r["params_digest"])
+    identical = all(d == group[0] for group in by_model.values() for d in group)
     # 4. launches
-    expected = _dist_expected_launches(harness, len(names), slow_axes=1)
+    expected = _dist_expected_launches(harness, len(names), spec)
     launches_ok = all(c == expected for r in ranks for c in r["launches"])
     # 2. each shard against adamw.apply on the same payload, from the same weights
-    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(DIST["seed"]),
+    payload = _assemble(harness, ranks, tmp, "payload")
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
     state = adamw.init_opt_state(params)
-    adamw.apply(_dist_opt_cfg(), params, _tree_like(params, [g.cuda() for g in payload]), state)
+    cfg = _dist_opt_cfg()
+    grads = _tree_like(params, [g.cuda().to(cfg.grad_dtype) for g in payload])
+    del payload
+    norm = None
+    if dict(zip(spec["axes"], spec["mesh"])).get("model", 1) == 1:
+        adamw.apply(cfg, params, grads, state)           # the norm from the whole payload, as PR 21
+    else:
+        # a rank holds only its model shard, so its clip norm is a sum over the model
+        # ranks: held first, the same bits on every rank at every step and within 1e-5
+        # of the whole payload's norm; then the shards are held given that norm
+        whole = float(adamw.global_norm(grads))
+        same = all(r["grad_norms"] == ranks[0]["grad_norms"] for r in ranks)
+        norm = {"ranks": ranks[0]["grad_norms"][0], "whole_payload": whole, "same_on_every_rank": same,
+                "rel_err": abs(ranks[0]["grad_norms"][0] - whole) / whole, "limit": 1e-5}
+        if not (same and norm["rel_err"] <= norm["limit"]):
+            raise SystemExit(f"dist {dict(zip(spec['axes'], spec['mesh']))}: the clip norm failed: {norm}")
+        k = adamw.step_scalars(cfg, grads, state, torch.tensor(norm["ranks"], dtype=torch.float32, device="cuda"))
+        flat = zip(tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
+                   tree_leaves(state["master"]), tree_leaves(params))
+        for g, m, v, master, p in flat:
+            adamw.update_leaf(cfg, k, g, m, v, master)
+            p.copy_(master)
+        state["step"] = k["step"]
+    del grads
     shard_mismatch = []
     for r, res in enumerate(ranks):
         for k in ("master", "m", "v"):
             for i, (full, blk) in enumerate(zip(tree_leaves(state[k]), res["blocks"])):
                 if _digest(full[tuple(slice(a, b) for a, b in blk)]) != res["shard_digest"][k][i]:
                     shard_mismatch.append((r, k, names[i]))
-    params_as_apply = [_digest(p) for p in tree_leaves(params)] == ranks[0]["params_digest"][0]
-    del params, state, payload
+    params_as_apply = all(
+        [_digest(p[tuple(slice(a, b) for a, b in blk)]) for p, blk in zip(tree_leaves(params), res["param_blocks"])]
+        == res["params_digest"][0] for res in ranks)
+    del params, state
     torch.cuda.empty_cache()
-
-    # 3. one process, global batch 8, from the same weights
-    args = train.build_parser().parse_args([
-        "--no-smoke", "--n-layers", str(DIST["n_layers"]), "--steps", str(DIST["steps"]),
-        "--batch", str(DIST["batch"]), "--seq", str(DIST["seq"]), "--compression", DIST["compression"],
-        "--seed", str(DIST["seed"]), "--lr", str(DIST["lr"])])
-    first = {}
-
-    def keep(step, loss, grads, payload, wire):
-        if step == 0:
-            first["grads"] = [g.cpu() for g in tree_leaves(grads)]
-
-    single = train.run(args, harness=harness, observe=keep)
-    mean_losses = [sum(r["losses"][s] for r in ranks) / world for s in range(DIST["steps"])]
+    # 3. against one process at the same global batch, from the same weights
+    synced = _assemble(harness, ranks, tmp, "grads")
+    shares = {}
+    for r in ranks:
+        shares[tuple(v for a, v in r["coord"].items() if a != "model")] = r["losses"]
+    mean_losses = [sum(x[s] for x in shares.values()) / len(shares) for s in range(spec["steps"])]
     loss_err = max(abs(a - b) for a, b in zip(mean_losses, single["losses"]))
     of_limit = [(a.float() - b.float()).abs().max().item() / (3e-2 * b.float().abs().max().item())
-                for a, b in zip(synced, first["grads"])]
+                for a, b in zip(synced, single["first_grads"])]
     worst = max(range(len(names)), key=lambda i: of_limit[i])
-    del synced, first
-    torch.cuda.empty_cache()
-    ccu = _ccu_dist_rows(harness)
-
-    out = {"arch": DIST["arch"], "n_layers": DIST["n_layers"], "params": single["params"],
-           "mesh": dict(zip(DIST["axes"], DIST["mesh"])), "ranks": world, "global_batch": DIST["batch"],
-           "seq": DIST["seq"], "steps": DIST["steps"], "compression": DIST["compression"],
+    del synced
+    out = {"arch": spec["arch"], "n_layers": spec["n_layers"], "params": single["params"],
+           "mesh": dict(zip(spec["axes"], spec["mesh"])), "ranks": world, "global_batch": spec["batch"],
+           "seq": spec["seq"], "steps": spec["steps"], "compression": spec["compression"],
            "transport": "gloo (torch.distributed), one process group a mesh axis; each CUDA tensor staged "
                         "through host memory; every sum in ccu_reduce on the card",
            "note": "four ranks share one card: the times measure the port's overhead and the kernels, "
@@ -2280,17 +2467,175 @@ def phase_dist() -> tuple[dict[str, int], dict]:
            "single_process": {"losses": single["losses"], "step_ms": single["step_ms"],
                               "peak_memory_gb": single["peak_memory_gb"]},
            "loss_max_abs_err": loss_err, "loss_limit": 3e-2,
-           "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst], "grad_limit": "3e-2 of the leaf's largest |g|",
+           "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
+           "grad_limit": "3e-2 of the leaf's largest |g|", "clip_norm": norm,
            "params_bit_identical_every_step": identical, "params_equal_adamw_apply": params_as_apply,
            "shards_equal_adamw_apply": not shard_mismatch, "shard_mismatches": shard_mismatch[:10],
            "launches_per_step_and_rank": ranks[0]["launches"][0], "expected_launches": expected,
-           "launches_as_expected": launches_ok, "spawn_to_exit_s": spawn_s, "ccu_reduce_p2": ccu}
-    emit("dist", **out)
+           "launches_as_expected": launches_ok}
     if not (identical and params_as_apply and not shard_mismatch and launches_ok and loss_err <= 3e-2
             and of_limit[worst] <= 1.0 and all(math.isfinite(x) for x in mean_losses)):
-        raise SystemExit(f"dist: a check failed: {out}")
-    summed = {k: sum(c[k] for r in ranks for c in r["launches"]) for k in expected}
-    return summed, ccu
+        raise SystemExit(f"dist {out['mesh']}: a check failed: {out}")
+    return out
+
+
+def _check_prefill(spec: dict, ranks: list[dict], tmp: str) -> dict:
+    """Prefill on the model axis against one process's prefill of the same
+    prompt on the same weights: each rank's last-token logits (its share's
+    rows) within 3e-2 of the largest |logit|, each rank's cache block within
+    3e-2 of the largest |value| of the matching slice of the one process's
+    cache; every rank launched flash once a layer."""
+    from repro_torch.configs import load
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    cell = ShapeCell("prefill", "prefill", spec["prompt_len"], spec["batch"])
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                       torch.bfloat16, "cuda")
+    cache = tree_init(harness.serve_state_specs(cell), None, None, "cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = harness.prefill(Runtime())(params, cache, _prompt(harness, spec))
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+    logits, cache = logits.cpu(), [c.cpu() for c in tree_leaves(cache)]
+    del params
+    torch.cuda.empty_cache()
+    largest = logits.float().abs().max().item()
+    logit_err, cache_of_limit = 0.0, 0.0
+    expected = {"flash_attention": spec["n_layers"], "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
+                "ccu_reduce": 0}
+    for r, res in enumerate(ranks):
+        got = torch.load(f"{tmp}/prefill_r{r}.pt")
+        blk = res["prefill"]["cache_blocks"][0]
+        rows = slice(blk[1][0], blk[1][1])                       # the cache's batch dim: the rank's rows
+        logit_err = max(logit_err, (got["logits"].float() - logits[rows].float()).abs().max().item())
+        for c, want, b in zip(got["cache"], cache, res["prefill"]["cache_blocks"]):
+            want = want[tuple(slice(x, y) for x, y in b)].float()
+            cache_of_limit = max(cache_of_limit,
+                                 (c.float() - want).abs().max().item() / (3e-2 * want.abs().max().item()))
+    launches = [r["prefill"]["launches"] for r in ranks]
+    out = {"arch": spec["arch"], "n_layers": spec["n_layers"], "batch": spec["batch"],
+           "prompt_len": spec["prompt_len"], "ms_by_rank": [r["prefill"]["ms"] for r in ranks],
+           "single_process_ms": single_ms, "wire_bytes_rank0": ranks[0]["prefill"]["wire_bytes"],
+           "logits_max_abs_err": logit_err, "largest_logit": largest, "logits_of_limit": logit_err / (3e-2 * largest),
+           "cache_worst_of_limit": cache_of_limit, "limit": "3e-2 of the largest |logit| / |cache value|",
+           "launches_by_rank": launches, "expected_launches": expected}
+    if not (logit_err <= 3e-2 * largest and cache_of_limit <= 1.0 and all(c == expected for c in launches)):
+        raise SystemExit(f"dist prefill on the model axis: a check failed: {out}")
+    return out
+
+
+def _check_dryrun(spec: dict, ranks: list[dict]) -> dict:
+    """``train_step.lower_bundle`` for the same cell over a fake process
+    group of the mesh's size, on the meta device (the dry-run's trace, the
+    plain path): its operand bytes by axis equal to what rank 0's transports
+    recorded in a warm step; its argument bytes (this rank's blocks) at or
+    below rank 0's measured peak."""
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_train_step, lower_bundle
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    t0 = time.perf_counter()
+    with fake_mesh(spec["mesh"], spec["axes"]) as mesh:
+        bundle = build_train_step(harness, ShapeCell("dist", "train", spec["seq"], spec["batch"]), mesh,
+                                  multi_pod="pod" in spec["axes"], opt_cfg=_dist_opt_cfg(),
+                                  compression=CompressionConfig(mode=spec["compression"]),
+                                  rules=make_rules(multi_pod="pod" in spec["axes"]), use_kernels=False)
+        low = lower_bundle(bundle, mesh)
+    measured = ranks[0]["wire_by_step"][-1]
+    peak = ranks[0]["peak_memory_gb"] * 1e9
+    out = {"mesh": dict(zip(spec["axes"], spec["mesh"])), "seconds": time.perf_counter() - t0,
+           "operand_bytes_by_axis": low["operand_bytes_by_axis"], "rank0_warm_step_bytes_by_axis": measured,
+           "equal": low["operand_bytes_by_axis"] == measured, "collectives": len(low["records"]),
+           "c10d_ops": low["c10d_ops"], "memory": low["memory"], "rank0_peak_bytes": peak,
+           "argument_bytes_at_or_below_peak": low["memory"]["argument_bytes"] <= peak,
+           "flops": low["flops"], "hbm_bytes_upper_bound": low["hbm_bytes"]}
+    if not (out["equal"] and out["argument_bytes_at_or_below_peak"] and low["c10d_ops"] == len(low["records"])):
+        raise SystemExit(f"dist dry-run against the run: {out}")
+    return out
+
+
+def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
+    """The ZeRO-1 train step on four ranks of one card, on two meshes
+    (``DIST``: (pod, data, model) = (2, 2, 1); ``DIST_MODEL``: (data, model)
+    = (2, 2), the dense family's sequence-parallel model axis, then prefill
+    on it), the ranks spawned once the kernels are built (``_dist_rank``),
+    then held here (``_check_mesh``): the params of every rank of a model
+    coordinate bit-identical after every step; each rank's ZeRO-1 shard of
+    master / m / v after the first step equal to ``adamw.apply`` of the
+    whole trees on the first step's synchronised payload (gathered from the
+    ranks' blocks) with the ranks' norm, bit for bit (digests); the mean of
+    the ranks' losses over the steps and the first step's synchronised
+    gradient within 3e-2 (of each leaf's largest |g|) of one process's step
+    at global batch 8 (``launch.train.run``, from the same drawn weights);
+    the launches of every step and rank equal to ``_dist_expected_launches``.
+    Then the prefill (``_check_prefill``), the dry-run's trace of the
+    model-axis cell against rank 0's recorded bytes (``_check_dryrun``), and
+    ``ccu_reduce`` at the P = 2 rows of both meshes (``_ccu_dist_rows``).
+    The four ranks share the card, so their times measure the port's
+    overhead and the kernels, not data-parallel scaling.  Returns each
+    path's summed launches and the ccu rows."""
+    import shutil
+
+    from repro_torch.configs import load
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_leaves
+
+    _build.build(["flash_attention", "moe_dispatch", "ssd_scan", "rwkv6_scan", "ccu_reduce"])   # built once, here
+    harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
+    names = list(_leaf_sizes(harness))
+    torch.cuda.empty_cache()
+    runs = {}
+    for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL)):
+        runs[key] = _spawn(spec)
+
+    # one process, global batch 8, from the same weights
+    args = train.build_parser().parse_args([
+        "--no-smoke", "--n-layers", str(DIST["n_layers"]), "--steps", str(DIST["steps"]),
+        "--batch", str(DIST["batch"]), "--seq", str(DIST["seq"]), "--compression", DIST["compression"],
+        "--seed", str(DIST["seed"]), "--lr", str(DIST["lr"])])
+    first = {}
+
+    def keep(step, loss, grads, payload, wire):
+        if step == 0:
+            first["grads"] = [g.cpu() for g in tree_leaves(grads)]
+
+    single = train.run(args, harness=harness, observe=keep)
+    single["first_grads"] = first.pop("grads")
+    torch.cuda.empty_cache()
+    by_path, ccu = {}, {}
+    for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL)):
+        ranks, spawn_s, tmp = runs[key]
+        out = _check_mesh(spec, ranks, tmp, harness, single, names)
+        if key == "dist_model":
+            out["dryrun"] = _check_dryrun(spec, ranks)
+            prefill = _check_prefill(spec["prefill"], ranks, tmp)
+            emit("dist_prefill", **prefill)
+            by_path[f"{spec['arch']} prefill on the model axis (4 ranks, {spec['n_layers']} layers)"] = {
+                k: sum(c[k] for c in prefill["launches_by_rank"]) for k in prefill["expected_launches"]}
+        shutil.rmtree(tmp, ignore_errors=True)
+        out["spawn_to_exit_s"] = spawn_s
+        emit(key, **out)
+        by_path[f"{spec['arch']} {key} {out['mesh']} ({len(ranks)} ranks, {spec['n_layers']} layers)"] = {
+            k: sum(c[k] for r in ranks for c in r["launches"]) for k in out["expected_launches"]}
+    ccu["p2_data"] = _ccu_dist_rows({k: (n // 2, 1) for k, n in _leaf_sizes(harness).items()},
+                                    (torch.bfloat16, torch.float32),
+                                    "P = 2 rows of N / 2 for each of the 12 leaves on the (2, 2, 1) mesh: bf16 "
+                                    "(reduce-scatter over data) and fp32 (all-reduce over pod); 24 launches a "
+                                    "step and rank")
+    ccu["p2_model"] = _ccu_dist_rows(_model_axis_rows(harness, DIST_MODEL), (torch.bfloat16,),
+                                     "P = 2 bf16 rows of half of each tensor gathered over model on the (2, 2) "
+                                     "mesh, the backward's reduce-scatters (a layer's 7 weights, K and V, once a "
+                                     "layer; the token table and the unembedding): 20 launches a step and rank")
+    return by_path, ccu
 
 
 def _tree_like(tree, leaves: list):
@@ -2382,11 +2727,11 @@ def main() -> int:
     if "train" in phases:
         by_path.update(phase_train())
     if "dist" in phases:
-        counts, ccu_p2 = phase_dist()
-        by_path[f"{DIST['arch']} dist ({math.prod(DIST['mesh'])} ranks, {DIST['n_layers']} layers)"] = counts
+        paths, ccu = phase_dist()
+        by_path.update(paths)
         for row in kernel_rows:
             if row["name"] == "ccu_reduce":
-                row["dist_rows"] = ccu_p2
+                row["dist_rows"], row["model_axis_rows"] = ccu["p2_data"], ccu["p2_model"]
     if "restart" in phases:
         emit("restart", **_restart_check())
     for row in kernel_rows:

@@ -49,7 +49,13 @@
 //     version.  Per tile: start S of the next tile and O += P.V of this one,
 //     then the next tile's softmax runs while O's product is on the tensor
 //     cores.  The output is staged through shared memory and written as
-//     16-byte rows.  At head_dim 256 (paligemma-3b) a block has two
+//     16-byte rows.  Rows that see more than FLUSH_TILES tiles (a model
+//     rank's rows far down a long sequence) add O into an fp32 copy in global
+//     memory every FLUSH_TILES tiles and restart it from zero: the tensor
+//     cores' fp32 accumulation rounds each addition against the
+//     accumulator's size, which over 32,768 keys moved outputs near zero past
+//     the one-ulp-plus-1e-5 limit; a sum of 2,048 keys stays within it, and
+//     the copies are added with fp32 FMAs.  Shorter rows never flush.  At head_dim 256 (paligemma-3b) a block has two
 //     warpgroups, each owning 128 of the output's columns: O alone would be
 //     128 fp32 registers a thread in one warpgroup.  Each warpgroup computes
 //     the same S and softmax of the block's rows itself (a third more
@@ -107,6 +113,7 @@ struct Params {
   long long o_sb, o_sk, o_sg, o_ss;
   int causal, window, prefix_len, q_start;   // window < 0: none
   float sm_scale;
+  float* acc;   // tensor-core kernel: fp32 copies of O flushed every FLUSH_TILES tiles (null: no flush)
 };
 
 // ---------------------------------------------------------------------------
@@ -126,10 +133,15 @@ struct TileFilter {
     if (window >= 0 && q_lo - k_hi >= window) return false;
     return true;
   }
-  // the first visible tile in [j, end), or end
+  // the first visible tile in [j, end), or end.  Under a causal mask no tile
+  // past both the last row's diagonal and the prefix is visible, so the scan
+  // stops there: rows near the start of a long key range (a model rank's
+  // share at q_start 0 against 32,768 keys) would otherwise step through
+  // every tile after their last, a few times a block.
   __device__ int next(int j, int end) const {
-    while (j < end && !visible(j)) ++j;
-    return j;
+    const int stop = causal ? min(end, max(q_hi, prefix_len - 1) / BN + 1) : end;
+    while (j < stop && !visible(j)) ++j;
+    return j < stop ? j : end;
   }
   // every key of tile j visible to every row in [q_lo, q_hi]: no mask needed
   __device__ bool full(int j) const {
@@ -210,6 +222,7 @@ namespace tc {
 constexpr int BM = 64;                 // folded rows in a block (wgmma m64)
 constexpr int KN = BN;                 // keys in a tile
 constexpr int STAGES = 3;              // the K/V ring
+constexpr int FLUSH_TILES = 32;        // O is flushed to the fp32 copy every 32 tiles (2,048 keys)
 
 template <int D>
 struct Layout {
@@ -408,6 +421,13 @@ __global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) fl
 #pragma unroll
   for (int i = 0; i < NO * 4; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // the flushed copy of this thread's O (element i at acc_t[i * NT]), kept at
+  // the running max m_acc; `since`: tiles added to o since the last flush
+  float* acc_t = p.acc == nullptr ? nullptr
+                 : p.acc + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * (NO * 4) * NT + tid;
+  float m_acc[2] = {NEG_INF, NEG_INF};
+  int since = 0;
+  bool flushed = false;
   // scores are kept times log2(e), for exp2
   const float scale = p.sm_scale * 1.4426950408889634f;
 
@@ -537,9 +557,28 @@ __global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) fl
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) hi[kk][e] = hi_n[kk][e], lo[kk][e] = lo_n[kk][e];
+      if (acc_t != nullptr && ++since == FLUSH_TILES) {
+        // o is at the running max m: the copy, at m_acc, is brought to m and o added
+        since = 0;
+        const float f0 = exp2_approx(m_acc[0] - m[0]), f1 = exp2_approx(m_acc[1] - m[1]);
+#pragma unroll
+        for (int i = 0; i < NO * 4; ++i) {
+          float* a = acc_t + i * NT;
+          *a = flushed ? fmaf(*a, (i & 2) ? f1 : f0, o[i]) : o[i];
+          o[i] = 0.f;
+        }
+        m_acc[0] = m[0];
+        m_acc[1] = m[1];
+        flushed = true;
+      }
     }
     stage = (stage + 1) % 3;
     j = jn;
+  }
+  if (flushed) {
+    const float f0 = exp2_approx(m_acc[0] - m[0]), f1 = exp2_approx(m_acc[1] - m[1]);
+#pragma unroll
+    for (int i = 0; i < NO * 4; ++i) o[i] = fmaf(acc_t[i * NT], (i & 2) ? f1 : f0, o[i]);
   }
   cp_async_wait<0>();
   __syncthreads();                       // the K/V ring is reused for the output
@@ -1105,12 +1144,13 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // Which kernel takes the call: folded rows <= 16 -> decode (split keys +
 // combine, either type); else bf16 -> tensor cores; else fp32 -> SIMT.
 template <int D>
-cudaError_t launch_dim(const Params& p, int dtype, float* part, int splits, cudaStream_t stream) {
+cudaError_t launch_dim(Params p, int dtype, float* part, int splits, cudaStream_t stream) {
   if (p.G * p.Sq <= dec::MAX_ROWS) {
     if (part == nullptr || splits < 1 || splits > dec::MAX_SPLITS) return cudaErrorInvalidValue;
     return dtype == 1 ? dec::launch<bf16, D>(p, part, splits, stream)
                       : dec::launch<float, D>(p, part, splits, stream);
   }
+  p.acc = part;    // the tensor-core kernel's flushed copies of O, where the rows are long
   return dtype == 1 ? tc::launch<D>(p, stream) : simt::launch<D>(p, stream);
 }
 
@@ -1119,7 +1159,9 @@ cudaError_t launch_dim(const Params& p, int dtype, float* part, int splits, cuda
 // dtype: 0 = float32, 1 = bfloat16.  strides: 14 element strides in the order
 // q(b,k,g,s) k(b,k,s) v(b,k,s) o(b,k,g,s); every innermost stride is 1.
 // window < 0 means no window.  `part` and `splits`: for G*Sq <= 16, fp32
-// workspace of B*K*splits*G*Sq*(D+2) floats and the number of key splits (else
+// workspace of B*K*splits*G*Sq*(D+2) floats and the number of key splits;
+// for bf16 with G*Sq > 16, null or (where Sk > 2,048) fp32 workspace of
+// ceil(G*Sq/64)*B*K*64*max(D,64) floats for O's flushed copies (`splits`
 // unused).  Returns the cudaError_t of the launches (0 = ok); it does not
 // synchronise.
 extern "C" int flash_attention_fwd(
@@ -1137,6 +1179,7 @@ extern "C" int flash_attention_fwd(
   p.o_sb = strides[10]; p.o_sk = strides[11]; p.o_sg = strides[12]; p.o_ss = strides[13];
   p.causal = causal; p.window = window; p.prefix_len = prefix_len; p.q_start = q_start;
   p.sm_scale = sm_scale;
+  p.acc = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* work = static_cast<float*>(part);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);

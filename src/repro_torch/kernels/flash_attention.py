@@ -30,7 +30,10 @@ whose notes say what each design does about that and what is left for later:
   that ``_launch`` allocates) a second kernel combines in a fixed order;
 - bf16 otherwise (prefill, training): wgmma on the tensor cores over a
   three-stage cp.async K/V ring, the next tile's scores overlapping this
-  tile's softmax;
+  tile's softmax; where ``Sk > FLUSH_KEYS`` (a model rank's rows down a long
+  sequence) ``_launch`` allocates a workspace into which the kernel flushes
+  its fp32 accumulator every ``FLUSH_KEYS`` keys (the tensor cores' fp32
+  sums round against the accumulator's size);
 - float32 otherwise (smoke sizes and tests): the first design, fp32 FMA.
 
 A call counts one launch, also where a decode step runs two kernels.
@@ -52,6 +55,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_ROWS = 16         # folded rows G * Sq up to which the decode kernels run
 KEY_TILE = 64            # keys in a kernel's tile
+FLUSH_KEYS = 32 * KEY_TILE   # keys after which the tensor-core kernel flushes O to an fp32 copy
 MAX_SPLITS = 128         # key splits the decode combine kernel takes
 
 
@@ -167,6 +171,9 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
     if G * Sq <= DECODE_ROWS:
         splits = decode_splits(B * K, Sk, _sm_count(q.device.index))
         part = torch.empty(B * K * splits * G * Sq * (D + 2), dtype=torch.float32, device=q.device)
+    elif q.dtype == torch.bfloat16 and Sk > FLUSH_KEYS:
+        # the tensor-core kernel's fp32 copies of O, flushed every FLUSH_KEYS keys
+        part = torch.empty(-(-G * Sq // 64) * B * K * 64 * max(D, 64), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

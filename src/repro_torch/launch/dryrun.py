@@ -1,0 +1,239 @@
+"""Multi-pod dry-run: trace every (arch x shape x mesh) cell on the meta
+device — port of ``repro/launch/dryrun.py`` (``analytic_model_flops``,
+``_probe_metrics``, ``extrapolated_metrics``, ``run_cell``, ``main``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --both-meshes
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --force
+
+The reference lowers and compiles each cell's jitted step on 256 or 512 host
+devices and reads XLA's analyses.  The port's step is eager, with explicit
+collectives, so the dry-run runs it: ``train_step.lower_bundle`` executes
+the cell's step once, as rank 0 of the production mesh (``(16, 16)`` =
+("data", "model"), or ``(2, 16, 16)`` with "pod") over a fake process group
+(``launch/mesh.fake_mesh``), on rank 0's blocks of the arguments as tensors
+on the ``meta`` device.  Nothing is allocated, computed or sent; every
+collective, product, operand and allocation is counted.  No kernel launches
+on ``meta``, so the **plain path** is traced (``"path": "plain"`` in each
+record): its attention materialises the ``(B, K, G, Sq, Sk)`` scores, so
+the bytes and the peak are upper bounds at attention.
+
+Each cell writes ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` with
+the reference's keys (``memory``, ``cost``, ``collectives`` with
+``by_kind``, ``roofline``, ``params``, ``status``) and, new here,
+``collectives.by_axis`` (ring wire bytes by mesh axis),
+``collectives.operand_bytes_by_axis`` (what the transports handed the
+process group) and ``path``.  The roofline's peaks are arguments
+(``--peak-flops``, ``--hbm-bw``, ``--link-bw``), an H100 SXM5's by default.
+Cells whose step is not ported to the model axis yet (decode; every family
+but the dense one) are written as ``"status": "skipped"`` with a reason
+naming ROADMAP A13; the reference's own ``skip_reason`` (``long_500k`` on
+full attention) is kept.
+
+The reference's counters come from probes at 1 and 2 unrolled layers,
+extrapolated linearly (XLA's cost analysis counts a scanned loop's body
+once).  The eager trace counts every layer, so the same extrapolation is
+exact here: ``run_cell`` also traces the full depth and records whether
+the two agree (``extrapolation_exact``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+import traceback
+
+from ..configs import ARCH_IDS, load
+from ..models.api import SHAPES
+from ..models.param import param_count
+from ..train.train_step import build_bundle, lower_bundle
+from .hlo_stats import Roofline, collective_stats
+from .mesh import fake_mesh, production_shape
+
+RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+# an H100 SXM5 (NVIDIA's data sheet): dense bf16, HBM3, NVLink 4 (900 GB/s
+# both ways, 450 GB/s each way)
+PEAK_FLOPS, HBM_BW, LINK_BW = 989e12, 3.35e12, 450e9
+NOT_PORTED = ("the {what} on the 'model' axis is not ported yet (ROADMAP A13: decode, and the model axis "
+              "of the VLM, MoE, SSM, hybrid and audio families)")
+
+
+def analytic_model_flops(harness, cell) -> float:
+    """MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE), over the whole mesh."""
+    n_params = param_count(harness.param_specs())
+    cfg = harness.cfg
+    moe = getattr(cfg, "moe", None)
+    if moe is not None:
+        # embedding + attention stay dense; experts scale by topk/E
+        from ..models.moe import moe_specs
+
+        expert_params = param_count(moe_specs(cfg.d_model, moe)) * cfg.n_layers
+        active = n_params - expert_params + expert_params * moe.topk / moe.n_experts
+    else:
+        active = n_params
+    tokens = cell.global_batch * cell.seq_len
+    if cell.kind == "train":
+        return 6.0 * active * tokens
+    if cell.kind == "prefill":
+        return 2.0 * active * tokens
+    return 2.0 * active * cell.global_batch       # decode: one token per sequence
+
+
+def not_ported(harness, cell) -> str | None:
+    """Why the port cannot build this cell on the production mesh yet."""
+    if harness.family != "dense":
+        return NOT_PORTED.format(what=f"{harness.family} family")
+    if cell.kind == "decode":
+        return NOT_PORTED.format(what="decode step")
+    return None
+
+
+def _probe_metrics(harness, cell, mesh, multi_pod) -> dict:
+    """One trace of the cell's step (``lower_bundle``) and its per-device
+    counters."""
+    bundle = build_bundle(harness, cell, mesh, multi_pod=multi_pod, use_kernels=False)
+    low = lower_bundle(bundle, mesh)
+    coll = collective_stats(low["records"])
+    return {
+        "flops": float(low["flops"]),
+        "hbm": float(low["hbm_bytes"]),
+        "wire": float(coll.wire_bytes),
+        "ops": coll.count,
+        "by_kind": dict(coll.by_kind),
+        "by_axis": dict(coll.by_axis),
+        "operand_bytes_by_axis": low["operand_bytes_by_axis"],
+        "c10d_ops": low["c10d_ops"],
+        "memory": low["memory"],
+    }
+
+
+def extrapolated_metrics(harness, cell, mesh, multi_pod) -> dict:
+    """Per-device (flops, hbm bytes, wire bytes) at the FULL depth from
+    probes at 1 and 2 layers, ``f1 + (L - 1)(f2 - f1)``: the dense family's
+    branch of the reference (the others wait for ROADMAP A13)."""
+    if harness.family != "dense":
+        raise ValueError(NOT_PORTED.format(what=f"{harness.family} family"))
+    keys = ("flops", "hbm", "wire")
+    L_full = harness.cfg.n_layers
+    f1, f2 = (_probe_metrics(harness.clone(n_layers=n), cell, mesh, multi_pod) for n in (1, 2))
+    out = {k: f1[k] + (L_full - 1) * (f2[k] - f1[k]) for k in keys}
+    for part in ("by_kind", "by_axis", "operand_bytes_by_axis"):
+        out[part] = {kk: f1[part].get(kk, 0.0) + (L_full - 1) * (f2[part].get(kk, 0.0) - f1[part].get(kk, 0.0))
+                     for kk in set(f1[part]) | set(f2[part])}
+    return out
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool, probes: bool = True, *, peak_flops: float = PEAK_FLOPS,
+             hbm_bw: float = HBM_BW, link_bw: float = LINK_BW) -> dict:
+    harness = load(arch)
+    cell = SHAPES[shape]
+    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "kind": cell.kind, "status": "ok", "path": "plain"}
+    skip = harness.skip_reason(shape) or not_ported(harness, cell)
+    if skip:
+        rec.update(status="skipped", reason=skip)
+        return rec
+
+    dims, axes = production_shape(multi_pod)
+    chips = 512 if multi_pod else 256
+    with fake_mesh(dims, axes) as mesh:
+        # ---- the full-depth step, traced once ----------------------------
+        t0 = time.time()
+        full = _probe_metrics(harness, cell, mesh, multi_pod)
+        rec["lower_s"] = round(time.time() - t0, 1)
+        mem = full["memory"]
+        rec["memory"] = {
+            "argument_bytes": mem["argument_bytes"],
+            "output_bytes": mem["output_bytes"],
+            "temp_bytes": mem["temp_bytes"],
+            "alias_bytes": mem["alias_bytes"],
+            "peak_per_device_gb": round(mem["peak_bytes"] / 1e9, 3),
+        }
+        # ---- cost counters: probe-extrapolated, as the reference's --------
+        t1 = time.time()
+        if probes:
+            metrics = extrapolated_metrics(harness, cell, mesh, multi_pod)
+            rec["extrapolation_exact"] = all(metrics[k] == full[k] for k in ("flops", "hbm", "wire"))
+        else:
+            metrics = full
+            rec["counters"] = "full-depth eager trace (every layer counted)"
+        rec["probe_s"] = round(time.time() - t1, 1)
+
+    roof = Roofline(flops=metrics["flops"], hbm_bytes=metrics["hbm"], wire_bytes=metrics["wire"],
+                    model_flops=analytic_model_flops(harness, cell) / chips,
+                    peak_flops=peak_flops, hbm_bw=hbm_bw, link_bw=link_bw)
+    rec["cost"] = {"flops_per_device": metrics["flops"], "hbm_bytes_per_device": metrics["hbm"]}
+    rec["collectives"] = {
+        "wire_bytes_per_device": metrics["wire"],
+        "by_kind": metrics.get("by_kind", {}),
+        "by_axis": metrics.get("by_axis", {}),
+        "operand_bytes_by_axis": metrics.get("operand_bytes_by_axis", {}),
+        "count": full["ops"],
+        "c10d_ops": full["c10d_ops"],
+    }
+    rec["roofline"] = roof.to_dict()
+    rec["params"] = param_count(harness.param_specs())
+    return rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", type=str, default=None)
+    ap.add_argument("--shape", type=str, default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--no-probes", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--peak-flops", type=float, default=PEAK_FLOPS, help="FLOP/s of one device (H100 SXM5 bf16)")
+    ap.add_argument("--hbm-bw", type=float, default=HBM_BW, help="memory B/s of one device (H100 SXM5 HBM3)")
+    ap.add_argument("--link-bw", type=float, default=LINK_BW,
+                    help="B/s one device sends on its links (H100 SXM5 NVLink 4, each way)")
+    args = ap.parse_args()
+
+    RESULTS.mkdir(parents=True, exist_ok=True)
+    cells: list[tuple[str, str, bool]] = []
+    if args.all:
+        cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in (False, True)]
+    else:
+        arches = [args.arch] if args.arch else ARCH_IDS
+        shapes = [args.shape] if args.shape else list(SHAPES)
+        meshes = [args.multi_pod] if not args.both_meshes else [False, True]
+        cells = [(a, s, m) for a in arches for s in shapes for m in meshes]
+
+    failures = 0
+    for arch, shape, mp in cells:
+        mesh_name = "pod2x16x16" if mp else "pod16x16"
+        out = RESULTS / f"{arch.replace('-', '_')}__{shape}__{mesh_name}.json"
+        if out.exists() and not args.force:
+            rec = json.loads(out.read_text())
+            if rec.get("status") in ("ok", "skipped"):
+                print(f"[dryrun] {arch:16s} {shape:12s} {mesh_name:10s} cached", flush=True)
+                continue
+        try:
+            rec = run_cell(arch, shape, mp, probes=not args.no_probes, peak_flops=args.peak_flops,
+                           hbm_bw=args.hbm_bw, link_bw=args.link_bw)
+        except Exception as e:  # noqa: BLE001
+            traceback.print_exc()
+            rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "status": "error",
+                   "error": f"{type(e).__name__}: {e}"}
+            failures += 1
+        out.write_text(json.dumps(rec, indent=2))
+        status = rec["status"]
+        extra = ""
+        if status == "ok":
+            extra = (f" mem={rec['memory']['peak_per_device_gb']}GB"
+                     f" flops/dev={rec['cost']['flops_per_device']:.3e}"
+                     f" wire/dev={rec['collectives']['wire_bytes_per_device']:.3e}B"
+                     f" bottleneck={rec['roofline']['bottleneck']}"
+                     f" lower={rec['lower_s']}s")
+        elif status == "skipped":
+            extra = f" ({rec['reason'][:60]})"
+        print(f"[dryrun] {arch:16s} {shape:12s} {mesh_name:10s} {status}{extra}", flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

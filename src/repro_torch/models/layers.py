@@ -2,8 +2,18 @@
 
 All layers are plain functions ``(rt, params, x, ...) -> y`` on tensors and
 nested dicts of tensors with the reference's keys and shapes (weights stay
-``(in, out)``).  ``rt`` is a :class:`Runtime`; this slice runs on one device,
-so ``rules`` is always None and ``shard`` is the identity.
+``(in, out)``).  ``rt`` is a :class:`Runtime`.  Each rank runs eagerly on
+its own tensors, so there is no sharding constraint to hand a compiler:
+``rules`` stays None and ``shard`` is the identity.  ``rt.model``, where
+the mesh's "model" axis has more than one rank, is that axis
+(``parallel.collectives.ModelAxis``): the tokens a layer sees are then the
+rank's positions ``[r·S/m, (r+1)·S/m)`` of each sequence (the rules' ``sp``
+placement), and ``attention`` gathers the keys and values of the whole
+sequence over the axis before it attends (``rt.seq_offset``, the query
+rows' first position, is the causal mask's and the kernel's ``q_start``).
+The weights arrive whole: the transformer gathers them
+(``models/transformer.py``).  ``embed``, ``unembed`` and
+``cross_entropy`` are per-token and run on the local tokens as they are.
 
 Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 ``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention`` (with
@@ -45,13 +55,20 @@ from .param import ParamSpec
 class Runtime:
     """Context threaded through every layer."""
 
-    rules: Any = None            # sharding rules: None until the distribution slice
+    rules: Any = None            # sharding constraints: not ported (each rank's tensors are local)
     use_kernels: bool = True     # attention, MoE dispatch, SSD and RWKV-6 scans through the hand-written kernels
+    model: Any = None            # the "model" axis (parallel.collectives.ModelAxis) where it has > 1 rank
 
     def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
         if self.rules is not None:
-            raise NotImplementedError("sharding rules come with the distribution slice")
+            raise NotImplementedError("sharding constraints are not ported: each rank's tensors are its "
+                                      "local blocks (Runtime.model carries the sequence-parallel axis)")
         return x
+
+    def seq_offset(self, s_local: int) -> int:
+        """The first global position of this rank's ``s_local`` tokens of
+        each sequence: 0 without a model axis."""
+        return 0 if self.model is None else self.model.rank * s_local
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +251,15 @@ def attention(
     as an integer and attends over the keys ``[0, cache_pos + S)`` of the
     cache.  The reference attends over the whole cache with the causal mask
     hiding the rest, which is the same: those probabilities are exactly 0.
+
+    On the model axis (``rt.model``) the rank's ``S`` query rows are the
+    positions ``rt.seq_offset(S) + 0 .. S - 1`` (``positions``); their keys
+    and values are gathered over the axis along the sequence, and the rows
+    attend to all of them: the kernel with ``q_start`` at the offset, the
+    plain path with the mask of ``positions`` against ``0 .. Sk - 1``.
+    With a cache (prefill; its sequence is the rules' ``cache_seq``,
+    sharded on the axis) each rank writes its own positions' keys and
+    values into its block of the cache, from 0.
     """
     B, S, D = x.shape
     N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -256,7 +282,18 @@ def attention(
 
     q_start = 0
     new_cache = None
-    if kv_cache is not None:
+    gathered = rt.model is not None and kv_override is None
+    if gathered:
+        if kv_cache is not None:
+            if cache_pos is None or int(cache_pos) != 0 or kv_cache[0].shape[1] != S:
+                raise NotImplementedError("decode on the model axis is not ported (ROADMAP A13): a cache "
+                                          "block is written from 0 by a prefill of its own positions")
+            kv_cache[0][:, :S] = k.to(kv_cache[0].dtype)
+            kv_cache[1][:, :S] = v.to(kv_cache[1].dtype)
+            new_cache = kv_cache
+        k, v = rt.model.gather(k, 1), rt.model.gather(v, 1)
+        q_start = rt.seq_offset(S)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         if cache_pos is not None:
             q_start = int(cache_pos)
@@ -269,7 +306,7 @@ def attention(
         if kv_override is not None:
             mask = dict(causal=False, window=None, prefix_len=0, q_start=0)
         else:
-            if kv_cache is not None:
+            if kv_cache is not None and not gathered:
                 k, v = k[:, :q_start + S], v[:, :q_start + S]
             mask = dict(causal=cfg.causal, window=cfg.window, prefix_len=cfg.prefix_len, q_start=q_start)
         out = ops.flash_attention_bsnd(q, k.to(q.dtype), v.to(q.dtype), **mask)
@@ -277,7 +314,7 @@ def attention(
         bias = None
         if kv_override is None:
             k_pos = (
-                torch.arange(k.shape[1], device=x.device) if kv_cache is not None
+                torch.arange(k.shape[1], device=x.device) if kv_cache is not None or gathered
                 else positions
             )
             bias = _mask_bias(positions, k_pos, cfg.causal, cfg.window, cfg.prefix_len)

@@ -22,6 +22,18 @@ no prefix: its causal mask already shows every prefix key.
 Each block runs under the config's ``remat_policy`` (``remat.remat``): under
 ``"nothing"`` and ``"dots"`` a layer's attention runs twice a training step,
 once in the forward and once in the recompute.
+
+On the "model" axis (``rt.model``, the dense family's train step and
+prefill, ``train/train_step.py``) a rank holds the positions ``[r·S/m,
+(r+1)·S/m)`` of each sequence and its model shard of each weight the rules
+shard on the axis.  ``forward``, ``loss_fn`` and ``prefill`` offset the
+positions by ``rt.seq_offset``; each block's sharded weights are gathered
+whole at the top of ``_block`` (inside the remat body, so the recompute
+gathers them again; the reference's GSPMD gathers of sp-sharded weights),
+the token table in ``_embed`` and ``unembed`` before the logits.
+``loss_fn`` divides the local mean by the axis's size, so that the ranks'
+losses sum to the mean over the sequences' tokens; ``prefill`` returns the
+last model rank's last-token logits on every rank.
 """
 
 from __future__ import annotations
@@ -127,6 +139,12 @@ def lm_specs(cfg: LMConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _whole(rt: L.Runtime, p: dict, specs_of, cfg: LMConfig) -> dict:
+    """``p`` with each leaf that the rules shard on the model axis gathered
+    whole, by the specs ``specs_of(cfg)`` (only the keys of ``p`` are read)."""
+    return p if rt.model is None else rt.model.gather_tree(p, specs_of(cfg))
+
+
 def _block(
     rt: L.Runtime,
     cfg: LMConfig,
@@ -137,6 +155,7 @@ def _block(
     cache_pos: int | None = None,
     prefix: int = 0,
 ):
+    p = _whole(rt, p, block_specs, cfg)
     h = _apply_norm(cfg, p["ln1"], x)
     a, new_cache = L.attention(
         rt, p["attn"], h, cfg.attn(prefix), positions, cache, cache_pos
@@ -156,12 +175,20 @@ def _block(
 
 def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor,
            prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    x = L.embed(rt, params["embed"], tokens)
+    x = L.embed(rt, _whole(rt, {"tok": params["embed"]["tok"]}, _embed_specs, cfg), tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x.to(cfg.dtype)
+
+
+def _embed_specs(cfg: LMConfig) -> dict:
+    return L.embed_specs(cfg.vocab_padded, cfg.d_model)
+
+
+def _unembed(rt: L.Runtime, cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    return L.unembed(rt, _whole(rt, {"unembed": params["embed"]["unembed"]}, _embed_specs, cfg), x)
 
 
 def forward(
@@ -177,7 +204,7 @@ def forward(
     params = cast_floats(params, cfg.dtype)
     x = _embed(rt, cfg, params, tokens, prefix_embeds)
     prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
 
     def body(h, lp):
         h, _, a = _block(rt, cfg, lp, h, positions, prefix=prefix)
@@ -189,13 +216,16 @@ def forward(
         x, a = block(x, lp)
         aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed(rt, params["embed"], x)
+    logits = _unembed(rt, cfg, params, x)
     return (logits[:, prefix:] if prefix else logits), aux
 
 
 def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
     logits, aux = forward(rt, cfg, params, batch["tokens"], batch.get("prefix_embeds"))
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
+    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    if rt.model is not None:            # this rank's share of the mean over the whole sequences
+        ce = ce / rt.model.size
+    return ce + aux
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +245,7 @@ def _serve(rt, cfg, params, tokens, cache, pos: int, prefix_embeds=None) -> tupl
     params = cast_floats(params, cfg.dtype)
     x = _embed(rt, cfg, params, tokens, prefix_embeds)
     prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    positions = pos + torch.arange(x.shape[1], device=x.device)
+    positions = pos + rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
         x, _, _ = _block(
             rt, cfg, lp, x, positions,
@@ -234,7 +264,8 @@ def prefill(
 ) -> tuple[torch.Tensor, dict]:
     """Populate the cache positions [0, P + S); return last-token logits."""
     x, params = _serve(rt, cfg, params, tokens, cache, 0, prefix_embeds)
-    return L.unembed(rt, params["embed"], x[:, -1:]), cache
+    logits = _unembed(rt, cfg, params, x[:, -1:])
+    return (logits if rt.model is None else rt.model.last(logits)), cache
 
 
 def decode_step(
@@ -247,4 +278,4 @@ def decode_step(
 ) -> tuple[torch.Tensor, dict]:
     """One autoregressive step against a populated cache."""
     x, params = _serve(rt, cfg, params, tokens, cache, int(pos))
-    return L.unembed(rt, params["embed"], x), cache
+    return _unembed(rt, cfg, params, x), cache

@@ -81,12 +81,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def step_scalars(cfg: OptConfig, grads, state: dict) -> dict:
+def step_scalars(cfg: OptConfig, grads, state: dict, gnorm: torch.Tensor | None = None) -> dict:
     """What one update needs beside each leaf: the next step, the learning
-    rate, the global norm of ``grads`` (already in ``grad_dtype``), the clip
-    factor and the bias corrections, in the reference's order."""
+    rate, the global norm of ``grads`` (already in ``grad_dtype``; or
+    ``gnorm``, where a caller holding shards of the tree reduced it), the
+    clip factor and the bias corrections, in the reference's order."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     return {"step": step, "lr": schedule(cfg, state["step"]), "gnorm": gnorm,
             "scale": torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0),
             "bc1": 1.0 - torch.pow(cfg.b1, step.to(torch.float32)),

@@ -47,8 +47,10 @@ class CompressionConfig:
     ef: bool = True             # error feedback (int8 mode)
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().amax(), min=1e-12) / 127.0
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``amax``, if given, stands for ``max|x|`` (of a whole tensor whose
+    shard ``x`` is)."""
+    scale = torch.clamp(x.abs().amax() if amax is None else amax, min=1e-12) / 127.0
     q = (x / scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale
 
@@ -59,7 +61,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compress_grads(cfg: CompressionConfig, grads, residual=None, *, use_kernels: bool = True,
-                   wire: list | None = None):
+                   wire: list | None = None, amax: list | None = None):
     """Returns (payload_grads, new_residual).
 
     int8: g' = Q(g + residual); residual' = (g + residual) - deQ(g'), the
@@ -67,7 +69,10 @@ def compress_grads(cfg: CompressionConfig, grads, residual=None, *, use_kernels:
     ``use_kernels`` is off).  Leaf by leaf, so the fp32 temporaries of one
     leaf are the peak; a residual passed in is updated in place and returned.
     A ``wire`` list, if given, receives each leaf's int8 values and scale
-    ``(q, scale)``, in leaf order.
+    ``(q, scale)``, in leaf order.  ``amax``, if given, holds each leaf's
+    ``max|g + residual|`` in leaf order, for a caller whose leaves are
+    shards of the whole gradient (the model axis of ``train/train_step.py``
+    takes the max over its ranks): each scale is then the whole leaf's.
     """
     if cfg.mode == "none":
         return grads, residual
@@ -81,9 +86,10 @@ def compress_grads(cfg: CompressionConfig, grads, residual=None, *, use_kernels:
 
     reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
     payload = {}
-    for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
+    leaves = zip(tree_leaves(grads), tree_leaves(residual))
+    for i, (g, r) in enumerate(leaves):
         acc = g.to(torch.float32) + r if cfg.ef else g.to(torch.float32)
-        q, scale = quantize_int8(acc)
+        q, scale = quantize_int8(acc, None if amax is None else amax[i])
         deq = reduce(q.reshape(1, -1), scale.reshape(1)).reshape(q.shape)
         if wire is not None:
             wire.append((q, scale))

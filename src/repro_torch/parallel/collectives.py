@@ -48,17 +48,48 @@ card, in ``ccu_reduce``.
 Each returned function counts in ``fn.wire_bytes`` (axis -> bytes) the
 operand bytes of every collective it issues, under each axis the collective's
 group spans: the port's counterpart of what the reference's test reads from
-the compiled HLO (the operand size of each all-reduce).
+the compiled HLO (the operand size of each all-reduce).  A caller may hand
+one ``wire`` dict to several functions, as the train step does, to count a
+whole step.  Inside ``with recording() as records:`` (the dry-run's
+``lower_bundle``) every transport also lists each collective it issues as
+``(kind, result bytes, group size, axes)``, the HLO kinds of
+``repro/launch/hlo_stats.py`` (``all-gather``, ``all-to-all``,
+``reduce-scatter`` for an exchange whose rows are then summed,
+``collective-permute`` for a send), which
+``repro_torch.launch.hlo_stats.collective_stats`` prices with the
+reference's ring conventions; outside one nothing is kept, so a long run
+holds no more than the counters.  ``operand_bytes_by_axis(records)`` gives
+back the operand bytes by axis from the records alone.
+
+The model axis (``ModelAxis``): the sequence-parallel scheme of the sharding
+rules (``parallel/sharding.py``: activations sharded on "model" along the
+sequence, the weight dims ``qkv``/``kv``/``ff``/``table_embed``/``vocab``
+too).  ``gather`` is an all-gather along one tensor dim whose backward is a
+reduce-scatter (an exchange of chunks, then one ``ccu_reduce`` of the
+``(P, chunk)`` rows), so the gradient a rank gets for its shard is summed
+over every model rank's use of the gathered tensor; ``sum`` is the
+all-reduce of a small tensor (a gather of the rows, then one
+``ccu_reduce``).  The GSPMD partitioner inserts the same pairs for the
+reference.
+
+A fake process group (``torch.testing._internal.distributed.fake_pg``, the
+dry-run's ``launch/mesh.fake_mesh``) takes every call and moves nothing; its
+tensors are on the ``meta`` device, so nothing is staged either, and every
+collective is recorded as on a real group.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
+from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..kernels import ops
+from ..models.param import tree_map
 
 
 def axis_group(mesh, axes: tuple[str, ...]):
@@ -76,6 +107,34 @@ def axis_group(mesh, axes: tuple[str, ...]):
     return group
 
 
+_RECORDING: list[list] = []      # the lists of the open ``recording`` blocks
+
+
+@contextmanager
+def recording():
+    """Inside the block, every collective a transport issues is appended to
+    the list it yields as ``(kind, result bytes, group size, axes)``."""
+    records: list = []
+    _RECORDING.append(records)
+    try:
+        yield records
+    finally:
+        _RECORDING.remove(records)
+
+
+def operand_bytes_by_axis(records) -> dict[str, int]:
+    """The operand bytes of ``records`` under each axis their groups span,
+    as ``fn.wire_bytes`` counts them: an all-gather's operand is its result
+    over the group size, a reduce-scatter's its result times the group
+    size, an all-to-all's and a send's its result."""
+    out: dict[str, int] = {}
+    for kind, nbytes, n, axes in records:
+        operand = nbytes // n if kind == "all-gather" else nbytes * n if kind == "reduce-scatter" else nbytes
+        for a in axes:
+            out[a] = out.get(a, 0) + operand
+    return out
+
+
 class Transport:
     """Moves bytes among the peers of one group of mesh axes; never sums.
     gloo groups stage CUDA tensors through host memory (module docstring)."""
@@ -91,10 +150,14 @@ class Transport:
         for a in self.axes:
             wire_bytes.setdefault(a, 0)
 
-    def _out(self, x: torch.Tensor) -> torch.Tensor:
-        """The tensor the backend sees for ``x``, counted on the wire."""
+    def _out(self, x: torch.Tensor, kind: str, result_bytes: int) -> torch.Tensor:
+        """The tensor the backend sees for ``x``, counted on the wire and,
+        inside ``recording``, recorded as one collective of ``kind``."""
+        nbytes = x.numel() * x.element_size()
         for a in self.axes:
-            self.wire_bytes[a] += x.numel() * x.element_size()
+            self.wire_bytes[a] += nbytes
+        for records in _RECORDING:
+            records.append((kind, result_bytes, self.size, self.axes))
         x = x.contiguous()
         return x.cpu() if self.staged and x.is_cuda else x
 
@@ -105,7 +168,7 @@ class Transport:
     def all_gather(self, x: torch.Tensor, *, async_op: bool = False):
         """``(P, *x.shape)``, row p from group rank p.  With ``async_op`` the
         gather is issued and a function returned that waits for it."""
-        src = self._out(x)
+        src = self._out(x, "all-gather", self.size * x.numel() * x.element_size())
         out = self._buffer((self.size, *x.shape), x)
         work = dist.all_gather(list(out.unbind(0)), src, group=self.group, async_op=async_op)
 
@@ -116,12 +179,14 @@ class Transport:
 
         return finish if async_op else finish()
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, x: torch.Tensor, *, kind: str = "all-to-all") -> torch.Tensor:
         """``x (P, ...)``: row p goes to group rank p; row p of the result
-        came from group rank p."""
+        came from group rank p.  ``kind="reduce-scatter"`` records an
+        exchange whose rows the caller sums: its result is one row."""
         if x.shape[0] != self.size:
             raise ValueError(f"all_to_all over {self.axes} needs {self.size} rows, got {tuple(x.shape)}")
-        src = self._out(x)
+        nbytes = x.numel() * x.element_size()
+        src = self._out(x, kind, nbytes // self.size if kind == "reduce-scatter" else nbytes)
         out = self._buffer(x.shape, x)
         dist.all_to_all_single(out, src, group=self.group)
         return out.to(x.device)
@@ -129,7 +194,7 @@ class Transport:
     def isend(self, x: torch.Tensor, peer: int):
         """Send ``x`` to group rank ``peer``; returns a function that waits
         for the send (and keeps its buffer alive until then)."""
-        src = self._out(x)
+        src = self._out(x, "collective-permute", x.numel() * x.element_size())
         work = dist.isend(src, dst=self.ranks[peer], group=self.group)
 
         def finish() -> torch.Tensor:
@@ -151,10 +216,12 @@ class Transport:
         return finish
 
 
-def hierarchical_allreduce(mesh, fast_axis: str, slow_axes: tuple[str, ...]):
+def hierarchical_allreduce(mesh, fast_axis: str, slow_axes: tuple[str, ...], *,
+                           reduce: Callable = ops.ccu_reduce, wire: dict | None = None):
     """Returns fn(x) -> the sum of every rank's x over (fast, *slow), fp32,
-    as RS(fast) -> AR(slow) -> AG(fast), every sum one ``ccu_reduce``."""
-    wire: dict[str, int] = {}
+    as RS(fast) -> AR(slow) -> AG(fast), every sum one ``reduce``
+    (``ops.ccu_reduce``; its plain version on the plain path)."""
+    wire = {} if wire is None else wire
     fast = Transport(mesh, (fast_axis,), wire)
     slows = [Transport(mesh, (ax,), wire) for ax in slow_axes]
 
@@ -166,10 +233,10 @@ def hierarchical_allreduce(mesh, fast_axis: str, slow_axes: tuple[str, ...]):
         if c * n != N:
             flat = torch.cat([flat, flat.new_zeros(c * n - N)])
         # reduce-scatter over the fast axis: each fast rank owns chunk `rank`
-        part = ops.ccu_reduce(fast.all_to_all(flat.view(n, c)))
+        part = reduce(fast.all_to_all(flat.view(n, c), kind="reduce-scatter"))
         # all-reduce the owned chunk over the slow (long-range) axes
         for t in slows:
-            part = ops.ccu_reduce(t.all_gather(part))
+            part = reduce(t.all_gather(part))
         # gather the fast axis back
         return fast.all_gather(part).view(-1)[:N].view(x.shape)
 
@@ -233,3 +300,89 @@ def hierarchical_all_to_all(mesh, intra_axis: str, inter_axis: str):
 
     fn.wire_bytes = wire
     return fn
+
+
+# ---------------------------------------------------------------------------
+# the model axis: gathers whose backward is a reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def _reduce_scatter(t: Transport, reduce: Callable, g: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of every rank's ``g``:
+    chunk p of each rank's ``g`` sent to rank p, the ``(P, chunk)`` rows
+    received summed by one ``reduce`` in rank order, rounded once to
+    ``g``'s type."""
+    P = t.size
+    chunks = g.unflatten(dim, (P, g.shape[dim] // P)).movedim(dim, 0).contiguous()
+    rows = t.all_to_all(chunks, kind="reduce-scatter")
+    return reduce(rows.reshape(P, -1)).view(chunks.shape[1:]).to(g.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` (forward), reduce-scatter of the gradient
+    along ``dim`` (backward)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: "ModelAxis", dim: int):
+        ctx.axis, ctx.dim = axis, dim
+        with record_function("model.gather"):
+            parts = axis.transport.all_gather(x)                   # (P, *x.shape)
+            return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        with record_function("model.reduce_scatter"):
+            return _reduce_scatter(axis.transport, axis.reduce, g, ctx.dim), None, None
+
+
+class ModelAxis:
+    """One rank's view of the "model" mesh axis, the sequence-parallel
+    domain: ``gather`` (autograd-aware), ``sum`` (every rank the same bits),
+    ``last`` (the last model rank's tensor, on every rank), the rank's
+    position ``rank`` of ``size``, and ``gather_dim``, the dim of a weight
+    that the rules shard on "model" (None where none is)."""
+
+    axis = "model"
+
+    def __init__(self, mesh, rules, *, reduce: Callable = ops.ccu_reduce, wire: dict | None = None):
+        self.rules = rules
+        self.reduce = reduce
+        self.transport = Transport(mesh, (self.axis,), {} if wire is None else wire)
+        self.rank, self.size = self.transport.rank, self.transport.size
+
+    def gather_dim(self, logical: tuple) -> int | None:
+        """The tensor dim that the rules put on this axis, or None."""
+        for d, entry in enumerate(self.rules.pspec(logical)):
+            if entry is not None and self.axis in ((entry,) if isinstance(entry, str) else entry):
+                return d
+        return None
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of ``x`` along ``dim``, cut in rank order; the gradient
+        a rank gets back is the sum of every rank's for its own chunk."""
+        return _Gather.apply(x, self, dim)
+
+    def gather_tree(self, tree, spec_tree):
+        """Each leaf sharded on this axis (by its spec's logical axes)
+        gathered whole; the others as they are."""
+
+        def one(x, spec):
+            d = self.gather_dim(spec.logical)
+            return x if d is None else self.gather(x, d)
+
+        return tree_map(one, tree, spec_tree)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x`` (no autograd), fp32: the rows
+        gathered and summed by one ``reduce`` in rank order."""
+        with record_function("model.sum"):
+            return self.reduce(self.transport.all_gather(x.reshape(-1))).view(x.shape)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's ``x`` (exact in any order)."""
+        return self.transport.all_gather(x).amax(0)
+
+    def last(self, x: torch.Tensor) -> torch.Tensor:
+        """The last model rank's ``x`` (no autograd), on every rank."""
+        return self.transport.all_gather(x)[-1]

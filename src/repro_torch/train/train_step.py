@@ -1,56 +1,88 @@
 """Train and serve step builders — port of ``repro/train/train_step.py``
 (``StepBundle``, ``build_train_step``, ``build_serve_step``,
-``build_bundle``).
+``build_bundle``, ``lower_bundle``).
 
-A bundle carries the step's ``fn``, the placements of its inputs and outputs
-on the ``DeviceMesh`` (``in_shardings`` / ``out_shardings``: for each leaf a
-list of ``Shard(dim)`` / ``Replicate()``, one a mesh dim, from the
-harness's logical axes and the topology-aware rules of
-``parallel/sharding.py``; the optimizer state under the ZeRO-1 specs) and
-``abstract_args``, the arguments' global shapes and types as tensors on the
-``meta`` device.  The reference's ``lower_bundle`` (the dry-run's entry
-point) comes with the dry-run (ROADMAP A11).
+A bundle carries the step's ``fn``, the partition specs of its inputs and
+outputs (``in_pspecs`` / ``out_pspecs``, from the harness's logical axes and
+the topology-aware rules of ``parallel/sharding.py``; the optimizer state
+under the ZeRO-1 specs), their placements on the ``DeviceMesh``
+(``in_shardings`` / ``out_shardings``: for each leaf a list of
+``Shard(dim)`` / ``Replicate()``, one a mesh dim) and ``abstract_args``, the
+arguments' global shapes and types as tensors on the ``meta`` device.
 
 The reference hands ``fn`` to ``jit`` and XLA inserts the collectives.  The
-port runs eagerly on each rank, so ``fn`` takes the rank's own tensors and
-does the data-parallel step itself, in the reference's order
+port runs eagerly on each rank, so ``fn`` takes the rank's own tensors (its
+block of each argument under ``in_pspecs``) and does the collectives
+itself, every sum of them through ``ccu_reduce`` (its plain version on the
+plain path, ``use_kernels=False``), in the reference's order
 (``train_step``, ``:81-86``):
 
-1. the loss and the gradients on the rank's share of the batch;
+1. the loss and the gradients on the rank's share of the batch.  Where the
+   mesh's "model" axis has more than one rank (the dense family; the others
+   wait for ROADMAP A13) the rank holds the positions ``[r·S/m, (r+1)·S/m)``
+   of its sequences and the model shard of each weight the rules shard on
+   "model" (``sp``, ``qkv``, ``kv``, ``ff``, ``table_embed``, ``vocab``):
+   the layers gather each weight and the keys and values over "model"
+   before use (``parallel.collectives.ModelAxis``, ``models/transformer.py``),
+   and each gather's backward is a reduce-scatter, so a sharded leaf's
+   gradient comes out summed over the model ranks.  The gradients of the
+   leaves replicated on "model" (the norms, ``bo``, ``b_out``) and the
+   ranks' losses are summed over "model" here, in one ``ccu_reduce``;
 2. the gradients summed over the data-parallel ranks by
    ``hierarchical_allreduce`` (fast axis "data", slow axis "pod" where the
    mesh has one; every sum in ``ccu_reduce``), divided by the DP size (the
    loss is a mean over the local batch; the sizes here are powers of two, so
    the division is exact) and rounded once to the gradient's type;
-3. ``compress_grads`` on the full synchronised gradient, leaf by leaf, its
-   payload cast to ``grad_dtype`` as AdamW casts it;
+3. ``compress_grads`` on the synchronised gradient, leaf by leaf, its
+   payload cast to ``grad_dtype`` as AdamW casts it.  On the model axis each
+   leaf's scale is the whole leaf's: the max of ``|g + r|`` over the model
+   ranks;
 4. AdamW on the rank's ZeRO-1 shard of master/m/v only (``update_leaf`` on
-   the block that ``tree_zero1_pspecs`` gives it), with the global norm of
-   the whole synchronised gradient (``step_scalars``), which is the same on
-   every rank, so each shard ends bit for bit as ``adamw.apply`` would leave
-   that block;
+   the block that ``tree_zero1_pspecs`` gives it, within the rank's model
+   shard), with the global norm of the whole synchronised gradient
+   (``step_scalars``; on the model axis from each leaf's sum of squares,
+   summed over the model ranks in ``ccu_reduce`` where the leaf is sharded
+   there and counted once where it is not), which is the same on every
+   rank, so each shard ends as ``adamw.apply`` with that norm would leave
+   that block, bit for bit;
 5. the updated params (the masters' blocks rounded to the params' type)
-   all-gathered over the DP group into every rank's full params.
+   all-gathered over the DP group into every rank's params.
 
-The step is data-parallel: every mesh axis but "pod" and "data" must have
-size 1 (tensor parallelism is not ported).  The int8 error-feedback residual
-is carried (ROADMAP C2: the reference's step drops it): ``fn`` takes it and
-returns the new one.  ``metrics["loss"]`` is the rank's own loss, the mean
-over its share of the batch.  ``fn.wire_bytes`` counts the operand bytes of
-its collectives by mesh axis (``parallel/collectives.py``).  The parts of a
-step are marked for ``torch.profiler`` as ``train.grad``, ``train.sync``,
-``train.compress``, ``train.adamw`` and ``train.gather``.
+Axes other than "pod", "data" and "model" must have size 1.  The int8
+error-feedback residual is carried (ROADMAP C2: the reference's step drops
+it): ``fn`` takes it and returns the new one.  ``metrics["loss"]`` is the
+mean over the rank's data-parallel share of the batch (on the model axis
+the sum of the model ranks' parts).  ``fn.wire_bytes`` counts the operand
+bytes of its collectives by mesh axis (``parallel/collectives.py``;
+``collectives.recording`` lists them one by one where a caller asks).
+The parts of a step are marked for ``torch.profiler`` as ``train.grad``
+(with ``model.gather`` and ``model.reduce_scatter`` inside it),
+``train.model_sum``, ``train.sync``, ``train.compress``, ``train.adamw``
+and ``train.gather``.
+
+``build_serve_step`` runs prefill on the model axis the same way (each rank
+writes its positions' keys and values into its block of the cache, the
+rules' ``cache_seq``); decode there waits for ROADMAP A13.
+
+``lower_bundle`` is the dry-run's entry point (the reference's
+``jit(...).lower``): it runs ``fn`` once, as this rank, on its blocks of
+``abstract_args`` on the ``meta`` device, over the fake process group that
+``launch/mesh.fake_mesh`` makes, and returns what the reference reads from
+the compiled program: the collectives, the FLOPs, the bytes and the memory
+(its docstring).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 from torch.profiler import record_function
 
+from ..kernels import ops
+from ..kernels.ccu_reduce import ccu_reduce_plain
 from ..models.api import Harness, ShapeCell
 from ..models.layers import Runtime
 from ..models.param import (
@@ -64,27 +96,66 @@ from ..models.param import (
 )
 from ..optim import adamw
 from ..optim.compression import CompressionConfig, compress_grads
-from ..parallel.collectives import Transport, hierarchical_allreduce
-from ..parallel.sharding import DATA_AXIS, POD_AXIS, rules_for_cell, shard_slices, tree_zero1_pspecs
+from ..parallel.collectives import ModelAxis, Transport, hierarchical_allreduce, operand_bytes_by_axis, recording
+from ..parallel.sharding import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    POD_AXIS,
+    local_slices,
+    rules_for_cell,
+    shard_slices,
+    tree_zero1_pspecs,
+)
 
 
 @dataclass
 class StepBundle:
-    """Everything needed to run (and, with A11, lower) one (arch x shape x
-    mesh) cell.  ``init_opt_state`` (train bundles) makes this rank's ZeRO-1
-    optimizer state from its full params."""
+    """Everything needed to run and lower one (arch x shape x mesh) cell.
+    ``init_opt_state`` (train bundles) makes this rank's ZeRO-1 optimizer
+    state from its params.  ``in_shardings`` / ``out_shardings`` are the
+    partition specs' placements on the mesh, made when read (DTensor's
+    module is not imported by a step)."""
 
     fn: Callable
-    in_shardings: Any
-    out_shardings: Any
+    in_pspecs: tuple
+    out_pspecs: tuple
+    mesh_dim_names: tuple
     abstract_args: tuple
     donate_argnums: tuple = ()
     init_opt_state: Callable | None = None
 
+    def _placements(self, trees: tuple) -> tuple:
+        return tuple(None if t is None else tree_map(lambda p: placements(p, self.mesh_dim_names), t)
+                     for t in trees)
 
-def _shardings(mesh, pspec_tree):
+    @property
+    def in_shardings(self) -> tuple:
+        return self._placements(self.in_pspecs)
+
+    @property
+    def out_shardings(self) -> tuple:
+        return self._placements(self.out_pspecs)
+
+
+def _like(tree, leaves: list):
+    """``leaves`` (in the order ``tree_leaves`` gives) in ``tree``'s shape."""
+    by_id = {id(t): x for t, x in zip(tree_leaves(tree), leaves)}
+    return tree_map(lambda t: by_id[id(t)], tree)
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _model_axis(harness: Harness, mesh, rules: ShardingRules, what: str, **kw) -> ModelAxis | None:
+    """The mesh's "model" axis where it has more than one rank, else None."""
     names = tuple(mesh.mesh_dim_names)
-    return tree_map(lambda p: placements(p, names), pspec_tree)
+    if MODEL_AXIS not in names or mesh.size(names.index(MODEL_AXIS)) == 1:
+        return None
+    if harness.family != "dense":
+        raise ValueError(f"{what} on a {MODEL_AXIS!r} axis of more than one rank is ported for the dense "
+                         f"family; the {harness.family!r} family waits for ROADMAP A13")
+    return ModelAxis(mesh, rules, **kw)
 
 
 def build_train_step(
@@ -96,14 +167,11 @@ def build_train_step(
     opt_cfg: adamw.OptConfig | None = None,
     compression: CompressionConfig | None = None,
     rules: ShardingRules | None = None,
+    use_kernels: bool = True,
 ) -> StepBundle:
     opt_cfg = opt_cfg or adamw.OptConfig()
     compression = compression or CompressionConfig()
     rules = rules or rules_for_cell(harness, cell, multi_pod=multi_pod)
-    # each rank's activations are its own local tensors: no sharding
-    # constraint to hand a compiler, so the layers run without rules
-    rt = Runtime()
-    loss_and_grad = value_and_grad(harness.loss(rt))
     dp_size = 32 if multi_pod else 16
 
     param_specs = harness.param_specs()
@@ -117,27 +185,42 @@ def build_train_step(
 
     names = tuple(mesh.mesh_dim_names)
     dp_axes = tuple(a for a in names if a in (POD_AXIS, DATA_AXIS))
-    others = {a: mesh.size(i) for i, a in enumerate(names) if a not in dp_axes}
+    others = {a: mesh.size(i) for i, a in enumerate(names) if a not in dp_axes + (MODEL_AXIS,)}
     if DATA_AXIS not in dp_axes or any(n != 1 for n in others.values()):
-        raise ValueError(f"the train step is data-parallel: it needs a {DATA_AXIS!r} axis and every other "
-                         f"axis but {POD_AXIS!r} of size 1; mesh axes {names}, sizes {others}")
+        raise ValueError(f"the train step needs a {DATA_AXIS!r} axis, and every axis but {POD_AXIS!r}, "
+                         f"{DATA_AXIS!r} and {MODEL_AXIS!r} of size 1; mesh axes {names}, sizes {others}")
     dp = math.prod(mesh.size(names.index(a)) for a in dp_axes)
-    sync = hierarchical_allreduce(mesh, DATA_AXIS, tuple(a for a in dp_axes if a != DATA_AXIS))
-    # this rank's block of each leaf under its ZeRO-1 spec, and where it was
-    # cut: (tensor dim, the DP axes cutting it), or None where no DP axis
-    # cuts the leaf and every rank updates all of it
-    blocks = tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), zero_ps, param_specs)
+    reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
+    wire: dict[str, int] = {}
+    model = _model_axis(harness, mesh, rules, "the train step", reduce=reduce, wire=wire)
+    rt = Runtime(use_kernels=use_kernels, model=model)
+    loss_and_grad = value_and_grad(harness.loss(rt))
+    sync = hierarchical_allreduce(mesh, DATA_AXIS, tuple(a for a in dp_axes if a != DATA_AXIS),
+                                  reduce=reduce, wire=wire)
+    # this rank's block of each param (its model shard), and its ZeRO-1 block
+    # within that: the ZeRO-1 spec keeps the param spec's axes and adds the DP
+    # axes on another dim, so the one lies inside the other
+    local = tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), param_ps, param_specs)
 
+    def within(block, outer):
+        return tuple(slice(b.start - o.start, b.stop - o.start) for b, o in zip(block, outer))
+
+    blocks = tree_map(lambda ps, s, lo: within(shard_slices(ps, s.shape, mesh), lo), zero_ps, param_specs, local)
+    # where the DP axes cut each leaf's block: (tensor dim, the axes), or
+    # None where no DP axis cuts the leaf and every rank updates all of it
     def dp_cut(ps):
         for d, e in enumerate(ps):
-            axes = tuple(a for a in ((e,) if isinstance(e, str) else e or ()) if a in dp_axes)
+            axes = tuple(a for a in _axes(e) if a in dp_axes)
             if axes:
                 return d, axes
         return None
 
     cuts = tree_map(dp_cut, zero_ps)
+    # which leaves the model axis shards (the others' gradients are summed over it)
+    on_model = tree_map(lambda ps: model is not None and any(MODEL_AXIS in _axes(e) for e in ps), param_ps)
+    sharded = torch.tensor(tree_leaves(on_model))
     # one group a set of cutting axes, made by every rank in the same order
-    gathers = {axes: Transport(mesh, axes, sync.wire_bytes)
+    gathers = {axes: Transport(mesh, axes, wire)
                for axes in sorted({c[1] for c in tree_leaves(cuts) if c is not None})}
 
     def init_opt_state(params) -> dict:
@@ -148,31 +231,61 @@ def build_train_step(
                     "v": tree_map(torch.zeros_like, master),
                     "step": torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)}
 
+    def model_sums(loss, grads):
+        """The ranks' losses and the gradients of the leaves replicated on
+        the model axis, summed over it in one ``ccu_reduce`` (fp32)."""
+        kept = []
+        tree_map(lambda g, m: None if m else kept.append(g), grads, on_model)
+        flat = torch.cat([loss.reshape(1).float()] + [g.reshape(-1).float() for g in kept])
+        summed = model.sum(flat)
+        parts = iter(summed[1:].split([g.numel() for g in kept]))
+        grads = tree_map(lambda g, m: g if m else next(parts).view(g.shape).to(g.dtype), grads, on_model)
+        return summed[0], grads
+
+    def global_norm(payload) -> torch.Tensor:
+        """The norm of the whole tree from the rank's shards: each leaf's sum
+        of squares, summed over the model ranks where the leaf is sharded
+        there, the leaves added in order as ``adamw.global_norm`` adds them."""
+        sq = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(payload)])
+        sq = torch.where(sharded.to(sq.device), model.sum(sq), sq)
+        return torch.sqrt(sum(sq.unbind(0)))
+
     @torch.no_grad()
     def train_step(params, opt_state, batch, residual=None, observe=None):
-        """One data-parallel ZeRO-1 step on this rank's share of the batch.
-        Returns (params, opt_state, metrics, residual), the first two updated
-        in place.  ``observe(grads, payload)``, if given, sees the
-        synchronised gradients and the payload AdamW gets, before the update."""
+        """One ZeRO-1 step on this rank's blocks.  Returns (params, opt_state,
+        metrics, residual), the first two updated in place.  ``observe(grads,
+        payload)``, if given, sees the rank's blocks of the synchronised
+        gradients and of the payload AdamW gets, before the update."""
         with torch.enable_grad(), record_function("train.grad"):
             loss, grads = loss_and_grad(params, batch)
+        if model is not None:
+            with record_function("train.model_sum"):
+                loss, grads = model_sums(loss, grads)
         # 2. sum over the DP ranks, every sum in ccu_reduce; mean; one rounding
         with record_function("train.sync"):
             grads = tree_map(lambda g: (sync(g) / dp).to(g.dtype), grads)
-        # 3. compression of the whole synchronised gradient, leaf by leaf
+        # 3. compression of the synchronised gradient, leaf by leaf
         if compression.mode == "int8" and residual is None:
             residual = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
-
-        def compress(g, r=None):
-            return compress_grads(compression, g, r, use_kernels=rt.use_kernels)[0].to(opt_cfg.grad_dtype)
-
         with record_function("train.compress"):
-            payload = tree_map(compress, grads) if residual is None else tree_map(compress, grads, residual)
+            amax = None
+            if model is not None and compression.mode == "int8":
+                # each leaf's scale is the whole leaf's: max |g + r| over the model ranks
+                local_max = tree_map(lambda g, r: (g.to(torch.float32) + r if compression.ef
+                                                   else g.to(torch.float32)).abs().amax(), grads, residual)
+                amax = _like(local_max, model.max(torch.stack(tree_leaves(local_max))).unbind(0))
+
+            def compress(g, r=None, a=None):
+                return compress_grads(compression, g, r, use_kernels=use_kernels,
+                                      amax=None if a is None else [a])[0].to(opt_cfg.grad_dtype)
+
+            extra = () if residual is None else (residual,) if amax is None else (residual, amax)
+            payload = tree_map(compress, grads, *extra)
         if observe is not None:
             observe(grads, payload)
         del grads
         # 4. AdamW on this rank's shard
-        k = adamw.step_scalars(opt_cfg, payload, opt_state)
+        k = adamw.step_scalars(opt_cfg, payload, opt_state, None if model is None else global_norm(payload))
         flat = zip(tree_leaves(payload), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
                    tree_leaves(opt_state["master"]), tree_leaves(params), tree_leaves(blocks),
                    tree_leaves(cuts))
@@ -189,19 +302,18 @@ def build_train_step(
         opt_state["step"] = k["step"]
         return params, opt_state, {"loss": loss, "grad_norm": k["gnorm"], "lr": k["lr"]}, residual
 
-    train_step.wire_bytes = sync.wire_bytes     # the sync's and the params' gathers, by axis
+    train_step.wire_bytes = wire        # operand bytes of every collective of the step, by axis
 
     abstract = (
         tree_abstract(param_specs, dtype=torch.bfloat16),
         tree_abstract(opt_specs),
         tree_abstract(input_specs),
     )
-    in_sh = (_shardings(mesh, param_ps), _shardings(mesh, opt_ps), _shardings(mesh, input_ps))
-    out_sh = (_shardings(mesh, param_ps), _shardings(mesh, opt_ps), None)
     return StepBundle(
         fn=train_step,
-        in_shardings=in_sh,
-        out_shardings=out_sh,
+        in_pspecs=(param_ps, opt_ps, input_ps),
+        out_pspecs=(param_ps, opt_ps, None),
+        mesh_dim_names=tuple(mesh.mesh_dim_names),
         abstract_args=abstract,
         donate_argnums=(0, 1),
         init_opt_state=init_opt_state,
@@ -215,11 +327,19 @@ def build_serve_step(
     *,
     multi_pod: bool = False,
     rules: ShardingRules | None = None,
+    use_kernels: bool = True,
 ) -> StepBundle:
     """Prefill (cell.kind == 'prefill') or decode step bundle.  ``fn`` runs
-    the harness's serving call on the rank's own params, state and inputs."""
+    the harness's serving call on the rank's own params, state and inputs;
+    on a "model" axis of more than one rank, prefill only (the dense family),
+    every rank returning the last model rank's logits."""
     rules = rules or rules_for_cell(harness, cell, multi_pod=multi_pod)
-    rt = Runtime()
+    wire: dict[str, int] = {}
+    model = _model_axis(harness, mesh, rules, "serving", wire=wire,
+                        reduce=ops.ccu_reduce if use_kernels else ccu_reduce_plain)
+    if model is not None and cell.kind != "prefill":
+        raise ValueError(f"decode on a {MODEL_AXIS!r} axis of more than one rank waits for ROADMAP A13")
+    rt = Runtime(use_kernels=use_kernels, model=model)
 
     param_specs = harness.param_specs()
     state_specs = harness.serve_state_specs(cell)
@@ -235,23 +355,120 @@ def build_serve_step(
         logits, new_state = inner(params, state, **inputs)
         return logits, new_state
 
+    serve_step.wire_bytes = wire
+
     abstract = (
         tree_abstract(param_specs, dtype=torch.bfloat16),
         tree_abstract(state_specs),
         tree_abstract(input_specs),
     )
-    in_sh = (_shardings(mesh, param_ps), _shardings(mesh, state_ps), _shardings(mesh, input_ps))
-    out_sh = (None, _shardings(mesh, state_ps))
     return StepBundle(
         fn=serve_step,
-        in_shardings=in_sh,
-        out_shardings=out_sh,
+        in_pspecs=(param_ps, state_ps, input_ps),
+        out_pspecs=(None, state_ps),
+        mesh_dim_names=tuple(mesh.mesh_dim_names),
         abstract_args=abstract,
         donate_argnums=(1,),
     )
 
 
-def build_bundle(harness, cell: ShapeCell, mesh, *, multi_pod: bool, **kw) -> StepBundle:
+def build_bundle(harness, cell: ShapeCell, mesh, *, multi_pod: bool, use_kernels: bool = True,
+                 **kw) -> StepBundle:
     if cell.kind == "train":
-        return build_train_step(harness, cell, mesh, multi_pod=multi_pod, **kw)
-    return build_serve_step(harness, cell, mesh, multi_pod=multi_pod)
+        return build_train_step(harness, cell, mesh, multi_pod=multi_pod, use_kernels=use_kernels, **kw)
+    return build_serve_step(harness, cell, mesh, multi_pod=multi_pod, use_kernels=use_kernels)
+
+
+# ---------------------------------------------------------------------------
+# lower_bundle: the dry-run's entry point
+# ---------------------------------------------------------------------------
+
+# aten ops that read or write no tensor data: views are skipped by their schema
+_NO_DATA = {"empty", "empty_strided", "new_empty", "new_empty_strided", "detach", "alias", "lift_fresh",
+            "_local_scalar_dense", "set_", "resize_"}
+
+
+def _operand_bytes_mode():
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class OperandBytes(TorchDispatchMode):
+        """Bytes of each aten op's tensor operands and results, summed over
+        the ops: every op counted alone (no fusion), so an upper bound on
+        what the step reads and writes; views and ops that move no data are
+        skipped."""
+
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "aten" and not func.is_view and func._opname not in _NO_DATA:
+                flat = tree_flatten((args, kwargs or {}))[0] + tree_flatten(out)[0]
+                self.total += sum(t.numel() * t.element_size() for t in flat if isinstance(t, torch.Tensor))
+            return out
+
+    return OperandBytes()
+
+
+def lower_bundle(bundle: StepBundle, mesh) -> dict:
+    """Run ``bundle.fn`` once as this rank of ``mesh`` on its blocks of
+    ``bundle.abstract_args`` (``local_slices`` of ``in_pspecs``), as tensors
+    on the ``meta`` device, over a fake process group (``launch/mesh.
+    fake_mesh``): nothing is allocated, computed or sent.  The bundle must be
+    built with ``use_kernels=False``: no kernel launches on ``meta``, so the
+    plain path is traced (attention materialises its scores).  Returns
+
+    * ``records``: the collectives ``(kind, result bytes, group size, axes)``
+      as the step's transports issued them (``collectives.recording``), and
+      ``operand_bytes_by_axis`` reckoned from them alone;
+      ``c10d_ops``, the collectives ``CommDebugMode`` saw reach the process
+      group (equal to the records' count unless one bypassed the transport);
+    * ``flops``: ``FlopCounterMode``'s count (products, forward and backward);
+    * ``hbm_bytes``: each aten op's operand and result bytes summed
+      (unfused: an upper bound, standing in for XLA's "bytes accessed");
+    * ``memory``: ``argument_bytes`` (this rank's blocks of the arguments),
+      ``output_bytes`` (of everything returned), ``alias_bytes`` (of the
+      outputs that are arguments, updated in place), ``temp_bytes`` and
+      ``peak_bytes`` = arguments + the peak of the tensors the step
+      allocates, as ``MemTracker`` follows them (``temp_bytes`` is that peak
+      less the outputs it holds, so that peak = arguments + outputs + temp -
+      alias, the reference's reckoning).  The arguments live throughout; the
+      plain attention's scores make the peak an upper bound there.
+    """
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = {a: mesh.size(i) for i, a in enumerate(names)}
+    coord = dict(zip(names, mesh.get_coordinate()))
+
+    def block(t, ps):
+        shape = tuple(sl.stop - sl.start for sl in local_slices(ps, tuple(t.shape), sizes, coord))
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    args = tuple(tree_map(block, a, ps) for a, ps in zip(bundle.abstract_args, bundle.in_pspecs))
+
+    def tensors(tree) -> list:
+        if isinstance(tree, (tuple, list)):
+            return [t for x in tree for t in tensors(x)]
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    hbm, mem = _operand_bytes_mode(), MemTracker()
+    with recording() as records, CommDebugMode() as comm, FlopCounterMode(display=False) as flops, hbm, mem:
+        out = bundle.fn(*args)
+    arg_ids = {id(t) for t in tensors(args)}
+    outs = tensors(out)
+    argument = sum(t.numel() * t.element_size() for t in tensors(args))
+    output = sum(t.numel() * t.element_size() for t in outs)
+    alias = sum(t.numel() * t.element_size() for t in outs if id(t) in arg_ids)
+    peak_new = sum(v["Total"] for v in mem.get_tracker_snapshot("peak").values())
+    return {
+        "records": records,
+        "operand_bytes_by_axis": operand_bytes_by_axis(records),
+        "c10d_ops": comm.get_total_counts(),
+        "flops": flops.get_total_flops(),
+        "hbm_bytes": hbm.total,
+        "memory": {"argument_bytes": argument, "output_bytes": output, "alias_bytes": alias,
+                   "temp_bytes": peak_new - (output - alias), "peak_bytes": argument + peak_new},
+    }

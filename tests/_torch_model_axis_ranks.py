@@ -1,0 +1,183 @@
+"""Rank targets of ``tests/test_torch_model_axis.py``,
+``tests/test_torch_model_axis_prefill.py`` and ``tests/test_torch_dryrun.py``
+(spawned by ``_torch_dist.spawn``): the dense family's train step and
+prefill on a mesh with a "model" axis, and one attention layer on the rank's
+rows.  Imports torch and the port only."""
+
+from __future__ import annotations
+
+import pickle
+
+import torch
+
+from _torch_dist import _np
+
+LR, STEPS = 1e-3, 2
+
+
+def inputs(path) -> tuple:
+    """The inputs a test wrote with ``pickle`` for its ranks.  They travel
+    by file: ``torch.multiprocessing.spawn`` pickles its arguments into each
+    child's start-up pipe, so that large ones start the ranks one by one."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _local(tree, pspecs, mesh):
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel.sharding import shard_slices
+
+    return tree_map(lambda t, ps: t[shard_slices(ps, tuple(t.shape), mesh)].clone(), tree, pspecs)
+
+
+def _slices(pspecs, specs, mesh) -> list:
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import shard_slices
+
+    return [tuple((s.start, s.stop) for s in sl)
+            for sl in tree_leaves(tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), pspecs, specs))]
+
+
+def opt_cfg():
+    from repro_torch.optim import adamw
+
+    return adamw.OptConfig(lr=LR, warmup_steps=2, decay_steps=STEPS)
+
+
+def train(rank: int, world: int, shape: tuple, axes: tuple, path: str, steps: int = STEPS) -> dict:
+    """For each arch of the cases at ``path`` ({arch: (weights, batch)},
+    numpy, fp32):
+    ``steps`` int8 ZeRO-1 steps on this rank's blocks: the first step's
+    synchronised gradient and payload blocks, the ZeRO-1 shards after it and
+    their blocks, the params' blocks after each step, the losses, the norm."""
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import from_reference, tree_pspecs
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
+    from repro_torch.train.train_step import build_train_step
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    multi_pod = "pod" in axes
+    rules = make_rules(multi_pod=multi_pod)
+    out: dict = {}
+    for arch, (weights, batch) in inputs(path).items():
+        harness = load(arch, smoke=True).clone(dtype=torch.float32)
+        specs = harness.param_specs()
+        param_ps = tree_pspecs(specs, rules)
+        B, S = batch["tokens"].shape
+        cell = ShapeCell("smoke", "train", S, B)
+        bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=opt_cfg(),
+                                  compression=CompressionConfig(mode="int8"), rules=rules)
+        input_ps = tree_pspecs(harness.train_input_specs(cell), rules)
+        local = _local({k: torch.from_numpy(v) for k, v in batch.items()}, input_ps, mesh)
+        params = _local(from_reference(weights, torch.float32, "cpu"), param_ps, mesh)
+        opt = bundle.init_opt_state(params)
+        kept: dict = {"losses": [], "params": []}
+        residual = None
+        for i in range(steps):
+            observe = (lambda g, p: kept.update(grads=_np(g), payload=_np(p))) if i == 0 else None
+            params, opt, metrics, residual = bundle.fn(params, opt, local, residual, observe)
+            kept["losses"].append(float(metrics["loss"]))
+            kept["params"].append(_np(params))
+            if i == 0:
+                kept["gnorm"] = float(metrics["grad_norm"])
+                kept["shards"] = _np({k: opt[k] for k in ("master", "m", "v")})
+        kept["param_blocks"] = _slices(param_ps, specs, mesh)
+        kept["zero_blocks"] = _slices(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
+        kept["coord"] = dict(zip(axes, mesh.get_coordinate()))
+        out[arch] = kept
+    return out
+
+
+def prefill(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
+    """For each arch of the inputs at ``path`` ({arch: ((weights, prompt),
+    (layer weights, x))}, numpy, fp32): prefill of ``prompt`` on this rank's
+    share of the batch and of the positions (the logits and this rank's
+    cache block), and one attention layer on this rank's rows of ``x``
+    against the keys and values gathered over "model", through the kernel's
+    wrapper and through the plain path."""
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import from_reference, tree_init, tree_pspecs
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_serve_step
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    multi_pod = "pod" in axes
+    rules = make_rules(multi_pod=multi_pod)
+    out: dict = {}
+    for arch, ((weights, prompt), attn) in inputs(path).items():
+        harness = load(arch, smoke=True).clone(dtype=torch.float32)
+        cell = ShapeCell("p", "prefill", prompt.shape[1], prompt.shape[0])
+        serve = build_serve_step(harness, cell, mesh, multi_pod=multi_pod, rules=rules)
+        params = _local(from_reference(weights, torch.float32, "cpu"), tree_pspecs(harness.param_specs(), rules),
+                        mesh)
+        state = harness.serve_state_specs(cell)
+        state_ps = tree_pspecs(state, rules)
+        cache = _local(tree_init(state, None, None, "cpu"), state_ps, mesh)
+        tokens = _local({"tokens": torch.from_numpy(prompt)}, tree_pspecs(harness.serve_input_specs(cell), rules),
+                        mesh)
+        logits, cache = serve.fn(params, cache, tokens)
+        out[arch] = {"logits": logits.numpy(), "cache": _np(cache), "cache_blocks": _slices(state_ps, state, mesh),
+                     "coord": dict(zip(axes, mesh.get_coordinate())),
+                     "attention": _attention_rows(mesh, rules, arch, *attn)}
+    return out
+
+
+def _attention_rows(mesh, rules, arch, weights, x) -> dict:
+    from repro_torch.configs import load
+    from repro_torch.models.layers import Runtime, attention
+    from repro_torch.models.param import from_reference
+    from repro_torch.parallel.collectives import ModelAxis
+    from repro_torch.parallel.sharding import shard_slices
+
+    cfg = load(arch, smoke=True).clone(dtype=torch.float32).cfg.attn()
+    rows = shard_slices(("data", "model"), x.shape, mesh)
+    xl = torch.from_numpy(x)[rows]
+    p = from_reference(weights, torch.float32, "cpu")
+    model = ModelAxis(mesh, rules)
+    out = {"rows": [(s.start, s.stop) for s in rows]}
+    for use_kernels in (True, False):
+        rt = Runtime(use_kernels=use_kernels, model=model)
+        S = xl.shape[1]
+        y, _ = attention(rt, p, xl, cfg, rt.seq_offset(S) + torch.arange(S))
+        out["kernel" if use_kernels else "plain"] = y.numpy()
+    return out
+
+
+def records(rank: int, world: int, shape: tuple, axes: tuple, arch: str, B: int, S: int, steps: int) -> dict:
+    """``steps`` int8 steps of ``arch``'s smoke config in bf16 (its own
+    type) from drawn weights and tokens on this rank's blocks; the
+    collectives of the last step as the transports recorded them."""
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import tree_init, tree_pspecs
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.collectives import recording
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_train_step
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    multi_pod = "pod" in axes
+    rules = make_rules(multi_pod=multi_pod)
+    harness = load(arch, smoke=True)
+    cell = ShapeCell("smoke", "train", S, B)
+    bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=opt_cfg(),
+                              compression=CompressionConfig(mode="int8"), rules=rules)
+    gen = torch.Generator().manual_seed(0)
+    params = _local(tree_init(harness.param_specs(), gen, torch.bfloat16, "cpu"),
+                    tree_pspecs(harness.param_specs(), rules), mesh)
+    tokens = torch.randint(0, harness.cfg.vocab_size, (B, S + 1), generator=gen, dtype=torch.int32)
+    batch = _local({"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()},
+                   tree_pspecs(harness.train_input_specs(cell), rules), mesh)
+    opt = bundle.init_opt_state(params)
+    residual = None
+    for _ in range(steps):
+        wire0 = dict(bundle.fn.wire_bytes)
+        with recording() as seen:
+            params, opt, _, residual = bundle.fn(params, opt, batch, residual)
+    return {"records": seen, "wire": {a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()}}

@@ -533,3 +533,26 @@ def test_ccu_reduce_at_the_dist_rows(cuda, N, dtype):
     assert ccu_reduce.launches == before + 2
     assert o.dtype == torch.float32 and o.shape == (N,)
     assert torch.equal(o, ccu_reduce_plain(bufs)) and torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Sk,q_start", [
+    # a model rank's rows against the keys gathered over "model" (the dense
+    # family's sequence parallelism): granite-8b's train step on (data,
+    # model) = (2, 2), both ranks; query tiles that start on a tile's edge,
+    # and a last rank's rows far down a long sequence
+    (4, 128, 256, 0), (4, 128, 256, 128), (4, 512, 2048, 1536), (4, 256, 4096, 3840), (4, 64, 8192, 4096),
+])
+def test_flash_attention_sequence_parallel_rows(cuda, G, Sq, Sk, q_start, dtype):
+    """More than 16 folded rows at ``q_start > 0`` against every key of the
+    sequence: the tile filter skips the tiles above the diagonal and keeps
+    every tile a row needs.  Limits as ``test_flash_attention_kernel_matches_plain``."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _peaked_qkv(cuda, G, Sq, Sk, 128, dtype, seed=q_start)
+    kw = dict(causal=True, q_start=q_start)
+    o = flash_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    r = flash_attention_plain(q, k, v, **kw).float()
+    limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
+    assert ((o - r).abs() <= limit).all()
