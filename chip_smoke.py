@@ -25,8 +25,11 @@ of its 56 layers without compression (attention and dispatch through their
 kernels, forward and recompute); the ZeRO-1 data-parallel train step of
 granite-8b on four ranks, every gradient sum through the ccu-reduce kernel
 at P = 2, on (pod, data, model) = (2, 2, 1) and on the dense family's
-sequence-parallel (data, model) = (2, 2), with prefill on the model axis;
-and a restart from a checkpoint.  It holds
+sequence-parallel (data, model) = (2, 2); on that mesh served requests of
+granite-8b and paligemma-3b (prefill into a longer cache, decode on the
+model axis through flash's log-sum-exp output), mixtral-8x22b trained (its
+experts' FSDP over "data") and served, and dbrx-132b served; and a restart
+from a checkpoint.  It holds
 every hand-written kernel of those paths against its plain PyTorch version
 on the card, the scans and the dispatch also under autograd at their
 training shapes.  Phases, one JSON line each:
@@ -78,12 +81,18 @@ training shapes.  Phases, one JSON line each:
                 "model", each gradient reduce-scattered there through the
                 ccu-reduce kernel), held the same way (the clip norm, a
                 sum over the model ranks, held first: the same on every
-                rank and within 1e-5 of the whole payload's), prefill on the model
-                axis (batch 4, prompt 512) against one process's, and the
+                rank and within 1e-5 of the whole payload's), and the
                 dry-run's trace of that cell (``train_step.lower_bundle`` on
                 ``meta`` over a fake process group) against rank 0's
-                recorded bytes; ``ccu_reduce`` timed at both meshes' P = 2
-                rows (``phase_dist``)
+                recorded bytes; then on the same mesh granite-8b's and
+                paligemma-3b's requests (batch 4, prompt 512 into a cache
+                of 1024, 8 greedy decode steps on the model axis) against
+                one process fed the ranks' ids, and the decode step's
+                dry-run bytes; then mixtral-8x22b (1 layer, expert_tp) 2
+                ZeRO-1 steps held the same way (one process routed by the
+                ranks' choices) and its dry-run bytes, then mixtral's and
+                dbrx-132b's requests (``DIST_MOE``); ``ccu_reduce`` timed
+                at the meshes' P = 2 rows and decode's (``phase_dist``)
 8. ``restart``  granite-3-2b smoke through the kernel path, int8, 10 steps,
                 a save, a new run from fresh trees that resumes it for 10
                 more, held against 20 straight (``_restart_check``)
@@ -157,10 +166,31 @@ DIST = dict(arch="granite-8b", n_layers=2, mesh=(2, 2, 1), axes=("pod", "data", 
             steps=3, seed=0, compression="int8", lr=3e-4)
 # The same training on the dense family's model axis: (data, model) = (2, 2),
 # 4 sequences a data rank and 128 positions a model rank, each weight sharded
-# on "model" gathered before use (the rules' sp); then prefill on the same
-# ranks: batch 4 (2 a data rank), prompt 512 (256 positions a model rank)
+# on "model" gathered before use (the rules' sp); then served requests on the
+# same ranks (``_dist_serve``): batch 4 (2 a data rank), a prompt of 512 (256
+# positions a model rank) prefilled into a cache of 1024 (512 positions a
+# model rank's block: the prompt fills the first), then 8 greedy decode steps
+# on the model axis (tensor-parallel); granite-8b, and paligemma-3b at 2 of
+# its 18 layers with its 256 drawn prefix embeddings before the prompt (768
+# positions, 384 a model rank; a cache of 1280, blocks of 640)
 DIST_MODEL = dict(DIST, mesh=(2, 2), axes=("data", "model"),
-                  prefill=dict(arch="granite-8b", n_layers=2, batch=4, prompt_len=512, seed=0))
+                  serve=[dict(arch="granite-8b", n_layers=2, batch=4, prompt_len=512, cache=1024, steps=8, seed=0),
+                         dict(arch="paligemma-3b", n_layers=2, batch=4, prompt_len=512, cache=1024, steps=8,
+                              seed=0)])
+# The MoE family on the same mesh: mixtral-8x22b at full width and 1 of its
+# 56 layers (expert_tp: each expert's F dim cut over "model", its d_model dim
+# over "data" and gathered before use; 2,906,720,256 parameters, about 16 GB
+# a rank with ZeRO-1 state), 2 ZeRO-1 steps at global batch 8, seq 256,
+# without compression as its one-process training path; then served as
+# above with 4 decode steps, and dbrx-132b (expert_parallel: its 16 experts
+# cut over "model", their F dim over "data"; 1 of 40 layers, 4,492,216,320
+# parameters) served the same way.  dbrx trains on the model axis only in
+# the CPU tests: four ranks of its training state (about 23 GB each) do not
+# fit the card.
+DIST_MOE = dict(arch="mixtral-8x22b", n_layers=1, mesh=(2, 2), axes=("data", "model"), batch=8, seq=256, steps=2,
+                seed=0, compression="none", lr=3e-4,
+                serve=[dict(arch="mixtral-8x22b", n_layers=1, batch=4, prompt_len=512, cache=1024, steps=4, seed=0),
+                       dict(arch="dbrx-132b", n_layers=1, batch=4, prompt_len=512, cache=1024, steps=4, seed=0)])
 
 
 def emit(phase: str, **fields) -> None:
@@ -552,6 +582,63 @@ def _flash_sp_shape(gen, B: int, Sq: int, Sk: int, q_start: int, where: str, chu
     }
 
 
+def _flash_block_shape(gen, B: int, N: int, K: int, D: int, Lb: int, q_local: int, prefix: int,
+                       where: str) -> dict:
+    """The decode kernels over a model rank's block of the cache, as
+    ``layers._attend_block`` calls them on the model axis: every query head
+    of one position against the block's ``Lb`` keys, ``q_start`` the
+    position less the block's offset, with the log-sum-exp output.  Held:
+    the output within one ulp of the plain version's and bit-equal to the
+    same call without the log-sum-exp; the log-sum-exp within 1e-5 of
+    max(1, |lse|) of the plain version's.  Times: kernel (with the
+    log-sum-exp), plain version, the library call (``scaled_dot_product_
+    attention`` over the block with the same mask: the output only) and
+    the bound (q, the
+    block's keys and values read once, o and the log-sum-exp written)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import visible
+
+    dt = torch.bfloat16
+    q, k, v = _qkv(gen, (B, 1, N, D), (B, Lb, K, D), dt)
+    kw = dict(causal=True, window=None, prefix_len=prefix, q_start=q_local)
+    o, lse = ops.flash_attention_bsnd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(o, ops.flash_attention_bsnd(q, k, v, **kw))
+
+    def plain():
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+
+        qk = q.unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)
+        ro, rl = flash_attention_plain(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), return_lse=True, **kw)
+        return ro.permute(0, 3, 1, 2, 4).reshape(q.shape), rl.permute(0, 3, 1, 2).reshape(B, 1, N)
+
+    ro, rl = plain()
+    err, of_limit = _excess(o, ro, dt)
+    lse_of_limit = ((lse - rl).abs() / (1e-5 * rl.abs().clamp(min=1.0))).max().item()
+    if not (same and of_limit <= 1.0 and lse_of_limit <= 1.0 and torch.isfinite(lse).all()):
+        raise SystemExit(f"flash decode over a model rank's block ({where}): output {err} ({of_limit} of its "
+                         f"limit), log-sum-exp {lse_of_limit} of its limit, bit-equal without it: {same}")
+
+    mask = visible(1, Lb, causal=True, window=None, prefix_len=prefix, q_start=q_local, device=q.device)
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                              attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
+    flops = 4 * D * Lb * B * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(lambda: ops.flash_attention_bsnd(q, k, v, return_lse=True, **kw))
+    return {"shape": f"q{tuple(q.shape)} block kv{tuple(k.shape)} bf16 {kw} ({where})",
+            "max_abs_err": err, "err_of_limit": of_limit, "lse_err_of_limit": lse_of_limit,
+            "lse_limit": "1e-5 of max(1, |lse|)", "bit_equal_without_lse": same,
+            "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(plain)[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(library)[0]}
+
+
 def _flash_row(gen) -> dict:
     from repro_torch.configs import load
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -638,6 +725,16 @@ def _flash_row(gen) -> dict:
     sp = {f"train_q{st}": _flash_sp_shape(gen, 4, 128, 256, st, f"train q_start {st}") for st in (0, 128)}
     sp.update({f"prefill_32k_q{st}": _flash_sp_shape(gen, 2, 2048, 32768, st, f"prefill_32k q_start {st}")
                for st in (0, 30720)})
+    # decode on the model axis: a rank's block of the cache with the
+    # log-sum-exp output, at decode_32k on (16, 16) (8 sequences a rank,
+    # blocks of 2048; granite-8b's last block at the cell's last position,
+    # paligemma-3b's first block, which holds its prefix, 33023 positions
+    # before the query) and at the dist phase's granite-8b request (2
+    # sequences a rank, blocks of 512, the second block at decode's first step)
+    blocks = {"granite_decode_32k": _flash_block_shape(gen, 8, 32, 8, 128, 2048, 2047, 0, "granite-8b decode_32k"),
+              "paligemma_decode_32k": _flash_block_shape(gen, 8, 8, 1, 256, 2064, 33023, 256,
+                                                         "paligemma-3b decode_32k, block 0"),
+              "dist_granite": _flash_block_shape(gen, 2, 32, 8, 128, 512, 0, 0, "granite-8b dist request, block 1")}
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -658,6 +755,7 @@ def _flash_row(gen) -> dict:
         "train": rows["train"],
         "paligemma_train": rows["paligemma_train"],
         "sequence_parallel": sp,
+        "model_axis_decode": blocks,
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -769,6 +867,34 @@ def _moe_row(gen) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library)[0],
         }
+    # a model rank's token share of a sequence with the whole sequence's
+    # capacity: the dist phase's mixtral-8x22b request on (2, 2) (2 sequences
+    # a data rank, the second model rank's 256 of 512 tokens, C = 160, its
+    # slots after the first rank's), routed over the whole sequence
+    x = _rand(gen, (2, MIXTRAL["prompt_len"], D), dt, 1.0)
+    C = cfg.capacity(MIXTRAL["prompt_len"])
+    disp, _ = moe.dispatch_tensors(moe.route(x, router, cfg), C, dt)
+    half = MIXTRAL["prompt_len"] // 2
+    disp, x = disp[:, half:].contiguous(), x[:, half:].contiguous()
+    o = ops.moe_dispatch(disp, x)
+    torch.cuda.synchronize()
+
+    def share_library():
+        return torch.einsum("bsec,bsd->ebcd", disp, x)
+
+    if not (torch.equal(o, moe_dispatch_plain(disp, x)) and torch.equal(o, share_library())):
+        raise SystemExit("moe_dispatch at a model rank's token share is not bit-equal to its plain version "
+                         "and the library call")
+    nbytes = (disp.numel() + x.numel() + o.numel()) * x.element_size()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * int((disp != 0).sum()) * D / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(lambda: ops.moe_dispatch(disp, x))
+    rows["model_axis_share"] = {
+        "shape": f"disp{tuple(disp.shape)} x{tuple(x.shape)} bf16 (tokens {half}-{2 * half - 1} of "
+                 f"{2 * half}, C = {C} of the whole sequence)",
+        "max_abs_err": 0.0, "kept_slots": int((disp != 0).sum()), "ms": ms, "call_ms": call_ms,
+        "plain_ms": time_ms(lambda: moe_dispatch_plain(disp, x))[0],
+        "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(share_library)[0]}
     # mixtral-8x22b's training step: batch 8, seq 256, x requires grad, disp
     # (the routing's one-hots) does not
     Bt, St = TRAIN_FAMILY["batch"], TRAIN_FAMILY["seq"]
@@ -787,6 +913,7 @@ def _moe_row(gen) -> dict:
         **rows["prefill"],
         "decode": rows["decode"],
         "train": rows["train"],
+        "model_axis_share": rows["model_axis_share"],
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -1287,11 +1414,11 @@ def _routing(replay: list | None = None):
 
     route, calls = moe.route, []
 
-    def watched(x, router, cfg, gate_idx=None):
-        own = route(x, router, cfg)
+    def watched(x, router, cfg, gate_idx=None, **kw):
+        own = route(x, router, cfg, **kw)
         with torch.no_grad():
             calls.append((own.gate_idx, (x @ router).float()))
-        return own if replay is None else route(x, router, cfg, gate_idx=replay[len(calls) - 1][0])
+        return own if replay is None else route(x, router, cfg, gate_idx=replay[len(calls) - 1][0], **kw)
 
     moe.route = watched
     try:
@@ -2131,11 +2258,11 @@ def _digest(t: torch.Tensor) -> list[int]:
     return [int(s1), int(s2)]
 
 
-def _dist_opt_cfg():
+def _dist_opt_cfg(spec: dict = DIST):
     from repro_torch.optim import adamw
 
     # as launch.train.run builds it, so that the ranks and one process agree
-    return adamw.OptConfig(lr=DIST["lr"], warmup_steps=10, decay_steps=DIST["steps"])
+    return adamw.OptConfig(lr=spec["lr"], warmup_steps=10, decay_steps=spec["steps"])
 
 
 def _dist_expected_launches(harness, n_leaves: int, spec: dict) -> dict[str, int]:
@@ -2175,8 +2302,8 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
     Anything it raises ends the process with an error, which
     ``torch.multiprocessing.spawn`` raises in the parent.  The ranks of the
     first data-parallel index save their blocks of the first step's
-    synchronised gradient and payload; with ``spec["prefill"]`` the ranks
-    then prefill a drawn prompt and save their logits and cache blocks."""
+    synchronised gradient and payload; then the ranks serve
+    ``spec["serve"]``'s requests, if any (``_dist_serve``)."""
     import datetime
 
     import torch.distributed as dist
@@ -2260,8 +2387,7 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
         out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
         out["first_dp"] = first_dp
         del params, opt, residual, bundle
-        if spec.get("prefill"):
-            out["prefill"] = _dist_prefill(rank, tmp, spec["prefill"], harness, mesh, rules)
+        out["serve"] = {s["arch"]: _dist_serve(rank, tmp, s, mesh) for s in spec.get("serve", [])}
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -2269,41 +2395,441 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
         dist.destroy_process_group()
 
 
-def _prompt(harness, spec: dict) -> torch.Tensor:
+def _serve_inputs(harness, spec: dict) -> dict:
+    """A served request's prompt (batch, prompt_len) and, for a VLM, its
+    prefix embeddings, drawn on the card from the seed."""
+    from repro_torch.launch.serve import stub_inputs
+
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
-    return torch.randint(0, harness.cfg.vocab_size, (spec["batch"], spec["prompt_len"]), generator=gen,
-                         device="cuda", dtype=torch.int32)
+    tokens = torch.randint(0, harness.cfg.vocab_size, (spec["batch"], spec["prompt_len"]), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return {"tokens": tokens, **stub_inputs(harness, spec["batch"], spec["seed"] + 2, "cuda")}
 
 
-def _dist_prefill(rank: int, tmp: str, spec: dict, harness, mesh, rules) -> dict:
-    """Prefill on the model axis (a rank of the dist phase): the drawn
-    prompt's rows of this rank's data-parallel share, its positions of each;
-    saves the logits and this rank's cache block, returns the launches and
-    the time."""
-    from repro_torch import kernels
+def _local_init(specs, pspecs, mesh, seed: int):
+    """This rank's block of each leaf of the weights ``tree_init`` draws
+    from ``seed`` (bf16), drawn leaf by leaf in its order, so that no more
+    than one whole leaf is held at a time."""
+    from repro_torch.models.param import _init_leaf, tree_map
+    from repro_torch.parallel.sharding import shard_slices
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tree_map(lambda s, ps: _init_leaf(s, gen, torch.bfloat16, "cuda")[shard_slices(ps, s.shape, mesh)]
+                    .contiguous(), specs, pspecs)
+
+
+def _serve_cells(harness, spec: dict):
     from repro_torch.models.api import ShapeCell
+
+    return (ShapeCell("prefill", "prefill", spec["prompt_len"], spec["batch"]),
+            ShapeCell("decode", "decode", spec["cache"], spec["batch"]))
+
+
+def _serve_expected_launches(harness) -> tuple[dict[str, int], dict[str, int]]:
+    """A rank's launches in prefill and in each decode step on the model
+    axis (both blocks of the cache hold a visible key at every step of
+    these requests).  Prefill: flash once a layer (against the keys gathered
+    over "model"), an MoE layer's dispatch once; its sums: ``expert_tp``
+    sums the buffer and the expert outputs over "model" (2 ``ccu_reduce``),
+    ``expert_parallel`` reduce-scatters the buffer (1); the FSDP and model
+    gathers sum nothing.  Decode: flash once a layer over the rank's block,
+    the dispatch once a layer; 3 ``ccu_reduce`` a layer: the attention's
+    combine (a reduce-scatter), the output projection's and the MLP's (or
+    the MoE layer's) partial sums."""
+    n = harness.cfg.n_layers
+    moe = harness.family == "moe"
+    sums = 0 if not moe else (2 if harness.moe_strategy == "expert_tp" else 1)
+    base = {"flash_attention": n, "moe_dispatch": n if moe else 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    return {**base, "ccu_reduce": sums * n}, {**base, "ccu_reduce": 3 * n}
+
+
+def _dist_serve(rank: int, tmp: str, spec: dict, mesh) -> dict:
+    """A served request on the model axis (a rank of the dist phase): the
+    drawn prompt's rows of this rank's data-parallel share prefilled into
+    its block of a cache of ``spec["cache"]`` positions (the rules'
+    ``cache_seq``; a VLM's prefix first), then ``spec["steps"]`` greedy
+    decode steps, the decode cell's rules (``sp`` off: tensor-parallel).
+    Saves the logits, ids, the MoE layers' choices and the final cache
+    block; returns the launches, times and operand bytes of each step."""
+    from repro_torch import kernels
+    from repro_torch.configs import load
     from repro_torch.models.param import tree_init, tree_leaves, tree_pspecs
+    from repro_torch.parallel.sharding import make_rules
     from repro_torch.train.train_step import build_serve_step
 
     torch.cuda.empty_cache()
-    cell = ShapeCell("prefill", "prefill", spec["prompt_len"], spec["batch"])
-    serve = build_serve_step(harness, cell, mesh, rules=rules)
-    specs, state = harness.param_specs(), harness.serve_state_specs(cell)
-    params = _local(tree_init(specs, torch.Generator(device="cuda").manual_seed(spec["seed"]), torch.bfloat16,
-                              "cuda"), tree_pspecs(specs, rules), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    pre, dec = _serve_cells(harness, spec)
+    rules = make_rules(moe_strategy=harness.moe_strategy)
+    specs = harness.param_specs()
+    params = _local_init(specs, tree_pspecs(specs, rules), mesh, spec["seed"])
+    state = harness.serve_state_specs(dec)
     state_ps = tree_pspecs(state, rules)
     cache = _local(tree_init(state, None, None, "cuda"), state_ps, mesh)
-    tokens = _local({"tokens": _prompt(harness, spec)}, tree_pspecs(harness.serve_input_specs(cell), rules), mesh)
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
+    inputs = _local(_serve_inputs(harness, spec), tree_pspecs(harness.serve_input_specs(pre), rules), mesh)
+    prefill = build_serve_step(harness, pre, mesh, rules=rules)
+    step = build_serve_step(harness, dec, mesh, rules=make_rules(sp=False, moe_strategy=harness.moe_strategy))
+    P, S = harness.prefix_tokens, spec["prompt_len"]
+    out = {"launches": [], "ms": [], "wire": []}
+    kept = {"logits": [], "ids": []}
+    with torch.no_grad(), _routing() as calls:
+        for i in range(spec["steps"] + 1):
+            fn = prefill.fn if i == 0 else step.fn
+            wire0 = dict(fn.wire_bytes)
+            args = inputs if i == 0 else {"tokens": kept["ids"][-1].cuda(), "pos": torch.tensor(P + S + i - 1)}
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(params, cache, args)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(kernels.launch_counts())
+            out["wire"].append({a: n - wire0.get(a, 0) for a, n in fn.wire_bytes.items()})
+            kept["logits"].append(logits.cpu())
+            kept["ids"].append(logits.argmax(-1).to(torch.int32).cpu())
+    kept["cache"] = [c.cpu() for c in tree_leaves(cache)]
+    kept["routing"] = [c[0].cpu() for c in calls]
+    torch.save(kept, f"{tmp}/serve_{spec['arch']}_r{rank}.pt")
+    out.update(cache_blocks=_blocks_of(state_ps, state, mesh), coord=dict(zip(mesh.mesh_dim_names,
+                                                                               mesh.get_coordinate())),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
+    """A served request on the model axis against one process's on the
+    same weights and prompt (``harness.prefill`` and ``decode``), the one
+    process fed the ranks' ids at every step and routed by their MoE
+    choices (a bf16 near-tie may route or choose apart: one token to
+    another expert moves its output by O(1)).  Held: each rank's logits (its
+    share's rows) at every step within 3e-2 of the largest |logit| (at
+    least 3e-2), as the serve phase holds its paths; at every step the id
+    the ranks chose within that limit of the one process's best (the ids
+    equal but where a near-tie lies within the limit: ``same_ids`` says
+    whether they all are); each rank's final cache block within 3e-2 of the
+    largest |value| of the one process's matching slice; every rank's
+    launches in prefill and in each decode step as
+    ``_serve_expected_launches`` works them out."""
+    from repro_torch.configs import load
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    pre, dec = _serve_cells(harness, spec)
+    n, steps = harness.cfg.n_layers, spec["steps"]
+    got = [torch.load(f"{tmp}/serve_{spec['arch']}_r{r}.pt") for r in range(len(ranks))]
+    mine = [r["serve"][spec["arch"]] for r in ranks]
+    rows = [slice(*m["cache_blocks"][0][1]) for m in mine]                # the cache's batch dim
+    B, T = spec["batch"], harness.prefix_tokens + spec["prompt_len"]
+    by_model = {}
+    for g, m, rw in zip(got, mine, rows):
+        by_model.setdefault(m["coord"]["model"], []).append((g, rw))
+    # the ranks' ids and MoE choices, whole: prefill's along the sequence by
+    # model rank, decode's from any model rank (they hold the same)
+    ids = [torch.zeros((B, 1), dtype=torch.int32) for _ in range(steps)]
+    for g, rw in by_model[0]:
+        for i in range(steps):
+            ids[i][rw] = g["ids"][i]
+    replay = []
+    for call in range(len(got[0]["routing"])):
+        K = got[0]["routing"][call].shape[-1]
+        whole = torch.zeros((B, T if call < n else 1, K), dtype=torch.int64)
+        for mrank, members in by_model.items():
+            for g, rw in members:
+                c = g["routing"][call]
+                at = slice(mrank * c.shape[1], (mrank + 1) * c.shape[1]) if call < n else slice(0, 1)
+                whole[rw, at] = c
+        replay.append((whole.cuda(), None))
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                       torch.bfloat16, "cuda")
+    cache = tree_init(harness.serve_state_specs(dec), None, None, "cuda")
+    inputs = _serve_inputs(harness, spec)
+    P, S = harness.prefix_tokens, spec["prompt_len"]
+    one = []
+    with torch.no_grad(), _routing(replay=replay or None):
+        t0 = time.perf_counter()
+        logits, cache = harness.prefill(Runtime())(params, cache, **inputs)
+        one.append(logits.float().cpu())
+        for i in range(steps):
+            logits, cache = harness.decode(Runtime())(params, cache, ids[i].cuda(), P + S + i)
+            one.append(logits.float().cpu())
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+    cache = [c.cpu() for c in tree_leaves(cache)]
+    del params
+    torch.cuda.empty_cache()
+    logit_err = logit_of_limit = short = cache_of_limit = 0.0
+    same = True
+    for i, ref in enumerate(one):
+        limit = 3e-2 * max(1.0, ref.abs().max().item())
+        for g, rw in zip(got, rows):
+            err = (g["logits"][i].float() - ref[rw]).abs().max().item()
+            logit_err, logit_of_limit = max(logit_err, err), max(logit_of_limit, err / limit)
+        if i < steps:
+            chosen = torch.gather(ref, -1, ids[i][..., None].long())[..., 0]
+            short = max(short, (ref.max(-1).values - chosen).max().item() / limit)
+            same = same and bool(torch.equal(ref.argmax(-1).to(torch.int32), ids[i]))
+    for g, m in zip(got, mine):
+        for c, want, b in zip(g["cache"], cache, m["cache_blocks"]):
+            want = want[tuple(slice(x, y) for x, y in b)].float()
+            cache_of_limit = max(cache_of_limit,
+                                 (c.float() - want).abs().max().item() / (3e-2 * max(want.abs().max().item(), 1e-30)))
+    want_pre, want_dec = _serve_expected_launches(harness)
+    launches_ok = all(m["launches"][0] == want_pre and all(c == want_dec for c in m["launches"][1:]) for m in mine)
+    out = {"arch": spec["arch"], "n_layers": n, "batch": B, "prompt_len": spec["prompt_len"], "prefix": P,
+           "cache": spec["cache"] + P, "decode_steps": steps, "mesh": {"data": 2, "model": 2},
+           "prefill_ms_by_rank": [m["ms"][0] for m in mine],
+           "decode_ms_per_token_by_rank": [sum(m["ms"][1:]) / steps for m in mine],
+           "single_process_s": single_s, "peak_memory_gb_by_rank": [m["peak_memory_gb"] for m in mine],
+           "prefill_wire_bytes_rank0": mine[0]["wire"][0], "decode_wire_bytes_per_step_rank0": mine[0]["wire"][-1],
+           "logits_max_abs_err": logit_err, "logits_of_limit": logit_of_limit, "chosen_short_of_best_of_limit": short,
+           "same_ids": same, "cache_worst_of_limit": cache_of_limit,
+           "limit": "3e-2 of the largest |logit| (at least 3e-2) / of the largest |cache value|",
+           "routing_replayed_calls": len(replay), "launches_prefill_rank0": mine[0]["launches"][0],
+           "launches_decode_step_rank0": mine[0]["launches"][-1], "expected_prefill": want_pre,
+           "expected_decode_step": want_dec, "launches_as_expected": launches_ok}
+    if not (logit_of_limit <= 1.0 and short <= 1.0 and cache_of_limit <= 1.0 and launches_ok):
+        raise SystemExit(f"dist serve of {spec['arch']} on the model axis: a check failed: {out}")
+    return out
+
+
+def _moe_train_expected_launches(harness, n_synced: int) -> dict[str, int]:
+    """A step of one rank of an ``expert_tp`` MoE model on (data, model) =
+    (2, 2), worked out from the code: every layer's attention and dispatch
+    run in the forward and the remat's recompute (2 each); a layer's
+    ``ccu_reduce``: the backward's reduce-scatters of its 4 attention
+    weights and of K and V over "model" and of its 3 experts over "data"
+    (9), and 3 sums (forward, recompute, backward) each of the dispatch
+    buffer, the expert outputs and the auxiliary loss's means (9); the
+    token table's and the unembedding's reduce-scatters (2), the sum of the
+    losses and replicated gradients over "model" (1), each leaf not cut
+    over "data" reduce-scattered over it (``n_synced``), each leaf's sum of
+    squares over "model" and over "data" (2)."""
+    n = harness.cfg.n_layers
+    return {"flash_attention": 2 * n, "moe_dispatch": 2 * n, "ssd_scan": 0, "rwkv6_scan": 0,
+            "ccu_reduce": 18 * n + 2 + 1 + n_synced + 2}
+
+
+def _dist_moe_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
+    """One rank of the dist phase's MoE mesh (a spawned process):
+    ``spec["steps"]`` ZeRO-1 steps of ``spec["arch"]`` on (data, model) =
+    (2, 2), its experts' FSDP dim gathered over "data"; the first step's
+    routing of each layer's forward, its synchronised gradient blocks (each
+    block once over the ranks: the first data index's ranks save every
+    leaf, the others the leaves cut over "data"), its ZeRO-1 shards'
+    digests and every step's params' digests saved; then ``spec["serve"]``'s
+    requests (``_dist_serve``)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import load
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import tree_leaves, tree_pspecs
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
+    from repro_torch.train.train_step import build_train_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = make_mesh(spec["mesh"], spec["axes"])
+        harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+        rules = make_rules(moe_strategy=harness.moe_strategy)
+        specs = harness.param_specs()
+        cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
+        bundle = build_train_step(harness, cell, mesh, opt_cfg=_dist_opt_cfg(spec),
+                                  compression=CompressionConfig(mode=spec["compression"]), rules=rules)
+        param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
+        coord = dict(zip(spec["axes"], mesh.get_coordinate()))
+        # the leaves whose block this rank saves: each block once over the ranks
+        data_cut = [any("data" in ((e,) if isinstance(e, str) else tuple(e or ())) for e in ps)
+                    for ps in tree_leaves(param_ps)]
+        saves = [coord["data"] == 0 or cut for cut in data_cut]
+        params = _local_init(specs, param_ps, mesh, spec["seed"])
+        opt = bundle.init_opt_state(params)
+        data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
+                              seed=0)
+        pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": [],
+               "wire_by_step": [], "coord": coord}
+        observe_s = 0.0
+
+        def keep(grads, payload):
+            nonlocal observe_s
+            t = time.perf_counter()
+            g, p = tree_leaves(grads), tree_leaves(payload)
+            out["payload_is_gradient"] = all(torch.equal(a.to(b.dtype), b) for a, b in zip(g, p))
+            torch.save([x.cpu() if k else None for x, k in zip(p, saves)], f"{tmp}/moe_payload_r{rank}.pt")
+            observe_s = time.perf_counter() - t
+
+        try:
+            for step in range(spec["steps"]):
+                batch = next(pipeline)
+                local = _local({k: torch.from_numpy(batch[k]).to("cuda") for k in ("tokens", "labels")},
+                               input_ps, mesh)
+                wire0 = dict(bundle.fn.wire_bytes)
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof, _routing() as calls:
+                    params, opt, metrics, _ = bundle.fn(params, opt, local, None, keep if step == 0 else None)
+                    torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
+                observe_s = 0.0
+                if prof is not None:
+                    out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                                                 if e.key.startswith(("train.", "model.", "data.", "data+model."))}
+                out["launches"].append(kernels.launch_counts())
+                out["losses"].append(float(metrics["loss"]))
+                out["grad_norms"].append(float(metrics["grad_norm"]))
+                out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
+                out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
+                if step == 0:
+                    out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
+                    # the forward's calls (the recompute's follow, last layer first)
+                    torch.save([c[0].cpu() for c in calls[:harness.cfg.n_layers]], f"{tmp}/moe_routing_r{rank}.pt")
+        finally:
+            pipeline.close()
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
+        out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 16), specs, mesh)
+        out["input_block"] = _blocks_of(input_ps, harness.train_input_specs(cell), mesh)[1]   # tokens
+        out["saves"] = saves
+        out["n_synced"] = sum(not c for c in data_cut)
+        del params, opt, bundle
+        out["serve"] = {s["arch"]: _dist_serve(rank, tmp, s, mesh) for s in spec["serve"]}
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
+    """The MoE mesh's training held (``phase_dist``): every block of every
+    leaf bit-identical on the ranks that hold it, after every step (the
+    data ranks share the leaves not cut over "data"); the clip norm the
+    same on every rank and within 1e-5 of the whole payload's; each rank's
+    ZeRO-1 shard of master / m / v after the first step, and its params,
+    bit-equal to ``step_scalars`` (with the ranks' norm) + ``update_leaf``
+    on the whole leaf, leaf by leaf; the first step's loss and synchronised
+    gradients within 3e-2 (of each leaf's largest |g|) of one process's
+    (``value_and_grad`` of the loss on the same first batch, routed by the
+    ranks' choices); the launches of every step and rank as
+    ``_moe_train_expected_launches`` works them out."""
+    from repro_torch.configs import load
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves, value_and_grad
+    from repro_torch.optim import adamw
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    names = list(_leaf_sizes(harness))
+    n = harness.cfg.n_layers
+    # 1. every block the same on the ranks that hold it
+    identical = True
+    for step in range(spec["steps"]):
+        seen = {}
+        for r in ranks:
+            for i, (blk, d) in enumerate(zip(r["param_blocks"], r["params_digest"][step])):
+                key = (i, str(blk))
+                identical = identical and seen.setdefault(key, d) == d
+    expected = _moe_train_expected_launches(harness, ranks[0]["n_synced"])
+    launches_ok = all(c == expected for r in ranks for c in r["launches"])
+    # the first step's payload whole, from each block's one saver
+    like = [torch.zeros(s.shape, dtype=torch.bfloat16) for s in tree_leaves(harness.param_specs())]
+    for r, res in enumerate(ranks):
+        for f, g, blk in zip(like, torch.load(f"{tmp}/moe_payload_r{r}.pt"), res["param_blocks"]):
+            if g is not None:
+                f[tuple(slice(a, b) for a, b in blk)] = g
+    cfg = _dist_opt_cfg(spec)
+    whole = float(torch.sqrt(sum(torch.sum(torch.square(g.cuda().float())) for g in like)))
+    norm = {"ranks": ranks[0]["grad_norms"][0], "whole_payload": whole,
+            "same_on_every_rank": all(r["grad_norms"] == ranks[0]["grad_norms"] for r in ranks),
+            "rel_err": abs(ranks[0]["grad_norms"][0] - whole) / whole, "limit": 1e-5}
+    if not (norm["same_on_every_rank"] and norm["rel_err"] <= norm["limit"]):
+        raise SystemExit(f"dist MoE: the clip norm failed: {norm}")
+    # 2. the shards and params leaf by leaf, from the same drawn weights
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                       torch.bfloat16, "cuda")
+    k = adamw.step_scalars(cfg, None, {"step": torch.zeros((), dtype=torch.int32, device="cuda")},
+                           torch.tensor(norm["ranks"], dtype=torch.float32, device="cuda"))
+    mismatch = []
+    for i, (p, g) in enumerate(zip(tree_leaves(params), like)):
+        master = p.to(torch.float32)
+        m, v = torch.zeros_like(master), torch.zeros_like(master)
+        adamw.update_leaf(cfg, k, g.cuda().to(cfg.grad_dtype), m, v, master)
+        for r, res in enumerate(ranks):
+            zb = tuple(slice(a, b) for a, b in res["blocks"][i])
+            for key, full in (("master", master), ("m", m), ("v", v)):
+                if _digest(full[zb]) != res["shard_digest"][key][i]:
+                    mismatch.append((r, key, names[i]))
+            pb = tuple(slice(a, b) for a, b in res["param_blocks"][i])
+            if _digest(master.to(p.dtype)[pb]) != res["params_digest"][0][i]:
+                mismatch.append((r, "params", names[i]))
+        del master, m, v
+    torch.cuda.empty_cache()
+    # 3. one process on the first batch, routed by the ranks' choices
+    data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size, seed=0)
+    pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
+    try:
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(pipeline).items() if k in ("tokens", "labels")}
+    finally:
+        pipeline.close()
+    forward = []
+    for layer in range(n):
+        whole_idx = None
+        for r, res in enumerate(ranks):
+            c = torch.load(f"{tmp}/moe_routing_r{r}.pt")[layer]
+            if whole_idx is None:
+                whole_idx = torch.zeros((spec["batch"], spec["seq"], c.shape[-1]), dtype=c.dtype)
+            whole_idx[tuple(slice(a, b) for a, b in res["input_block"])] = c
+        forward.append((whole_idx.cuda(), None))
     t0 = time.perf_counter()
-    with torch.no_grad():
-        logits, cache = serve.fn(params, cache, tokens)
+    with _routing(replay=forward + forward[::-1]):
+        loss, grads = value_and_grad(harness.loss(Runtime()))(params, batch)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    torch.save({"logits": logits.cpu(), "cache": [c.cpu() for c in tree_leaves(cache)]}, f"{tmp}/prefill_r{rank}.pt")
-    return {"ms": ms, "launches": kernels.launch_counts(), "cache_blocks": _blocks_of(state_ps, state, mesh),
-            "wire_bytes": serve.fn.wire_bytes}
+    single_s = time.perf_counter() - t0
+    del params
+    # a rank's loss is its data share's, summed over the model ranks: the same on each of them
+    shares = {r["coord"]["data"]: r["losses"][0] for r in ranks}
+    mean_loss = sum(shares.values()) / len(shares)
+    of_limit = [(a.cuda().float() - b.float()).abs().max().item() / (3e-2 * b.float().abs().max().item())
+                for a, b in zip(like, tree_leaves(grads))]
+    worst = max(range(len(names)), key=lambda i: of_limit[i])
+    del grads, like
+    torch.cuda.empty_cache()
+    out = {"arch": spec["arch"], "n_layers": n, "params": sum(_leaf_sizes(harness).values()),
+           "mesh": dict(zip(spec["axes"], spec["mesh"])), "ranks": len(ranks), "global_batch": spec["batch"],
+           "seq": spec["seq"], "steps": spec["steps"], "compression": spec["compression"],
+           "strategy": harness.moe_strategy,
+           "transport": "gloo (torch.distributed), one process group a mesh axis; each CUDA tensor staged "
+                        "through host memory; every sum in ccu_reduce on the card",
+           "step_ms_by_rank": [r["step_ms"] for r in ranks],
+           "last_step_parts_ms_by_rank": [r["last_step_parts_ms"] for r in ranks],
+           "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in ranks],
+           "wire_bytes_per_step_rank0": ranks[0]["wire_by_step"][-1],
+           "losses_by_rank": [r["losses"] for r in ranks], "first_step_mean_loss": mean_loss,
+           "single_process_loss": float(loss), "single_process_s": single_s,
+           "loss_max_abs_err": abs(mean_loss - float(loss)), "loss_limit": 3e-2,
+           "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
+           "grad_limit": "3e-2 of the leaf's largest |g|", "clip_norm": norm,
+           "payload_is_gradient": all(r["payload_is_gradient"] for r in ranks if "payload_is_gradient" in r),
+           "blocks_bit_identical_every_step": identical, "shards_and_params_equal_update_leaf": not mismatch,
+           "mismatches": mismatch[:10], "launches_per_step_and_rank": ranks[0]["launches"][0],
+           "expected_launches": expected, "launches_as_expected": launches_ok}
+    if not (identical and not mismatch and launches_ok and out["loss_max_abs_err"] <= 3e-2
+            and of_limit[worst] <= 1.0 and out["payload_is_gradient"] and math.isfinite(mean_loss)):
+        raise SystemExit(f"dist MoE training: a check failed: {out}")
+    return out
 
 
 def _ccu_dist_rows(rows: dict[str, tuple[int, int]], dtypes: tuple, what: str) -> dict:
@@ -2357,15 +2883,17 @@ def _model_axis_rows(harness, spec: dict) -> dict[str, tuple[int, int]]:
     return rows
 
 
-def _spawn(spec: dict) -> tuple[list[dict], float, str]:
+def _spawn(spec: dict, target) -> tuple[list[dict], float, str]:
     import tempfile
 
     import torch.multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     world = math.prod(spec["mesh"])
+    # the ranks allocate in expandable segments: four training states share the card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t0 = time.perf_counter()
-    mp.spawn(_dist_rank, args=(world, tmp, spec), nprocs=world, join=True)
+    mp.spawn(target, args=(world, tmp, spec), nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
     ranks = []
     for r in range(world):
@@ -2479,109 +3007,84 @@ def _check_mesh(spec: dict, ranks: list[dict], tmp: str, harness, single: dict, 
     return out
 
 
-def _check_prefill(spec: dict, ranks: list[dict], tmp: str) -> dict:
-    """Prefill on the model axis against one process's prefill of the same
-    prompt on the same weights: each rank's last-token logits (its share's
-    rows) within 3e-2 of the largest |logit|, each rank's cache block within
-    3e-2 of the largest |value| of the matching slice of the one process's
-    cache; every rank launched flash once a layer."""
-    from repro_torch.configs import load
-    from repro_torch.models.api import ShapeCell
-    from repro_torch.models.layers import Runtime
-    from repro_torch.models.param import tree_init, tree_leaves
-
-    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
-    cell = ShapeCell("prefill", "prefill", spec["prompt_len"], spec["batch"])
-    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
-                       torch.bfloat16, "cuda")
-    cache = tree_init(harness.serve_state_specs(cell), None, None, "cuda")
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        logits, cache = harness.prefill(Runtime())(params, cache, _prompt(harness, spec))
-        torch.cuda.synchronize()
-        single_ms = (time.perf_counter() - t0) * 1e3
-    logits, cache = logits.cpu(), [c.cpu() for c in tree_leaves(cache)]
-    del params
-    torch.cuda.empty_cache()
-    largest = logits.float().abs().max().item()
-    logit_err, cache_of_limit = 0.0, 0.0
-    expected = {"flash_attention": spec["n_layers"], "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                "ccu_reduce": 0}
-    for r, res in enumerate(ranks):
-        got = torch.load(f"{tmp}/prefill_r{r}.pt")
-        blk = res["prefill"]["cache_blocks"][0]
-        rows = slice(blk[1][0], blk[1][1])                       # the cache's batch dim: the rank's rows
-        logit_err = max(logit_err, (got["logits"].float() - logits[rows].float()).abs().max().item())
-        for c, want, b in zip(got["cache"], cache, res["prefill"]["cache_blocks"]):
-            want = want[tuple(slice(x, y) for x, y in b)].float()
-            cache_of_limit = max(cache_of_limit,
-                                 (c.float() - want).abs().max().item() / (3e-2 * want.abs().max().item()))
-    launches = [r["prefill"]["launches"] for r in ranks]
-    out = {"arch": spec["arch"], "n_layers": spec["n_layers"], "batch": spec["batch"],
-           "prompt_len": spec["prompt_len"], "ms_by_rank": [r["prefill"]["ms"] for r in ranks],
-           "single_process_ms": single_ms, "wire_bytes_rank0": ranks[0]["prefill"]["wire_bytes"],
-           "logits_max_abs_err": logit_err, "largest_logit": largest, "logits_of_limit": logit_err / (3e-2 * largest),
-           "cache_worst_of_limit": cache_of_limit, "limit": "3e-2 of the largest |logit| / |cache value|",
-           "launches_by_rank": launches, "expected_launches": expected}
-    if not (logit_err <= 3e-2 * largest and cache_of_limit <= 1.0 and all(c == expected for c in launches)):
-        raise SystemExit(f"dist prefill on the model axis: a check failed: {out}")
-    return out
-
-
-def _check_dryrun(spec: dict, ranks: list[dict]) -> dict:
-    """``train_step.lower_bundle`` for the same cell over a fake process
-    group of the mesh's size, on the meta device (the dry-run's trace, the
-    plain path): its operand bytes by axis equal to what rank 0's transports
-    recorded in a warm step; its argument bytes (this rank's blocks) at or
-    below rank 0's measured peak."""
-    from repro_torch.configs import load
+def _check_dryrun(what: str, spec: dict, build, measured: dict, peak_gb: float | None) -> dict:
+    """``train_step.lower_bundle`` of the bundle ``build(mesh)`` makes over
+    a fake process group of ``spec``'s mesh, on the meta device (the
+    dry-run's trace, the plain path): its operand bytes by axis equal to
+    ``measured``, what rank 0's transports recorded in a warm step of the
+    same cell; where ``peak_gb`` is given (a train step), its argument
+    bytes (this rank's blocks) at or below rank 0's measured peak."""
     from repro_torch.launch.mesh import fake_mesh
-    from repro_torch.models.api import ShapeCell
-    from repro_torch.optim.compression import CompressionConfig
-    from repro_torch.parallel.sharding import make_rules
-    from repro_torch.train.train_step import build_train_step, lower_bundle
+    from repro_torch.train.train_step import lower_bundle
 
-    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
     t0 = time.perf_counter()
     with fake_mesh(spec["mesh"], spec["axes"]) as mesh:
-        bundle = build_train_step(harness, ShapeCell("dist", "train", spec["seq"], spec["batch"]), mesh,
-                                  multi_pod="pod" in spec["axes"], opt_cfg=_dist_opt_cfg(),
-                                  compression=CompressionConfig(mode=spec["compression"]),
-                                  rules=make_rules(multi_pod="pod" in spec["axes"]), use_kernels=False)
-        low = lower_bundle(bundle, mesh)
-    measured = ranks[0]["wire_by_step"][-1]
-    peak = ranks[0]["peak_memory_gb"] * 1e9
-    out = {"mesh": dict(zip(spec["axes"], spec["mesh"])), "seconds": time.perf_counter() - t0,
+        low = lower_bundle(build(mesh), mesh)
+    peak = None if peak_gb is None else peak_gb * 1e9
+    out = {"step": what, "mesh": dict(zip(spec["axes"], spec["mesh"])), "seconds": time.perf_counter() - t0,
            "operand_bytes_by_axis": low["operand_bytes_by_axis"], "rank0_warm_step_bytes_by_axis": measured,
            "equal": low["operand_bytes_by_axis"] == measured, "collectives": len(low["records"]),
            "c10d_ops": low["c10d_ops"], "memory": low["memory"], "rank0_peak_bytes": peak,
-           "argument_bytes_at_or_below_peak": low["memory"]["argument_bytes"] <= peak,
+           "argument_bytes_at_or_below_peak": peak is None or low["memory"]["argument_bytes"] <= peak,
            "flops": low["flops"], "hbm_bytes_upper_bound": low["hbm_bytes"]}
     if not (out["equal"] and out["argument_bytes_at_or_below_peak"] and low["c10d_ops"] == len(low["records"])):
-        raise SystemExit(f"dist dry-run against the run: {out}")
+        raise SystemExit(f"dist dry-run of {what} against the run: {out}")
     return out
 
 
+def _train_bundle(spec: dict):
+    """The bundle of ``spec``'s train cell on a mesh, the plain path."""
+    from repro_torch.configs import load
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_train_step
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    multi_pod = "pod" in spec["axes"]
+    return lambda mesh: build_train_step(
+        harness, ShapeCell("dist", "train", spec["seq"], spec["batch"]), mesh, multi_pod=multi_pod,
+        opt_cfg=_dist_opt_cfg(spec), compression=CompressionConfig(mode=spec["compression"]),
+        rules=make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy), use_kernels=False)
+
+
+def _decode_bundle(spec: dict):
+    """The bundle of a served request's decode cell on a mesh, the plain
+    path."""
+    from repro_torch.configs import load
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_serve_step
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    _, dec = _serve_cells(harness, spec)
+    return lambda mesh: build_serve_step(harness, dec, mesh, use_kernels=False,
+                                         rules=make_rules(sp=False, moe_strategy=harness.moe_strategy))
+
+
 def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
-    """The ZeRO-1 train step on four ranks of one card, on two meshes
+    """The ZeRO-1 train step on four ranks of one card, on three meshes
     (``DIST``: (pod, data, model) = (2, 2, 1); ``DIST_MODEL``: (data, model)
-    = (2, 2), the dense family's sequence-parallel model axis, then prefill
-    on it), the ranks spawned once the kernels are built (``_dist_rank``),
-    then held here (``_check_mesh``): the params of every rank of a model
-    coordinate bit-identical after every step; each rank's ZeRO-1 shard of
-    master / m / v after the first step equal to ``adamw.apply`` of the
-    whole trees on the first step's synchronised payload (gathered from the
-    ranks' blocks) with the ranks' norm, bit for bit (digests); the mean of
-    the ranks' losses over the steps and the first step's synchronised
-    gradient within 3e-2 (of each leaf's largest |g|) of one process's step
-    at global batch 8 (``launch.train.run``, from the same drawn weights);
-    the launches of every step and rank equal to ``_dist_expected_launches``.
-    Then the prefill (``_check_prefill``), the dry-run's trace of the
-    model-axis cell against rank 0's recorded bytes (``_check_dryrun``), and
-    ``ccu_reduce`` at the P = 2 rows of both meshes (``_ccu_dist_rows``).
-    The four ranks share the card, so their times measure the port's
-    overhead and the kernels, not data-parallel scaling.  Returns each
-    path's summed launches and the ccu rows."""
+    = (2, 2), the dense family's sequence-parallel model axis, then served
+    requests on it; ``DIST_MOE``: the same mesh, the MoE family, its
+    experts' FSDP over "data", then its requests), the ranks spawned once
+    the kernels are built (``_dist_rank``, ``_dist_moe_rank``), then held
+    here (``_check_mesh``, ``_check_moe_train``): the params of every rank
+    bit-identical where they hold the same block, after every step; each
+    rank's ZeRO-1 shard of master / m / v after the first step equal to
+    ``adamw.apply`` (or ``update_leaf``, leaf by leaf) of the whole trees on
+    the first step's synchronised payload (gathered from the ranks' blocks)
+    with the ranks' norm, bit for bit (digests); the losses and the first
+    step's synchronised gradient within 3e-2 (of each leaf's largest |g|)
+    of one process's at the same global batch, from the same drawn weights
+    (an MoE model routed by the ranks' choices); the launches of every step
+    and rank as worked out from the code.  Then each served request against
+    one process's (``_check_serve``), the dry-run's traces of granite-8b's
+    train and decode steps and of mixtral-8x22b's train step against rank
+    0's recorded bytes (``_check_dryrun``), and ``ccu_reduce`` at the P = 2
+    rows of the meshes and of decode's sums (``_ccu_dist_rows``).  The four
+    ranks share the card, so their times measure the port's overhead and
+    the kernels, not data-parallel scaling.  Returns each path's summed
+    launches and the ccu rows."""
     import shutil
 
     from repro_torch.configs import load
@@ -2594,8 +3097,9 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     names = list(_leaf_sizes(harness))
     torch.cuda.empty_cache()
     runs = {}
-    for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL)):
-        runs[key] = _spawn(spec)
+    for key, spec, target in (("dist", DIST, _dist_rank), ("dist_model", DIST_MODEL, _dist_rank),
+                              ("dist_moe", DIST_MOE, _dist_moe_rank)):
+        runs[key] = _spawn(spec, target)
 
     # one process, global batch 8, from the same weights
     args = train.build_parser().parse_args([
@@ -2612,20 +3116,44 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     single["first_grads"] = first.pop("grads")
     torch.cuda.empty_cache()
     by_path, ccu = {}, {}
+
+    def serve_checks(spec: dict, ranks: list[dict], tmp: str) -> None:
+        for s in spec["serve"]:
+            res = _check_serve(s, ranks, tmp)
+            emit("dist_serve", **res)
+            mine = [r["serve"][s["arch"]] for r in ranks]
+            by_path[f"{s['arch']} served on the model axis (4 ranks, {s['n_layers']} layers, prefill + "
+                    f"{s['steps']} decode steps)"] = {k: sum(c[k] for m in mine for c in m["launches"])
+                                                       for k in res["expected_prefill"]}
+            torch.cuda.empty_cache()
+
     for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL)):
         ranks, spawn_s, tmp = runs[key]
         out = _check_mesh(spec, ranks, tmp, harness, single, names)
         if key == "dist_model":
-            out["dryrun"] = _check_dryrun(spec, ranks)
-            prefill = _check_prefill(spec["prefill"], ranks, tmp)
-            emit("dist_prefill", **prefill)
-            by_path[f"{spec['arch']} prefill on the model axis (4 ranks, {spec['n_layers']} layers)"] = {
-                k: sum(c[k] for c in prefill["launches_by_rank"]) for k in prefill["expected_launches"]}
+            out["dryrun"] = _check_dryrun("train", spec, _train_bundle(spec), ranks[0]["wire_by_step"][-1],
+                                          ranks[0]["peak_memory_gb"])
+            granite = spec["serve"][0]
+            out["dryrun_decode"] = _check_dryrun("decode", spec, _decode_bundle(granite),
+                                                 ranks[0]["serve"][granite["arch"]]["wire"][-1], None)
+            serve_checks(spec, ranks, tmp)
         shutil.rmtree(tmp, ignore_errors=True)
         out["spawn_to_exit_s"] = spawn_s
         emit(key, **out)
         by_path[f"{spec['arch']} {key} {out['mesh']} ({len(ranks)} ranks, {spec['n_layers']} layers)"] = {
             k: sum(c[k] for r in ranks for c in r["launches"]) for k in out["expected_launches"]}
+    del single
+    torch.cuda.empty_cache()
+    ranks, spawn_s, tmp = runs["dist_moe"]
+    out = _check_moe_train(DIST_MOE, ranks, tmp)
+    out["dryrun"] = _check_dryrun("train", DIST_MOE, _train_bundle(DIST_MOE), ranks[0]["wire_by_step"][-1],
+                                  ranks[0]["peak_memory_gb"])
+    out["spawn_to_exit_s"] = spawn_s
+    emit("dist_moe", **out)
+    by_path[f"{DIST_MOE['arch']} dist_moe {out['mesh']} ({len(ranks)} ranks, {DIST_MOE['n_layers']} layer)"] = {
+        k: sum(c[k] for r in ranks for c in r["launches"]) for k in out["expected_launches"]}
+    serve_checks(DIST_MOE, ranks, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
     ccu["p2_data"] = _ccu_dist_rows({k: (n // 2, 1) for k, n in _leaf_sizes(harness).items()},
                                     (torch.bfloat16, torch.float32),
                                     "P = 2 rows of N / 2 for each of the 12 leaves on the (2, 2, 1) mesh: bf16 "
@@ -2635,7 +3163,28 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
                                      "P = 2 bf16 rows of half of each tensor gathered over model on the (2, 2) "
                                      "mesh, the backward's reduce-scatters (a layer's 7 weights, K and V, once a "
                                      "layer; the token table and the unembedding): 20 launches a step and rank")
+    ccu["p2_decode"] = _decode_ccu_rows(DIST_MODEL["serve"][0])
     return by_path, ccu
+
+
+def _decode_ccu_rows(spec: dict) -> dict:
+    """``ccu_reduce`` at the P = 2 rows of a decode step on the model axis
+    (granite-8b on (2, 2), 2 sequences a rank): each layer's combine of the
+    ranks' partial outputs, a reduce-scatter of bf16 rows of B·N·Dh/2, and
+    its two partial sums (the output projection's and the MLP's), bf16
+    rows of B·D."""
+    from repro_torch.configs import load
+
+    cfg = load(spec["arch"]).cfg
+    B, L = spec["batch"] // 2, spec["n_layers"]
+    combine = _ccu_dist_rows({"combine (a layer)": (B * cfg.n_heads * cfg.head_dim // 2, L)}, (torch.bfloat16,),
+                             "bf16 rows of the scaled partial outputs, reduce-scattered over model")
+    sums = _ccu_dist_rows({"wo partial sum (a layer)": (B * cfg.d_model, L), "mlp partial sum (a layer)":
+                           (B * cfg.d_model, L)}, (torch.bfloat16,), "bf16 rows of the row-parallel partial sums")
+    keys = ("launches", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+    return {"shape": f"a decode step of {spec['arch']} ({L} layers, batch {spec['batch']}) on (data, model) = "
+                     f"(2, 2): 3 launches a layer and rank", **{k: combine[k] + sums[k] for k in keys},
+            "combine": combine, "partial_sums": sums}
 
 
 def _tree_like(tree, leaves: list):
@@ -2732,6 +3281,7 @@ def main() -> int:
         for row in kernel_rows:
             if row["name"] == "ccu_reduce":
                 row["dist_rows"], row["model_axis_rows"] = ccu["p2_data"], ccu["p2_model"]
+                row["model_axis_decode_rows"] = ccu["p2_decode"]
     if "restart" in phases:
         emit("restart", **_restart_check())
     for row in kernel_rows:

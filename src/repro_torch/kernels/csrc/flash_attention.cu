@@ -72,7 +72,11 @@
 //     writes fp32 partials (acc, m, l) to a workspace from the caller (fp32
 //     at head_dim 256 has room for one stage of the ring only).  The
 //     combine kernel sums the splits in a fixed order with no atomics, so two
-//     calls give the same bits.
+//     calls give the same bits.  Where the caller asks, it also writes each
+//     row's log-sum-exp of its scaled scores, M + log(sum_s l_s e^(m_s - M)),
+//     in fp32: a model rank attending over its block of the cache returns it
+//     beside its output, and the ranks' outputs are combined as the splits
+//     are (train_step / layers.attention on the "model" axis).
 //  3. fp32, folded rows > 16 (smoke sizes and tests, on no full-width path):
 //     `flash_fwd_simt_kernel`, the first design: plain fp32 FMA from shared
 //     memory, 16 x 16 threads with a 4 x 4 register tile of the scores.
@@ -114,6 +118,7 @@ struct Params {
   int causal, window, prefix_len, q_start;   // window < 0: none
   float sm_scale;
   float* acc;   // tensor-core kernel: fp32 copies of O flushed every FLUSH_TILES tiles (null: no flush)
+  float* lse;   // decode: each row's log-sum-exp of its scores, (B, K, G, Sq) fp32 (null: not written)
 };
 
 // ---------------------------------------------------------------------------
@@ -823,7 +828,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p, 
 }
 
 // out[r, d] = sum_s acc_s[r, d] e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-20),
-// M = max_s m_s; the splits in order 0, 1, ..., no atomics.  Every (m_s, l_s)
+// M = max_s m_s; the splits in order 0, 1, ..., no atomics.  Where p.lse is
+// set, lse[b, k, g, s] = M + log(sum_s l_s e^(m_s - M)) of row r = s G + g.  Every (m_s, l_s)
 // is read at once into shared memory and each row's weights e^(m_s - M) are
 // worked out there; then each (row, column) reads its splits' partials with
 // independent loads.
@@ -861,6 +867,7 @@ __global__ void __launch_bounds__(COMBINE_THREADS) flash_combine_kernel(const Pa
       lsum += lw[r][sp] * w[r][sp];
     }
     inv[r] = 1.f / fmaxf(lsum, 1e-20f);
+    if (p.lse != nullptr) p.lse[((long long)bk * p.G + r % p.G) * p.Sq + r / p.G] = M + logf(lsum);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < R * D; idx += COMBINE_THREADS) {
@@ -1150,6 +1157,7 @@ cudaError_t launch_dim(Params p, int dtype, float* part, int splits, cudaStream_
     return dtype == 1 ? dec::launch<bf16, D>(p, part, splits, stream)
                       : dec::launch<float, D>(p, part, splits, stream);
   }
+  if (p.lse != nullptr) return cudaErrorInvalidValue;   // the log-sum-exp is a decode call's
   p.acc = part;    // the tensor-core kernel's flushed copies of O, where the rows are long
   return dtype == 1 ? tc::launch<D>(p, stream) : simt::launch<D>(p, stream);
 }
@@ -1162,14 +1170,15 @@ cudaError_t launch_dim(Params p, int dtype, float* part, int splits, cudaStream_
 // workspace of B*K*splits*G*Sq*(D+2) floats and the number of key splits;
 // for bf16 with G*Sq > 16, null or (where Sk > 2,048) fp32 workspace of
 // ceil(G*Sq/64)*B*K*64*max(D,64) floats for O's flushed copies (`splits`
-// unused).  Returns the cudaError_t of the launches (0 = ok); it does not
-// synchronise.
+// unused).  `lse`: null, or for G*Sq <= 16 an fp32 output of B*K*G*Sq floats
+// for each row's log-sum-exp.  Returns the cudaError_t of the launches
+// (0 = ok); it does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int K, int G, int Sq, int Sk, int D, int dtype,
     const long long* strides,
     int causal, int window, int prefix_len, int q_start, float sm_scale,
-    void* part, int splits, void* stream) {
+    void* part, int splits, void* lse, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.K = K; p.G = G; p.Sq = Sq; p.Sk = Sk;
@@ -1180,6 +1189,7 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.window = window; p.prefix_len = prefix_len; p.q_start = q_start;
   p.sm_scale = sm_scale;
   p.acc = nullptr;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* work = static_cast<float*>(part);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);

@@ -37,6 +37,13 @@ whose notes say what each design does about that and what is left for later:
 - float32 otherwise (smoke sizes and tests): the first design, fp32 FMA.
 
 A call counts one launch, also where a decode step runs two kernels.
+
+``return_lse=True`` (a decode call, ``G * Sq <= 16``, no autograd) also
+returns each row's log-sum-exp of its scaled scores, ``(B, K, G, Sq)`` fp32,
+written by the combine kernel (``flash_attention_plain`` computes the same):
+a model rank that attends over its block of the cache returns it with its
+output, and the ranks' outputs are combined by it as the kernel combines its
+own splits (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -102,11 +109,14 @@ def flash_attention_plain(
     prefix_len: int = 0,
     q_start: int = 0,
     sm_scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch version of the kernel's function, with the kernel's
     arithmetic: inputs widened to fp32, fp32 scores and probabilities, the
     finite -1e30 fill, output cast to the input type.  (float64 inputs stay
-    float64, for checking the gradient by finite differences.)"""
+    float64, for checking the gradient by finite differences.)  With
+    ``return_lse``, also each row's log-sum-exp of the filled scores, fp32
+    ``(B, K, G, Sq)``."""
     Sq, D = q.shape[3], q.shape[4]
     Sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -118,7 +128,8 @@ def flash_attention_plain(
     )
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide)).to(q.dtype)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide)).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1).float()) if return_lse else o
 
 
 def _check(q, k, v, window, prefix_len, q_start):
@@ -144,13 +155,13 @@ def _check(q, k, v, window, prefix_len, q_start):
         raise ValueError(f"bad window={window}, prefix_len={prefix_len}, q_start={q_start}")
 
 
-def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.Tensor:
+def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale, return_lse=False):
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
-            + [ci] * 4 + [ctypes.c_float, vp, ci, vp]
+            + [ci] * 4 + [ctypes.c_float, vp, ci, vp, vp]
         fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -167,7 +178,9 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
             )
     B, K, G, Sq, D = q.shape
     Sk = k.shape[2]
-    splits, part = 0, None
+    splits, part, lse = 0, None, None
+    if return_lse:
+        lse = torch.empty((B, K, G, Sq), dtype=torch.float32, device=q.device)
     if G * Sq <= DECODE_ROWS:
         splits = decode_splits(B * K, Sk, _sm_count(q.device.index))
         part = torch.empty(B * K * splits * G * Sq * (D + 2), dtype=torch.float32, device=q.device)
@@ -182,13 +195,14 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale) -> torch.
             int(causal), -1 if window is None else int(window), int(prefix_len),
             int(q_start), float(sm_scale),
             None if part is None else part.data_ptr(), splits,
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {err})")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention(
@@ -201,16 +215,25 @@ def flash_attention(
     prefix_len: int = 0,
     q_start: int = 0,
     sm_scale: float | None = None,
-) -> torch.Tensor:
-    """Attention output ``(B, K, G, Sq, D)`` in q's type."""
+    return_lse: bool = False,
+):
+    """Attention output ``(B, K, G, Sq, D)`` in q's type; with
+    ``return_lse`` (a decode call: ``G * Sq <= 16``, no autograd) the pair
+    (output, log-sum-exp ``(B, K, G, Sq)`` fp32)."""
     _check(q, k, v, window, prefix_len, q_start)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, sm_scale=scale)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if return_lse and (q.shape[2] * q.shape[3] > DECODE_ROWS or grad):
+        raise ValueError(f"the log-sum-exp is a decode call's (G * Sq <= {DECODE_ROWS}, no autograd); "
+                         f"got q {tuple(q.shape)}, autograd {grad}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
+        return flash_attention_plain(q, k, v, return_lse=return_lse, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if return_lse:
+        return _launch(q, k, v, return_lse=True, **kw)
+    if grad:
         return PlainGradient.apply(lambda *t: _launch(*t, **kw),
                                    lambda *t: flash_attention_plain(*t, **kw), q, k, v)
     return _launch(q, k, v, **kw)

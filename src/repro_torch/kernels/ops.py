@@ -37,10 +37,11 @@ def flash_attention_bkgsd(
 
 
 def flash_attention_bsnd(
-    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
-) -> torch.Tensor:
+    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0, return_lse=False
+):
     """Model-layer layout: q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) GQA -> (B,Sq,N,Dh).
-    Query head n belongs to kv head n // (N // K)."""
+    Query head n belongs to kv head n // (N // K).  With ``return_lse`` also
+    each row's log-sum-exp, (B,Sq,N) fp32."""
     if q.ndim != 4 or k.ndim != 4 or q.shape[2] % k.shape[2]:
         raise ValueError(
             f"expected q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) with K dividing N; got "
@@ -51,7 +52,10 @@ def flash_attention_bsnd(
     qk = q.unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)     # (B,K,G,Sq,D) view
     o = flash_attention(
         qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-        causal=causal, window=window, prefix_len=prefix_len, q_start=q_start,
+        causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, return_lse=return_lse,
     )
+    if return_lse:
+        o, lse = o
+        return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, D), lse.permute(0, 3, 1, 2).reshape(B, Sq, N)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, D)
 

@@ -24,10 +24,12 @@ the reference's keys (``memory``, ``cost``, ``collectives`` with
 ``collectives.operand_bytes_by_axis`` (what the transports handed the
 process group) and ``path``.  The roofline's peaks are arguments
 (``--peak-flops``, ``--hbm-bw``, ``--link-bw``), an H100 SXM5's by default.
-Cells whose step is not ported to the model axis yet (decode; every family
-but the dense one) are written as ``"status": "skipped"`` with a reason
-naming ROADMAP A13; the reference's own ``skip_reason`` (``long_500k`` on
-full attention) is kept.
+Cells of the families whose step is not ported to the model axis yet (the
+SSM, hybrid and audio families: rwkv6-1.6b, zamba2-1.2b, whisper-base) are
+written as ``"status": "skipped"`` with a reason naming ROADMAP A13b; the
+reference's own ``skip_reason`` (``long_500k`` on full attention) is kept.
+A decode cell's step writes the cell's last position that its cache holds
+(``train_step.decode_position``): no tensor is read on ``meta``.
 
 The reference's counters come from probes at 1 and 2 unrolled layers,
 extrapolated linearly (XLA's cost analysis counts a scanned loop's body
@@ -48,7 +50,7 @@ import traceback
 from ..configs import ARCH_IDS, load
 from ..models.api import SHAPES
 from ..models.param import param_count
-from ..train.train_step import build_bundle, lower_bundle
+from ..train.train_step import MODEL_AXIS_FAMILIES, build_bundle, lower_bundle
 from .hlo_stats import Roofline, collective_stats
 from .mesh import fake_mesh, production_shape
 
@@ -56,8 +58,8 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / "dryrun_torc
 # an H100 SXM5 (NVIDIA's data sheet): dense bf16, HBM3, NVLink 4 (900 GB/s
 # both ways, 450 GB/s each way)
 PEAK_FLOPS, HBM_BW, LINK_BW = 989e12, 3.35e12, 450e9
-NOT_PORTED = ("the {what} on the 'model' axis is not ported yet (ROADMAP A13: decode, and the model axis "
-              "of the VLM, MoE, SSM, hybrid and audio families)")
+NOT_PORTED = ("the {what} on the 'model' axis is not ported yet (ROADMAP A13b: the model axis of the SSM, "
+              "hybrid and audio families)")
 
 
 def analytic_model_flops(harness, cell) -> float:
@@ -83,10 +85,8 @@ def analytic_model_flops(harness, cell) -> float:
 
 def not_ported(harness, cell) -> str | None:
     """Why the port cannot build this cell on the production mesh yet."""
-    if harness.family != "dense":
+    if harness.family not in MODEL_AXIS_FAMILIES:
         return NOT_PORTED.format(what=f"{harness.family} family")
-    if cell.kind == "decode":
-        return NOT_PORTED.format(what="decode step")
     return None
 
 
@@ -111,9 +111,10 @@ def _probe_metrics(harness, cell, mesh, multi_pod) -> dict:
 
 def extrapolated_metrics(harness, cell, mesh, multi_pod) -> dict:
     """Per-device (flops, hbm bytes, wire bytes) at the FULL depth from
-    probes at 1 and 2 layers, ``f1 + (L - 1)(f2 - f1)``: the dense family's
-    branch of the reference (the others wait for ROADMAP A13)."""
-    if harness.family != "dense":
+    probes at 1 and 2 layers, ``f1 + (L - 1)(f2 - f1)``: the reference's
+    branch for the dense, MoE and VLM families (the others wait for ROADMAP
+    A13b)."""
+    if harness.family not in MODEL_AXIS_FAMILIES:
         raise ValueError(NOT_PORTED.format(what=f"{harness.family} family"))
     keys = ("flops", "hbm", "wire")
     L_full = harness.cfg.n_layers

@@ -14,6 +14,27 @@ rows' first position, is the causal mask's and the kernel's ``q_start``).
 The weights arrive whole: the transformer gathers them
 (``models/transformer.py``).  ``embed``, ``unembed`` and
 ``cross_entropy`` are per-token and run on the local tokens as they are.
+With a cache (prefill) each rank writes the slice of the gathered keys and
+values that falls in its block of the cache (the rules' ``cache_seq``:
+positions ``[r·L/m, (r+1)·L/m)`` of a cache of length L), so a prompt
+shorter than the cache fills the first blocks.
+
+In decode on the model axis (``rt.tp``, set by ``transformer.decode_step``)
+the axis is tensor-parallel, as the rules' layout makes it with ``sp`` off:
+every rank holds the whole batch's token and its shard of each weight.
+``attention`` projects the rank's columns of q, k and v, gathers them (a
+few KB), writes the new key and value into the block that owns the
+position, attends every query head over the rank's own block of the cache
+(``_attend_block``: flash decode returning each row's log-sum-exp, or none
+where the block has no visible key) and combines the ranks' partial
+outputs as the flash kernel combines its key splits (``_combine``): each
+scaled by ``exp(lse_r - lse)`` and reduce-scattered over the head dim, the
+sums in ``ccu_reduce`` in rank order, so each rank holds its heads' rows for
+the row-parallel output projection; the projection's and the MLP's down
+projection's partial sums are summed over the axis in ``ccu_reduce``.
+``embed`` looks up the rank's columns of the table and gathers them,
+``unembed`` computes the rank's vocabulary shard and gathers the logits.
+No weight is gathered: the traffic is activations only.
 
 Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 ``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention`` (with
@@ -58,6 +79,9 @@ class Runtime:
     rules: Any = None            # sharding constraints: not ported (each rank's tensors are local)
     use_kernels: bool = True     # attention, MoE dispatch, SSD and RWKV-6 scans through the hand-written kernels
     model: Any = None            # the "model" axis (parallel.collectives.ModelAxis) where it has > 1 rank
+    fsdp: Any = None             # the axes the rules cut the MoE experts over (moe_fsdp), where > 1 rank
+    tokens: Any = None           # every rank holding other tokens of the batch (training: the MoE aux means)
+    tp: bool = False             # decode on the model axis: weights used as cut, partial sums summed
 
     def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
         if self.rules is not None:
@@ -67,8 +91,8 @@ class Runtime:
 
     def seq_offset(self, s_local: int) -> int:
         """The first global position of this rank's ``s_local`` tokens of
-        each sequence: 0 without a model axis."""
-        return 0 if self.model is None else self.model.rank * s_local
+        each sequence: 0 without a model axis, and in decode (``tp``)."""
+        return 0 if self.model is None or self.tp else self.model.rank * s_local
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +237,24 @@ def sdpa(
     k: torch.Tensor,      # (B, Sk, K, Dh)
     v: torch.Tensor,      # (B, Sk, K, Dh)
     bias: torch.Tensor | None,   # (Sq, Sk)
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Reference grouped-query attention, with the reference's arithmetic:
-    probabilities are cast to v's type before the second product."""
+    probabilities are cast to v's type before the second product.  With
+    ``return_lse`` also each row's log-sum-exp of its biased scores, with
+    the output in the layout ``(B, Sq, N, Dh)`` and the log-sum-exp
+    ``(B, Sq, N)`` fp32 (a model rank's decode over its block of the cache)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
     if bias is not None:
         scores = scores + bias[None, None, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    if not return_lse:
+        return out
+    B, Sq = out.shape[:2]
+    lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2).reshape(B, Sq, -1)
+    return out.reshape(B, Sq, -1, out.shape[-1]), lse
 
 
 def attention(
@@ -258,12 +291,15 @@ def attention(
     attend to all of them: the kernel with ``q_start`` at the offset, the
     plain path with the mask of ``positions`` against ``0 .. Sk - 1``.
     With a cache (prefill; its sequence is the rules' ``cache_seq``,
-    sharded on the axis) each rank writes its own positions' keys and
-    values into its block of the cache, from 0.
+    sharded on the axis) each rank writes the gathered keys and values of
+    the positions its block holds.  In decode on the axis (``rt.tp``) the
+    layer is ``_attention_tp``.
     """
     B, S, D = x.shape
     N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = N // K
+    if rt.tp and kv_override is None:
+        return _attention_tp(rt, p, x, cfg, int(cache_pos), kv_cache), kv_cache
 
     kv_src = kv_override if kv_override is not None else x
     q = x @ p["wq"]
@@ -284,15 +320,19 @@ def attention(
     new_cache = None
     gathered = rt.model is not None and kv_override is None
     if gathered:
-        if kv_cache is not None:
-            if cache_pos is None or int(cache_pos) != 0 or kv_cache[0].shape[1] != S:
-                raise NotImplementedError("decode on the model axis is not ported (ROADMAP A13): a cache "
-                                          "block is written from 0 by a prefill of its own positions")
-            kv_cache[0][:, :S] = k.to(kv_cache[0].dtype)
-            kv_cache[1][:, :S] = v.to(kv_cache[1].dtype)
-            new_cache = kv_cache
         k, v = rt.model.gather(k, 1), rt.model.gather(v, 1)
         q_start = rt.seq_offset(S)
+        if kv_cache is not None:
+            if cache_pos is None or int(cache_pos) != 0:
+                raise ValueError("on the model axis a prefill writes the cache from position 0")
+            # this rank's block of the cache: the gathered positions that fall in it
+            Lb = kv_cache[0].shape[1]
+            lo = rt.model.rank * Lb
+            hi = min(lo + Lb, k.shape[1])
+            if hi > lo:
+                kv_cache[0][:, :hi - lo] = k[:, lo:hi].to(kv_cache[0].dtype)
+                kv_cache[1][:, :hi - lo] = v[:, lo:hi].to(kv_cache[1].dtype)
+            new_cache = kv_cache
     elif kv_cache is not None:
         ck, cv = kv_cache
         if cache_pos is not None:
@@ -326,6 +366,85 @@ def attention(
     return rt.shard(y, "batch", "sp", None), new_cache
 
 
+def _attention_tp(rt: Runtime, p: dict, x: torch.Tensor, cfg: AttnConfig, pos: int,
+                  kv_cache: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """One decode step's attention on the model axis (module docstring):
+    ``x (B, 1, D)`` the same on every model rank, ``p`` the rank's shards
+    (``wq``/``wk``/``wv`` columns, ``wo`` rows), ``kv_cache`` the rank's
+    block of positions ``[r·Lb, (r+1)·Lb)``; returns the layer's output
+    ``(B, 1, D)``, the same bits on every rank."""
+    B, S, D = x.shape
+    N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    model = rt.model
+    parts = [x @ p["wq"], x @ p["wk"], x @ p["wv"]]
+    if "bq" in p:
+        parts = [parts[0] + p["bq"], parts[1] + p["bk"], parts[2] + p["bv"]]
+    widths = [t.shape[-1] for t in parts]
+    # the rank's columns of q, k and v gathered in one all-gather: (P, B, 1, n) -> (B, 1, P * n) each
+    rows = model.rows(torch.cat(parts, dim=-1))
+    q, k, v = (c.movedim(0, -2).flatten(-2) for c in rows.split(widths, dim=-1))
+    q, k, v = q.reshape(B, S, N, Dh), k.reshape(B, S, K, Dh), v.reshape(B, S, K, Dh)
+    if cfg.rope_theta is not None:
+        at = torch.full((S,), pos, device=x.device)
+        q, k = rope(q, at, cfg.rope_theta), rope(k, at, cfg.rope_theta)
+    ck, cv = kv_cache
+    Lb = ck.shape[1]
+    lo = model.rank * Lb
+    if lo <= pos < lo + Lb:                    # this rank's block owns the new position
+        ck[:, pos - lo] = k[:, 0].to(ck.dtype)
+        cv[:, pos - lo] = v[:, 0].to(cv.dtype)
+    o, lse = _attend_block(rt, q, ck, cv, cfg, pos, lo)
+    mine = _combine(model, o, lse)                                  # (B, 1, N * Dh / P): this rank's heads' rows
+    y = model.sum(mine @ p["wo"]).to(x.dtype)
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
+def _attend_block(rt: Runtime, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cfg: AttnConfig,
+                  pos: int, lo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every query head of ``q (B, 1, N, Dh)`` at position ``pos`` over the
+    keys of a block ``ck``/``cv (B, Lb, K, Dh)`` whose key ``j`` is the
+    global position ``lo + j``: the output ``(B, 1, N, Dh)`` and each row's
+    log-sum-exp ``(B, 1, N)`` fp32.  The mask is the global one moved by
+    ``lo`` (the query at ``pos - lo``, the prefix's end at ``prefix_len -
+    lo``), and only the keys up to the last visible one are read.  A block
+    with no visible key (all its positions after the query, or before its
+    window) launches nothing and gives zeros with log-sum-exp -inf: weight 0
+    in ``_combine``."""
+    B, S, N, Dh = q.shape
+    Lb = ck.shape[1]
+    q_local = pos - lo
+    hi = min(Lb, q_local + 1) if cfg.causal else Lb          # keys after the query are hidden
+    first = max(0, q_local - cfg.window + 1) if cfg.window is not None else 0
+    prefix = max(0, min(Lb, cfg.prefix_len - lo))             # the bidirectional prefix's keys in the block
+    if first >= hi and prefix == 0:
+        return q.new_zeros(q.shape), torch.full((B, S, N), -math.inf, dtype=torch.float32, device=q.device)
+    n = max(hi, prefix)
+    k, v = ck[:, :n].to(q.dtype), cv[:, :n].to(q.dtype)
+    if rt.use_kernels:
+        return ops.flash_attention_bsnd(q, k, v, causal=cfg.causal, window=cfg.window, prefix_len=prefix,
+                                        q_start=q_local, return_lse=True)
+    K = k.shape[2]
+    bias = _mask_bias(torch.full((S,), q_local, device=q.device), torch.arange(n, device=q.device), cfg.causal,
+                      cfg.window, prefix)
+    return sdpa(q.reshape(B, S, K, N // K, Dh), k, v, bias, return_lse=True)
+
+
+def _combine(model, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial outputs ``o (B, 1, N, Dh)`` with their
+    log-sum-exps ``lse (B, 1, N)`` combined as the flash kernel combines its
+    splits: ``lse`` gathered from every rank, each output scaled by
+    ``exp(lse_r - logsumexp_r lse_r)`` (in fp32, rounded once to ``o``'s
+    type: the wire carries activations in their type) and reduce-scattered
+    over the flattened head dim (the sums in ``ccu_reduce``, fp32, rank
+    order).  Returns this rank's chunk ``(B, 1, N * Dh / P)`` in ``o``'s
+    type: the rows of ``wo`` it holds."""
+    total = torch.logsumexp(model.rows(lse), dim=0)
+    scaled = (o.float() * torch.exp(lse - total)[..., None]).to(o.dtype).flatten(-2)
+    return model.reduce_scatter(scaled, scaled.ndim - 1)
+
+
 def init_kv_cache(
     cfg: AttnConfig, batch: int, max_len: int, n_layers: int, dtype=torch.bfloat16
 ) -> dict:
@@ -354,7 +473,10 @@ def swiglu_specs(d_model: int, d_ff: int) -> dict:
 def swiglu(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     h = rt.shard(h, "batch", "sp", "ff_act")
-    return rt.shard(h @ p["w_down"], "batch", "sp", None)
+    y = h @ p["w_down"]
+    if rt.tp:                           # the rank's ff columns: a partial sum over the model axis
+        y = rt.model.sum(y).to(x.dtype)
+    return rt.shard(y, "batch", "sp", None)
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int, bias: bool = True) -> dict:
@@ -375,6 +497,8 @@ def gelu_mlp(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu(h, approximate="tanh")       # the reference's gelu is the tanh form
     h = rt.shard(h, "batch", "sp", "ff_act")
     y = h @ p["w_out"]
+    if rt.tp:                           # the rank's ff columns: a partial sum over the model axis
+        y = rt.model.sum(y).to(x.dtype)
     if "b_out" in p:
         y = y + p["b_out"]
     return rt.shard(y, "batch", "sp", None)
@@ -396,11 +520,17 @@ def embed_specs(vocab_padded: int, d_model: int) -> dict:
 
 
 def embed(rt: Runtime, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return rt.shard(p["tok"][tokens], "batch", "sp", None)
+    x = p["tok"][tokens]
+    if rt.tp:                           # the rank's columns of the table, gathered
+        x = rt.model.gather(x, x.ndim - 1)
+    return rt.shard(x, "batch", "sp", None)
 
 
 def unembed(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return rt.shard(x @ p["unembed"], "batch", "sp", "vocab")
+    logits = x @ p["unembed"]
+    if rt.tp:                           # the rank's vocabulary shard, gathered
+        logits = rt.model.gather(logits, logits.ndim - 1)
+    return rt.shard(logits, "batch", "sp", "vocab")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -> torch.Tensor:

@@ -13,8 +13,28 @@ expert products and the combine einsum are plain matrix products, which the
 reference too computes outside any kernel: ``torch.matmul`` batched over the
 experts, and one ``torch.einsum``.
 
-Sharding strategies (``expert_parallel``, ``expert_tp``) only name the expert
-weights' logical axes; on one device ``rt.shard`` is the identity.
+Sharding strategies (``expert_parallel``, ``expert_tp``) name the expert
+weights' logical axes.  On a mesh the layer follows the reference's default
+layout (``reshard_tokens=False``), whose dispatch and combine GSPMD lowers
+as full sums, not all-to-alls; every sum is ``ccu_reduce`` in rank order
+(``parallel.collectives.AxisGroup``):
+
+* ``rt.fsdp`` (a "data" axis of more than one rank): each expert weight is
+  gathered over it before use (the rules' ``moe_fsdp``: dbrx's F dim,
+  mixtral's d_model dim), the gather's backward a reduce-scatter;
+* ``rt.model`` in training and prefill (the rank holds a shard of each
+  sequence): the capacity is the whole sequence's, a token's slot counts
+  every earlier rank's tokens (``route(..., seq=)``), and each rank
+  dispatches its own tokens into the whole ``(E, B, C, D)`` buffer.
+  ``expert_parallel`` reduce-scatters the buffer over the experts, runs
+  its ``E / m`` experts and all-gathers their outputs; ``expert_tp`` sums
+  the buffer, runs every expert on its F shard and sums the outputs.  Each
+  rank then combines its own tokens;
+* ``rt.model`` in decode (``rt.tp``: every model rank holds the same
+  tokens): each rank routes the whole batch, runs its experts or its F
+  shard, and the partial outputs are summed over the axis;
+* ``rt.tokens`` (training on a mesh): the auxiliary loss's means are over
+  every rank's tokens, as the reference's are over the whole batch.
 """
 
 from __future__ import annotations
@@ -73,7 +93,7 @@ class Routing(NamedTuple):
 
 def route(
     x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
-    gate_idx: torch.Tensor | None = None,
+    gate_idx: torch.Tensor | None = None, *, capacity: int | None = None, seq=None,
 ) -> Routing:
     """Top-k routing and GShard capacity positions, as the reference's
     ``moe_apply`` computes them before its dispatch einsum.
@@ -81,10 +101,18 @@ def route(
     ``gate_idx`` (B, S, K), when given, takes the place of the top-k choices,
     so that one run can be held to another's routing decisions (two paths
     whose bf16 arithmetic differs route a near-tie apart; ``chip_smoke.py``
-    compares them so)."""
+    compares them so).
+
+    ``seq`` (the model axis, an ``AxisGroup``), where ``x`` holds this
+    rank's shard of each sequence: the slots are those of the whole
+    sequence, the k-th choices of every rank's tokens after the earlier
+    choices of all of them, and within a choice the earlier ranks' tokens
+    first.  Each rank's counts ``(B, K, E)`` are gathered and the offset
+    of its tokens is an exclusive prefix over the ranks.  ``capacity``
+    (default: that of ``x``'s sequences) is then the whole sequence's."""
     B, S, _ = x.shape
     E, K = cfg.n_experts, cfg.topk
-    C = cfg.capacity(S)
+    C = cfg.capacity(S) if capacity is None else capacity
     probs = torch.softmax((x @ router).float(), dim=-1)
     if gate_idx is None:
         # jax.lax.top_k puts the lower index first among equal values; a
@@ -99,6 +127,14 @@ def route(
     flat = onehot.transpose(1, 2).reshape(B, K * S, E)
     pos_in_expert = torch.cumsum(flat, dim=1) - flat
     pos = pos_in_expert.reshape(B, K, S, E).transpose(1, 2)      # (B, S, K, E)
+    if seq is not None:
+        counts = onehot.sum(dim=1)                               # (B, K, E): this rank's tokens
+        every = seq.rows(counts)                                 # (P, B, K, E)
+        total = every.sum(dim=0)
+        # every rank's earlier choices, less this rank's (counted above), and
+        # the earlier ranks' tokens of the same choice
+        offset = (torch.cumsum(total - counts, dim=1) - (total - counts)) + every[:seq.rank].sum(dim=0)
+        pos = pos + offset[:, None]
     pos = torch.sum(pos * onehot, dim=-1)                        # (B, S, K)
     keep = pos < C
     # normalised before the drop mask, as the reference does
@@ -120,24 +156,43 @@ def dispatch_tensors(
     return disp, comb
 
 
+EXPERTS = ("w_gate", "w_up", "w_down")
+
+
 def moe_apply(
     rt: Runtime, p: dict, x: torch.Tensor, cfg: MoEConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, router aux loss).  x: (B, S, D)."""
+    """Returns (output, router aux loss).  x: (B, S, D), this rank's tokens
+    (module docstring for the mesh's axes)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.topk
-    C = cfg.capacity(S)
+    seq = rt.model if rt.model is not None and not rt.tp else None    # the tokens cut along the sequence
+    # the dim of the expert weights that the model axis cuts: 0 the experts
+    # (expert_parallel), 2 their F (expert_tp), None neither (every rank
+    # holds every expert whole)
+    specs = moe_specs(D, cfg)
+    cut = None if rt.model is None else rt.model.gather_dim(specs["w_gate"].logical)
+    C = cfg.capacity(S * (seq.size if seq is not None else 1))
 
     if cfg.reshard_tokens:
         x = rt.shard(x, "batch", None, "moe_d_act")
+    if rt.fsdp is not None:
+        p = {**p, **rt.fsdp.gather_tree({k: p[k] for k in EXPERTS}, specs)}
 
-    r = route(x, p["router"], cfg)
+    r = route(x, p["router"], cfg, capacity=C, seq=seq)
     disp, comb = dispatch_tensors(r, C, x.dtype)
 
     if rt.use_kernels:
         expert_in = ops.moe_dispatch(disp, x)                    # (E, B, C, D)
     else:
         expert_in = torch.einsum("bsec,bsd->ebcd", disp, x)
+    mine = slice(None)           # the experts this rank runs
+    if seq is not None:          # every model rank's tokens: their sum, or this rank's experts of it
+        expert_in = seq.reduce_scatter(expert_in, 0) if cut == 0 else seq.all_reduce(expert_in)
+    elif cut == 0:               # decode: every rank holds the same buffer
+        n = E // rt.model.size
+        mine = slice(rt.model.rank * n, (rt.model.rank + 1) * n)
+        expert_in = expert_in[mine]
     expert_in = rt.shard(expert_in, "experts_act", "batch", None, None)
     bf16 = cfg.dispatch_dtype == "bf16"
     if bf16:
@@ -147,23 +202,31 @@ def moe_apply(
         expert_in = expert_in.to(torch.bfloat16).to(wt)
 
     # the expert products: one batched matmul a weight over (E, B*C, .)
-    ein = expert_in.reshape(E, B * C, D)
+    En = expert_in.shape[0]
+    ein = expert_in.reshape(En, B * C, D)
     g = torch.matmul(ein, p["w_gate"])
     u = torch.matmul(ein, p["w_up"])
     h = F.silu(g) * u
-    h = rt.shard(h.reshape(E, B, C, -1), "experts_act", "batch", None, "moe_ff_act")
-    eo = torch.matmul(h.reshape(E, B * C, -1), p["w_down"]).reshape(E, B, C, -1)
+    h = rt.shard(h.reshape(En, B, C, -1), "experts_act", "batch", None, "moe_ff_act")
+    eo = torch.matmul(h.reshape(En, B * C, -1), p["w_down"]).reshape(En, B, C, -1)
+    if seq is not None and cut is not None:      # every expert's whole output on every rank
+        eo = seq.gather(eo, 0) if cut == 0 else seq.all_reduce(eo)
     eo = rt.shard(eo, "experts_act", "batch", None, None)
+    comb = comb[:, :, mine]
     if bf16:
         eo = eo.to(torch.bfloat16)
         y = torch.einsum("bsec,ebcd->bsd", comb.float(), eo.float()).to(torch.bfloat16)
     else:
         y = torch.einsum("bsec,ebcd->bsd", comb, eo)
+    if rt.tp and cut is not None:    # decode: this rank's experts or F shard, a partial sum over the axis
+        y = rt.model.sum(y)
     y = rt.shard(y, "batch", "sp", None)
 
     # load-balancing auxiliary loss (Switch/GShard form)
     routed = r.onehot[..., 0, :] if K == 1 else torch.sum(r.onehot, dim=2)
     me = torch.mean(routed, dim=(0, 1)) / K
     ce = torch.mean(r.probs, dim=(0, 1))
+    if rt.tokens is not None:    # the means over every rank's tokens (equal shares)
+        me, ce = rt.tokens.all_reduce(torch.stack([me, ce]) / rt.tokens.size).unbind(0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
     return y.to(x.dtype), aux

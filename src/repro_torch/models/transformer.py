@@ -23,21 +23,31 @@ Each block runs under the config's ``remat_policy`` (``remat.remat``): under
 ``"nothing"`` and ``"dots"`` a layer's attention runs twice a training step,
 once in the forward and once in the recompute.
 
-On the "model" axis (``rt.model``, the dense family's train step and
-prefill, ``train/train_step.py``) a rank holds the positions ``[r·S/m,
-(r+1)·S/m)`` of each sequence and its model shard of each weight the rules
-shard on the axis.  ``forward``, ``loss_fn`` and ``prefill`` offset the
-positions by ``rt.seq_offset``; each block's sharded weights are gathered
-whole at the top of ``_block`` (inside the remat body, so the recompute
-gathers them again; the reference's GSPMD gathers of sp-sharded weights),
-the token table in ``_embed`` and ``unembed`` before the logits.
-``loss_fn`` divides the local mean by the axis's size, so that the ranks'
-losses sum to the mean over the sequences' tokens; ``prefill`` returns the
-last model rank's last-token logits on every rank.
+On the "model" axis (``rt.model``; ``train/train_step.py``) a rank holds
+its model shard of each weight the rules shard on the axis.  In training
+and prefill it holds the positions ``[r·T/m, (r+1)·T/m)`` of each sequence
+of T positions (the rules' ``sp``): ``forward``, ``loss_fn`` and
+``prefill`` offset the positions by ``rt.seq_offset``; each block's sharded
+weights but the MoE experts are gathered whole at the top of ``_block``
+(inside the remat body, so the recompute gathers them again; the
+reference's GSPMD gathers of sp-sharded weights), the token table in
+``_embed`` and ``unembed`` before the logits; the MoE layer keeps its
+experts cut (``models/moe.py``).  A VLM's prefix embeddings go before the
+tokens and the rank takes its positions of the whole (``_concat_shard``):
+the tokens, labels and prefix rows are gathered over the axis and cut
+again, as the reference concatenates before its sequence shard.
+``loss_fn`` weighs the local mean by the rank's share of the tokens, so
+that the ranks' losses sum to the mean over the sequences' tokens (and the
+MoE auxiliary loss, the same on every model rank, by ``1/m``); ``prefill``
+returns the last model rank's last-token logits on every rank.
+``decode_step`` runs the axis tensor-parallel (``rt.tp``,
+``models/layers.py``): no weight is gathered, the partial sums are summed
+and the logits gathered, so every rank returns the same logits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -141,8 +151,12 @@ def lm_specs(cfg: LMConfig) -> dict:
 
 def _whole(rt: L.Runtime, p: dict, specs_of, cfg: LMConfig) -> dict:
     """``p`` with each leaf that the rules shard on the model axis gathered
-    whole, by the specs ``specs_of(cfg)`` (only the keys of ``p`` are read)."""
-    return p if rt.model is None else rt.model.gather_tree(p, specs_of(cfg))
+    whole, by the specs ``specs_of(cfg)`` (only the keys of ``p`` are read);
+    in decode (``rt.tp``) and for the MoE experts, ``p`` as it is."""
+    if rt.model is None or rt.tp:
+        return p
+    cut = {k: v for k, v in p.items() if k != "moe"}
+    return {**rt.model.gather_tree(cut, specs_of(cfg)), **({"moe": p["moe"]} if "moe" in p else {})}
 
 
 def _block(
@@ -173,14 +187,38 @@ def _block(
     return rt.shard(x, "batch", "sp", None), new_cache, aux
 
 
+def _sequence_parallel(rt: L.Runtime) -> bool:
+    return rt.model is not None and not rt.tp
+
+
+def _concat_shard(rt: L.Runtime, P: int, *pieces: torch.Tensor) -> list[torch.Tensor]:
+    """On the model axis, the rank's shards of a VLM's prefix ``pieces[0]``
+    (B, P/m, D) and of the token-like ``pieces[1:]`` (B, S/m) become its
+    positions ``[r·T/m, (r+1)·T/m)`` of their concatenation (T = P + S):
+    each piece gathered over the axis and cut again.  Returns the prefix's
+    rows and each token piece's columns that fall there (either may be
+    empty)."""
+    m = rt.model.size
+    T = P + pieces[1].shape[1] * m
+    lo, hi = rt.model.rank * T // m, (rt.model.rank + 1) * T // m
+    whole = [rt.model.gather(t, 1) for t in pieces]
+    return [whole[0][:, lo:min(hi, P)]] + [t[:, max(lo, P) - P:max(hi, P) - P] for t in whole[1:]]
+
+
 def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor,
-           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+           prefix_embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, int, int]:
+    """The embedded sequence of this rank, the whole prefix's length and
+    the number of prefix rows among the rank's positions."""
+    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    if P and _sequence_parallel(rt):
+        P *= rt.model.size
+        prefix_embeds, tokens = _concat_shard(rt, P, prefix_embeds, tokens)
     x = L.embed(rt, _whole(rt, {"tok": params["embed"]["tok"]}, _embed_specs, cfg), tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x.to(cfg.dtype)
+    return x.to(cfg.dtype), P, 0 if prefix_embeds is None else prefix_embeds.shape[1]
 
 
 def _embed_specs(cfg: LMConfig) -> dict:
@@ -202,8 +240,7 @@ def forward(
     aux_loss), the aux loss the sum of the MoE layers' (0 for dense ones);
     the logits are the tokens', not the prefix's."""
     params = cast_floats(params, cfg.dtype)
-    x = _embed(rt, cfg, params, tokens, prefix_embeds)
-    prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    x, prefix, here = _embed(rt, cfg, params, tokens, prefix_embeds)
     positions = rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
 
     def body(h, lp):
@@ -217,15 +254,23 @@ def forward(
         aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
     logits = _unembed(rt, cfg, params, x)
-    return (logits[:, prefix:] if prefix else logits), aux
+    return (logits[:, here:] if here else logits), aux
 
 
 def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
     logits, aux = forward(rt, cfg, params, batch["tokens"], batch.get("prefix_embeds"))
-    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
-    if rt.model is not None:            # this rank's share of the mean over the whole sequences
-        ce = ce / rt.model.size
-    return ce + aux
+    labels = batch["labels"]
+    if not _sequence_parallel(rt):
+        return L.cross_entropy(logits, labels, cfg.vocab_size) + aux
+    # this rank's share of the mean over the whole sequences' tokens, and of
+    # the auxiliary loss (the same on every model rank)
+    n_all = labels.shape[1] * rt.model.size
+    if "prefix_embeds" in batch:
+        prefix = batch["prefix_embeds"]
+        labels = _concat_shard(rt, prefix.shape[1] * rt.model.size, prefix, labels)[1]
+    share = labels.shape[1] / n_all
+    ce = L.cross_entropy(logits, labels, cfg.vocab_size) * share if share else logits.sum() * 0.0
+    return ce + aux / rt.model.size
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +288,7 @@ def _serve(rt, cfg, params, tokens, cache, pos: int, prefix_embeds=None) -> tupl
     the cache; returns the hidden states after the final norm, and the
     parameters in the compute type."""
     params = cast_floats(params, cfg.dtype)
-    x = _embed(rt, cfg, params, tokens, prefix_embeds)
-    prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    x, prefix, _ = _embed(rt, cfg, params, tokens, prefix_embeds)
     positions = pos + rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
         x, _, _ = _block(
@@ -274,8 +318,11 @@ def decode_step(
     params: dict,
     tokens: torch.Tensor,       # (B, 1) the newest token ids
     cache: dict,
-    pos: int,                   # current write position
+    pos: int,                   # current write position (an int, or a tensor read once)
 ) -> tuple[torch.Tensor, dict]:
-    """One autoregressive step against a populated cache."""
+    """One autoregressive step against a populated cache; on the model axis
+    tensor-parallel (``rt.tp``), every rank returning the same logits."""
+    if rt.model is not None:
+        rt = dataclasses.replace(rt, tp=True)
     x, params = _serve(rt, cfg, params, tokens, cache, int(pos))
     return _unembed(rt, cfg, params, x), cache

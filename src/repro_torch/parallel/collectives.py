@@ -61,16 +61,17 @@ reference's ring conventions; outside one nothing is kept, so a long run
 holds no more than the counters.  ``operand_bytes_by_axis(records)`` gives
 back the operand bytes by axis from the records alone.
 
-The model axis (``ModelAxis``): the sequence-parallel scheme of the sharding
-rules (``parallel/sharding.py``: activations sharded on "model" along the
-sequence, the weight dims ``qkv``/``kv``/``ff``/``table_embed``/``vocab``
-too).  ``gather`` is an all-gather along one tensor dim whose backward is a
-reduce-scatter (an exchange of chunks, then one ``ccu_reduce`` of the
-``(P, chunk)`` rows), so the gradient a rank gets for its shard is summed
-over every model rank's use of the gathered tensor; ``sum`` is the
-all-reduce of a small tensor (a gather of the rows, then one
-``ccu_reduce``).  The GSPMD partitioner inserts the same pairs for the
-reference.
+An axis group (``AxisGroup``; ``ModelAxis`` is the "model" axis's, the
+sequence-parallel scheme of the sharding rules in training and prefill and
+the tensor-parallel one in decode; the MoE experts' FSDP gathers take the
+"data" axis's): ``gather`` is an all-gather along one tensor dim whose
+backward is a reduce-scatter (an exchange of chunks, then one
+``ccu_reduce`` of the ``(P, chunk)`` rows), so the gradient a rank gets for
+its shard is summed over every rank's use of the gathered tensor;
+``reduce_scatter`` is the reverse pair; ``all_reduce`` a sum whose backward
+is a sum; ``sum`` the all-reduce of a small tensor without autograd (a
+gather of the rows, then one ``ccu_reduce``).  The GSPMD partitioner
+inserts the same pairs for the reference.
 
 A fake process group (``torch.testing._internal.distributed.fake_pg``, the
 dry-run's ``launch/mesh.fake_mesh``) takes every call and moves nothing; its
@@ -303,7 +304,7 @@ def hierarchical_all_to_all(mesh, intra_axis: str, inter_axis: str):
 
 
 # ---------------------------------------------------------------------------
-# the model axis: gathers whose backward is a reduce-scatter
+# an axis group: gathers whose backward is a reduce-scatter, and the reverse
 # ---------------------------------------------------------------------------
 
 
@@ -318,44 +319,110 @@ def _reduce_scatter(t: Transport, reduce: Callable, g: torch.Tensor, dim: int) -
     return reduce(rows.reshape(P, -1)).view(chunks.shape[1:]).to(g.dtype)
 
 
+def _all_gather(t: Transport, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    return t.all_gather(x).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _all_reduce(group: "AxisGroup", x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``x``, in ``x``'s type: a reduce-scatter (each
+    rank's chunk summed by one ``reduce`` in rank order, rounded once to
+    ``x``'s type; the last chunk padded with zeros where the size does not
+    divide) and an all-gather of the chunks, as ``hierarchical_allreduce``
+    sums over its fast axis.  Every rank holds the same bits."""
+    t = group.transport
+    n = x.numel()
+    c = -(-n // t.size)
+    flat = x.reshape(-1)
+    if c * t.size != n:
+        flat = torch.cat([flat, flat.new_zeros(c * t.size - n)])
+    part = group.reduce(t.all_to_all(flat.view(t.size, c), kind="reduce-scatter")).to(x.dtype)
+    return t.all_gather(part).view(-1)[:n].view(x.shape)
+
+
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim`` (forward), reduce-scatter of the gradient
     along ``dim`` (backward)."""
 
     @staticmethod
-    def forward(ctx, x, axis: "ModelAxis", dim: int):
-        ctx.axis, ctx.dim = axis, dim
-        with record_function("model.gather"):
-            parts = axis.transport.all_gather(x)                   # (P, *x.shape)
-            return parts.movedim(0, dim).flatten(dim, dim + 1)
+    def forward(ctx, x, group: "AxisGroup", dim: int):
+        ctx.group, ctx.dim = group, dim
+        with record_function(f"{group.name}.gather"):
+            return _all_gather(group.transport, x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        axis = ctx.axis
-        with record_function("model.reduce_scatter"):
-            return _reduce_scatter(axis.transport, axis.reduce, g, ctx.dim), None, None
+        group = ctx.group
+        with record_function(f"{group.name}.reduce_scatter"):
+            return _reduce_scatter(group.transport, group.reduce, g, ctx.dim), None, None
 
 
-class ModelAxis:
-    """One rank's view of the "model" mesh axis, the sequence-parallel
-    domain: ``gather`` (autograd-aware), ``sum`` (every rank the same bits),
-    ``last`` (the last model rank's tensor, on every rank), the rank's
-    position ``rank`` of ``size``, and ``gather_dim``, the dim of a weight
-    that the rules shard on "model" (None where none is)."""
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` (forward), all-gather of the gradient
+    along ``dim`` (backward)."""
 
-    axis = "model"
+    @staticmethod
+    def forward(ctx, x, group: "AxisGroup", dim: int):
+        ctx.group, ctx.dim = group, dim
+        with record_function(f"{group.name}.reduce_scatter"):
+            return _reduce_scatter(group.transport, group.reduce, x, dim)
 
-    def __init__(self, mesh, rules, *, reduce: Callable = ops.ccu_reduce, wire: dict | None = None):
+    @staticmethod
+    def backward(ctx, g):
+        with record_function(f"{ctx.group.name}.gather"):
+            return _all_gather(ctx.group.transport, g.contiguous(), ctx.dim), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the ranks (forward); the sum of the gradients over the
+    ranks (backward): every rank's output is the same sum, so each input's
+    gradient is the sum of every output's."""
+
+    @staticmethod
+    def forward(ctx, x, group: "AxisGroup"):
+        ctx.group = group
+        with record_function(f"{group.name}.sum"):
+            return _all_reduce(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with record_function(f"{ctx.group.name}.sum"):
+            return _all_reduce(ctx.group, g.contiguous()), None
+
+
+class AxisGroup:
+    """One rank's view of a set of mesh axes (one process group over them):
+    ``gather`` (an all-gather along a dim whose backward is a
+    reduce-scatter), ``reduce_scatter`` (the reverse pair), ``all_reduce``
+    (a sum whose backward is a sum), all three autograd-aware; ``sum`` and
+    ``max`` (no autograd, every rank the same bits), ``last`` (the last
+    rank's tensor, on every rank), ``rows`` (every rank's tensor, stacked in
+    rank order), the rank's position ``rank`` of ``size``, and
+    ``gather_dim``, the dim of a tensor that the rules cut over these axes
+    (None where none is).  Every sum is one ``reduce`` (``ops.ccu_reduce``,
+    its plain version on the plain path) over the ranks' rows in rank
+    order.  ``gather_tree`` gathers each leaf of a tree that the rules cut
+    over these axes whole: the model axis's gathers of the sp-sharded
+    weights, and the FSDP gathers of the MoE experts over "data"
+    (``moe_fsdp``)."""
+
+    def __init__(self, mesh, rules, axes: tuple[str, ...], *, reduce: Callable = ops.ccu_reduce,
+                 wire: dict | None = None):
+        self.axes = tuple(axes)
+        self.name = "+".join(self.axes)
         self.rules = rules
         self.reduce = reduce
-        self.transport = Transport(mesh, (self.axis,), {} if wire is None else wire)
+        self.transport = Transport(mesh, self.axes, {} if wire is None else wire)
         self.rank, self.size = self.transport.rank, self.transport.size
 
     def gather_dim(self, logical: tuple) -> int | None:
-        """The tensor dim that the rules put on this axis, or None."""
+        """The tensor dim that the rules put on these axes, or None."""
         for d, entry in enumerate(self.rules.pspec(logical)):
-            if entry is not None and self.axis in ((entry,) if isinstance(entry, str) else entry):
+            names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+            if names == self.axes:
                 return d
+            if set(names) & set(self.axes):
+                raise ValueError(f"dim {d} of {logical} is cut over {names}, not over {self.axes}")
         return None
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -363,8 +430,18 @@ class ModelAxis:
         a rank gets back is the sum of every rank's for its own chunk."""
         return _Gather.apply(x, self, dim)
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of every rank's ``x``,
+        in ``x``'s type; the gradient is gathered back whole."""
+        return _ReduceScatter.apply(x, self, dim)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``, in ``x``'s type; the gradient of
+        each rank's input is the sum of every rank's output gradient."""
+        return _AllReduce.apply(x, self)
+
     def gather_tree(self, tree, spec_tree):
-        """Each leaf sharded on this axis (by its spec's logical axes)
+        """Each leaf cut over these axes (by its spec's logical axes)
         gathered whole; the others as they are."""
 
         def one(x, spec):
@@ -376,13 +453,30 @@ class ModelAxis:
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x`` (no autograd), fp32: the rows
         gathered and summed by one ``reduce`` in rank order."""
-        with record_function("model.sum"):
+        with record_function(f"{self.name}.sum"):
             return self.reduce(self.transport.all_gather(x.reshape(-1))).view(x.shape)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max of every rank's ``x`` (exact in any order)."""
         return self.transport.all_gather(x).amax(0)
 
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``(P, *x.shape)``: every rank's ``x`` (no autograd), row p from
+        rank p."""
+        return self.transport.all_gather(x)
+
     def last(self, x: torch.Tensor) -> torch.Tensor:
-        """The last model rank's ``x`` (no autograd), on every rank."""
+        """The last rank's ``x`` (no autograd), on every rank."""
         return self.transport.all_gather(x)[-1]
+
+
+class ModelAxis(AxisGroup):
+    """The "model" mesh axis: the sequence-parallel domain of training and
+    prefill (activations cut along the sequence, the sp-sharded weights
+    gathered before use) and the tensor-parallel domain of decode (the
+    weights used as cut, the partial sums summed)."""
+
+    axis = "model"
+
+    def __init__(self, mesh, rules, **kw):
+        super().__init__(mesh, rules, (self.axis,), **kw)

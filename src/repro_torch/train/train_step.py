@@ -18,35 +18,44 @@ plain path, ``use_kernels=False``), in the reference's order
 (``train_step``, ``:81-86``):
 
 1. the loss and the gradients on the rank's share of the batch.  Where the
-   mesh's "model" axis has more than one rank (the dense family; the others
-   wait for ROADMAP A13) the rank holds the positions ``[r·S/m, (r+1)·S/m)``
-   of its sequences and the model shard of each weight the rules shard on
-   "model" (``sp``, ``qkv``, ``kv``, ``ff``, ``table_embed``, ``vocab``):
-   the layers gather each weight and the keys and values over "model"
-   before use (``parallel.collectives.ModelAxis``, ``models/transformer.py``),
-   and each gather's backward is a reduce-scatter, so a sharded leaf's
-   gradient comes out summed over the model ranks.  The gradients of the
-   leaves replicated on "model" (the norms, ``bo``, ``b_out``) and the
-   ranks' losses are summed over "model" here, in one ``ccu_reduce``;
+   mesh's "model" axis has more than one rank (the dense, MoE and VLM
+   families; the SSM, hybrid and audio families wait for ROADMAP A13b) the
+   rank holds the positions ``[r·S/m, (r+1)·S/m)`` of its sequences and the
+   model shard of each weight the rules shard on "model" (``sp``, ``qkv``,
+   ``kv``, ``ff``, ``table_embed``, ``vocab``, ``experts``): the layers
+   gather each weight but the MoE experts and the keys and values over
+   "model" before use (``parallel.collectives.ModelAxis``,
+   ``models/transformer.py``; the MoE layer keeps its experts cut,
+   ``models/moe.py``), and each gather's backward is a reduce-scatter, so a
+   sharded leaf's gradient comes out summed over the model ranks.  The
+   gradients of the leaves replicated on "model" (the norms, ``bo``,
+   ``b_out``, the router) and the ranks' losses are summed over "model"
+   here, in one ``ccu_reduce``.  A leaf the rules cut over "data" (the MoE
+   experts' ``moe_fsdp``) is gathered over it before use
+   (``Runtime.fsdp``), so its gradient comes out reduce-scattered over
+   "data" already; an MoE model's auxiliary loss takes its means over every
+   rank's tokens (``Runtime.tokens``);
 2. the gradients summed over the data-parallel ranks by
    ``hierarchical_allreduce`` (fast axis "data", slow axis "pod" where the
-   mesh has one; every sum in ``ccu_reduce``), divided by the DP size (the
-   loss is a mean over the local batch; the sizes here are powers of two, so
-   the division is exact) and rounded once to the gradient's type;
+   mesh has one; every sum in ``ccu_reduce``), each leaf over the DP axes
+   that do not cut it, divided by the DP size (the loss is a mean over the
+   local batch; the sizes here are powers of two, so the division is exact)
+   and rounded once to the gradient's type;
 3. ``compress_grads`` on the synchronised gradient, leaf by leaf, its
-   payload cast to ``grad_dtype`` as AdamW casts it.  On the model axis each
-   leaf's scale is the whole leaf's: the max of ``|g + r|`` over the model
-   ranks;
+   payload cast to ``grad_dtype`` as AdamW casts it.  Where a leaf is cut
+   over "model" or "data" its scale is the whole leaf's: the max of
+   ``|g + r|`` over the ranks that hold its blocks;
 4. AdamW on the rank's ZeRO-1 shard of master/m/v only (``update_leaf`` on
-   the block that ``tree_zero1_pspecs`` gives it, within the rank's model
-   shard), with the global norm of the whole synchronised gradient
-   (``step_scalars``; on the model axis from each leaf's sum of squares,
-   summed over the model ranks in ``ccu_reduce`` where the leaf is sharded
-   there and counted once where it is not), which is the same on every
-   rank, so each shard ends as ``adamw.apply`` with that norm would leave
-   that block, bit for bit;
+   the block that ``tree_zero1_pspecs`` gives it, within the rank's block of
+   the param), with the global norm of the whole synchronised gradient
+   (``step_scalars``; where a leaf is cut, from each leaf's sum of squares,
+   summed in ``ccu_reduce`` over the ranks that hold its blocks, and counted
+   once where it is not), which is the same on every rank, so each shard
+   ends as ``adamw.apply`` with that norm would leave that block, bit for
+   bit;
 5. the updated params (the masters' blocks rounded to the params' type)
-   all-gathered over the DP group into every rank's params.
+   all-gathered over the DP axes that the ZeRO-1 spec adds to the param's
+   (a leaf already cut over "data" keeps its block).
 
 Axes other than "pod", "data" and "model" must have size 1.  The int8
 error-feedback residual is carried (ROADMAP C2: the reference's step drops
@@ -61,8 +70,11 @@ The parts of a step are marked for ``torch.profiler`` as ``train.grad``
 and ``train.gather``.
 
 ``build_serve_step`` runs prefill on the model axis the same way (each rank
-writes its positions' keys and values into its block of the cache, the
-rules' ``cache_seq``); decode there waits for ROADMAP A13.
+writes the gathered keys and values of the positions its block of the cache
+holds, the rules' ``cache_seq``: a prompt shorter than the cache fills the
+first blocks) and decode tensor-parallel (``models/layers.py``: every rank
+attends over its block of the cache, the blocks' outputs combined by their
+log-sum-exps; no weight gathered over "model").
 
 ``lower_bundle`` is the dry-run's entry point (the reference's
 ``jit(...).lower``): it runs ``fn`` once, as this rank, on its blocks of
@@ -96,7 +108,14 @@ from ..models.param import (
 )
 from ..optim import adamw
 from ..optim.compression import CompressionConfig, compress_grads
-from ..parallel.collectives import ModelAxis, Transport, hierarchical_allreduce, operand_bytes_by_axis, recording
+from ..parallel.collectives import (
+    AxisGroup,
+    ModelAxis,
+    Transport,
+    hierarchical_allreduce,
+    operand_bytes_by_axis,
+    recording,
+)
 from ..parallel.sharding import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -147,15 +166,38 @@ def _axes(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+# the families whose harness (``TransformerHarness``) runs on a model axis
+MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _size(mesh, axis: str) -> int:
+    names = tuple(mesh.mesh_dim_names)
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
 def _model_axis(harness: Harness, mesh, rules: ShardingRules, what: str, **kw) -> ModelAxis | None:
     """The mesh's "model" axis where it has more than one rank, else None."""
-    names = tuple(mesh.mesh_dim_names)
-    if MODEL_AXIS not in names or mesh.size(names.index(MODEL_AXIS)) == 1:
+    if _size(mesh, MODEL_AXIS) == 1:
         return None
-    if harness.family != "dense":
-        raise ValueError(f"{what} on a {MODEL_AXIS!r} axis of more than one rank is ported for the dense "
-                         f"family; the {harness.family!r} family waits for ROADMAP A13")
+    if harness.family not in MODEL_AXIS_FAMILIES:
+        raise ValueError(f"{what} on a {MODEL_AXIS!r} axis of more than one rank is ported for the "
+                         f"{', '.join(MODEL_AXIS_FAMILIES)} families; the {harness.family!r} family waits for "
+                         f"ROADMAP A13b")
     return ModelAxis(mesh, rules, **kw)
+
+
+def _fsdp_axis(mesh, rules: ShardingRules, param_ps, **kw) -> AxisGroup | None:
+    """The data-parallel axes that the rules cut some parameter over (the
+    MoE experts' ``moe_fsdp``: "data"), where they have more than one rank,
+    else None."""
+    cut = {tuple(_axes(e)) for ps in tree_leaves(param_ps) for e in ps
+           if any(a in (POD_AXIS, DATA_AXIS) for a in _axes(e))}
+    if not cut:
+        return None
+    if len(cut) > 1:
+        raise ValueError(f"parameters cut over several sets of data-parallel axes: {sorted(cut)}")
+    axes = cut.pop()
+    return AxisGroup(mesh, rules, axes, **kw) if math.prod(_size(mesh, a) for a in axes) > 1 else None
 
 
 def build_train_step(
@@ -193,32 +235,53 @@ def build_train_step(
     reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
     wire: dict[str, int] = {}
     model = _model_axis(harness, mesh, rules, "the train step", reduce=reduce, wire=wire)
-    rt = Runtime(use_kernels=use_kernels, model=model)
+    fsdp = _fsdp_axis(mesh, rules, param_ps, reduce=reduce, wire=wire)
+    # the MoE auxiliary loss's means span every rank that holds other tokens
+    spread = tuple(a for a in names if a in dp_axes + (MODEL_AXIS,) and _size(mesh, a) > 1)
+    tokens = (AxisGroup(mesh, rules, spread, reduce=reduce, wire=wire)
+              if getattr(harness.cfg, "moe", None) is not None and spread else None)
+    rt = Runtime(use_kernels=use_kernels, model=model, fsdp=fsdp, tokens=tokens)
     loss_and_grad = value_and_grad(harness.loss(rt))
-    sync = hierarchical_allreduce(mesh, DATA_AXIS, tuple(a for a in dp_axes if a != DATA_AXIS),
-                                  reduce=reduce, wire=wire)
-    # this rank's block of each param (its model shard), and its ZeRO-1 block
-    # within that: the ZeRO-1 spec keeps the param spec's axes and adds the DP
-    # axes on another dim, so the one lies inside the other
+    # each leaf's gradient is summed over the DP axes that do not cut it (a
+    # leaf cut over "data", the MoE experts' FSDP, comes out of its gather's
+    # reduce-scatter summed over "data" already): one function a set of axes,
+    # made by every rank in the same order
+    rest = tree_map(lambda ps: tuple(a for a in dp_axes if not any(a in _axes(e) for e in ps)), param_ps)
+    def sync_over(axes):                 # fast axis "data", slow axis "pod" where the mesh has one
+        fast = DATA_AXIS if DATA_AXIS in axes else axes[0]
+        return hierarchical_allreduce(mesh, fast, tuple(a for a in axes if a != fast), reduce=reduce, wire=wire)
+
+    syncs = {axes: sync_over(axes) for axes in sorted(set(tree_leaves(rest)), key=lambda t: (t != dp_axes, t))
+             if axes}
+    syncs[()] = lambda g: g.float()
+    # this rank's block of each param (its model and FSDP shard), and its
+    # ZeRO-1 block within that: the ZeRO-1 spec keeps the param spec's axes
+    # and adds the DP axes that do not cut the param on another dim, so the
+    # one lies inside the other
     local = tree_map(lambda ps, s: shard_slices(ps, s.shape, mesh), param_ps, param_specs)
 
     def within(block, outer):
         return tuple(slice(b.start - o.start, b.stop - o.start) for b, o in zip(block, outer))
 
     blocks = tree_map(lambda ps, s, lo: within(shard_slices(ps, s.shape, mesh), lo), zero_ps, param_specs, local)
-    # where the DP axes cut each leaf's block: (tensor dim, the axes), or
-    # None where no DP axis cuts the leaf and every rank updates all of it
-    def dp_cut(ps):
-        for d, e in enumerate(ps):
-            axes = tuple(a for a in _axes(e) if a in dp_axes)
+    # where the ZeRO-1 spec cuts a leaf's block of params further: (tensor
+    # dim, the DP axes), or None where it does not and every rank of those
+    # axes updates all of its block
+    def dp_cut(zs, ps):
+        for d, e in enumerate(zs):
+            axes = tuple(a for a in _axes(e) if a in dp_axes and not any(a in _axes(f) for f in ps))
             if axes:
                 return d, axes
         return None
 
-    cuts = tree_map(dp_cut, zero_ps)
+    cuts = tree_map(dp_cut, zero_ps, param_ps)
     # which leaves the model axis shards (the others' gradients are summed over it)
     on_model = tree_map(lambda ps: model is not None and any(MODEL_AXIS in _axes(e) for e in ps), param_ps)
-    sharded = torch.tensor(tree_leaves(on_model))
+    # the groups whose ranks hold different blocks of some leaf, and which
+    # leaves: a leaf's sum of squares and int8 scale span them
+    cutters = [(g, torch.tensor(tree_leaves(tree_map(lambda ps: any(a in _axes(e) for e in ps for a in g.axes),
+                                                     param_ps))))
+               for g in (model, fsdp) if g is not None]
     # one group a set of cutting axes, made by every rank in the same order
     gathers = {axes: Transport(mesh, axes, wire)
                for axes in sorted({c[1] for c in tree_leaves(cuts) if c is not None})}
@@ -242,13 +305,19 @@ def build_train_step(
         grads = tree_map(lambda g, m: g if m else next(parts).view(g.shape).to(g.dtype), grads, on_model)
         return summed[0], grads
 
+    def across(values: torch.Tensor, op: str) -> torch.Tensor:
+        """Each leaf's value (one a leaf, in leaf order) combined by ``op``
+        ("sum" or "max") over every group that cuts the leaf, model first."""
+        for g, cut in cutters:
+            values = torch.where(cut.to(values.device), getattr(g, op)(values), values)
+        return values
+
     def global_norm(payload) -> torch.Tensor:
         """The norm of the whole tree from the rank's shards: each leaf's sum
-        of squares, summed over the model ranks where the leaf is sharded
-        there, the leaves added in order as ``adamw.global_norm`` adds them."""
+        of squares, summed over the ranks that hold other blocks of it, the
+        leaves added in order as ``adamw.global_norm`` adds them."""
         sq = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(payload)])
-        sq = torch.where(sharded.to(sq.device), model.sum(sq), sq)
-        return torch.sqrt(sum(sq.unbind(0)))
+        return torch.sqrt(sum(across(sq, "sum").unbind(0)))
 
     @torch.no_grad()
     def train_step(params, opt_state, batch, residual=None, observe=None):
@@ -263,17 +332,17 @@ def build_train_step(
                 loss, grads = model_sums(loss, grads)
         # 2. sum over the DP ranks, every sum in ccu_reduce; mean; one rounding
         with record_function("train.sync"):
-            grads = tree_map(lambda g: (sync(g) / dp).to(g.dtype), grads)
+            grads = tree_map(lambda g, axes: (syncs[axes](g) / dp).to(g.dtype), grads, rest)
         # 3. compression of the synchronised gradient, leaf by leaf
         if compression.mode == "int8" and residual is None:
             residual = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
         with record_function("train.compress"):
             amax = None
-            if model is not None and compression.mode == "int8":
-                # each leaf's scale is the whole leaf's: max |g + r| over the model ranks
+            if cutters and compression.mode == "int8":
+                # each leaf's scale is the whole leaf's: max |g + r| over the ranks that hold its blocks
                 local_max = tree_map(lambda g, r: (g.to(torch.float32) + r if compression.ef
                                                    else g.to(torch.float32)).abs().amax(), grads, residual)
-                amax = _like(local_max, model.max(torch.stack(tree_leaves(local_max))).unbind(0))
+                amax = _like(local_max, across(torch.stack(tree_leaves(local_max)), "max").unbind(0))
 
             def compress(g, r=None, a=None):
                 return compress_grads(compression, g, r, use_kernels=use_kernels,
@@ -285,7 +354,7 @@ def build_train_step(
             observe(grads, payload)
         del grads
         # 4. AdamW on this rank's shard
-        k = adamw.step_scalars(opt_cfg, payload, opt_state, None if model is None else global_norm(payload))
+        k = adamw.step_scalars(opt_cfg, payload, opt_state, global_norm(payload) if cutters else None)
         flat = zip(tree_leaves(payload), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
                    tree_leaves(opt_state["master"]), tree_leaves(params), tree_leaves(blocks),
                    tree_leaves(cuts))
@@ -331,15 +400,16 @@ def build_serve_step(
 ) -> StepBundle:
     """Prefill (cell.kind == 'prefill') or decode step bundle.  ``fn`` runs
     the harness's serving call on the rank's own params, state and inputs;
-    on a "model" axis of more than one rank, prefill only (the dense family),
-    every rank returning the last model rank's logits."""
+    on a "model" axis of more than one rank (the dense, MoE and VLM
+    families) every rank returns the same logits: prefill the last model
+    rank's, decode the logits gathered over the axis.  A decode step's
+    ``inputs["pos"]`` is read from its tensor; on ``meta`` (the dry-run,
+    ``lower_bundle``), where no tensor can be read, the step writes the
+    cell's last position that the cache holds (``decode_position``)."""
     rules = rules or rules_for_cell(harness, cell, multi_pod=multi_pod)
     wire: dict[str, int] = {}
-    model = _model_axis(harness, mesh, rules, "serving", wire=wire,
-                        reduce=ops.ccu_reduce if use_kernels else ccu_reduce_plain)
-    if model is not None and cell.kind != "prefill":
-        raise ValueError(f"decode on a {MODEL_AXIS!r} axis of more than one rank waits for ROADMAP A13")
-    rt = Runtime(use_kernels=use_kernels, model=model)
+    reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
+    model = _model_axis(harness, mesh, rules, "serving", wire=wire, reduce=reduce)
 
     param_specs = harness.param_specs()
     state_specs = harness.serve_state_specs(cell)
@@ -349,9 +419,15 @@ def build_serve_step(
     state_ps = tree_pspecs(state_specs, rules)
     input_ps = tree_pspecs(input_specs, rules)
 
+    fsdp = _fsdp_axis(mesh, rules, param_ps, reduce=reduce, wire=wire)
+    rt = Runtime(use_kernels=use_kernels, model=model, fsdp=fsdp)
     inner = harness.prefill(rt) if cell.kind == "prefill" else harness.decode(rt)
+    meta_pos = decode_position(harness, cell) if cell.kind == "decode" else None
 
     def serve_step(params, state, inputs):
+        if "pos" in inputs and isinstance(inputs["pos"], torch.Tensor):
+            pos = inputs["pos"]
+            inputs = {**inputs, "pos": meta_pos if pos.device.type == "meta" else int(pos)}
         logits, new_state = inner(params, state, **inputs)
         return logits, new_state
 
@@ -370,6 +446,16 @@ def build_serve_step(
         abstract_args=abstract,
         donate_argnums=(1,),
     )
+
+
+def decode_position(harness, cell: ShapeCell) -> int:
+    """The position a decode cell's step writes where it is traced on
+    ``meta``: the cell's last, or the cache's last where the cache is
+    shorter (mixtral's ``long_500k``, whose cache the window bounds)."""
+    state = harness.serve_state_specs(cell)
+    cache = state.get("k") if isinstance(state, dict) else None         # a transformer's (L, B, S, K, Dh)
+    held = cache.shape[2] if cache is not None and len(cache.shape) == 5 else cell.seq_len
+    return min(cell.seq_len, held) - 1
 
 
 def build_bundle(harness, cell: ShapeCell, mesh, *, multi_pod: bool, use_kernels: bool = True,

@@ -164,7 +164,7 @@ def train_step(rank: int, world: int, shape: tuple, axes: tuple, batch: dict, st
     payload, the shards after it and their blocks, the params after the
     first and the last step, the losses.  The 2-rank mesh also checks
     ``build_serve_step``'s ``fn`` against the harness, returns its
-    ``abstract_args`` as (shape, type), and whether the MoE family's step
+    ``abstract_args`` as (shape, type), and whether the SSM family's step
     refuses a model axis of two ranks."""
     from repro_torch.configs import load
     from repro_torch.launch.mesh import make_mesh
@@ -204,13 +204,13 @@ def train_step(rank: int, world: int, shape: tuple, axes: tuple, batch: dict, st
                     blocks=[tuple((s.start, s.stop) for s in b) for b in blocks])
         out[mode] = kept
     if not multi_pod:
-        # the model axis is ported for the dense family; the MoE family's waits for ROADMAP A13
+        # the model axis is ported for the dense, MoE and VLM families; the SSM family's waits for ROADMAP A13b
         try:
-            build_train_step(load("mixtral-8x22b", smoke=True), cell,
+            build_train_step(load("rwkv6-1.6b", smoke=True), cell,
                              make_mesh((1, 2), ("data", "model"), device_type="cpu"), rules=rules)
             out["model_axis_refused"] = False
         except ValueError as e:
-            out["model_axis_refused"] = "A13" in str(e)
+            out["model_axis_refused"] = "A13b" in str(e)
         out["serve"] = _serve_check(harness, mesh, rules)
         out["abstract"] = [[(tuple(t.shape), str(t.dtype), t.device.type) for t in tree_leaves(tree)]
                            for tree in bundle.abstract_args]

@@ -1,8 +1,9 @@
-"""Rank targets of ``tests/test_torch_model_axis.py``,
-``tests/test_torch_model_axis_prefill.py`` and ``tests/test_torch_dryrun.py``
-(spawned by ``_torch_dist.spawn``): the dense family's train step and
-prefill on a mesh with a "model" axis, and one attention layer on the rank's
-rows.  Imports torch and the port only."""
+"""Rank targets of ``tests/test_torch_model_axis*.py`` and
+``tests/test_torch_dryrun.py`` (spawned by ``_torch_dist.spawn``): the train
+step, prefill and decode of the dense, MoE and VLM families on a mesh with a
+"model" axis, one attention layer on the rank's rows, and the MoE routing of
+the rank's shard of a sequence.  Each arch's rules name its MoE strategy, as
+``rules_for_cell`` does.  Imports torch and the port only."""
 
 from __future__ import annotations
 
@@ -60,10 +61,10 @@ def train(rank: int, world: int, shape: tuple, axes: tuple, path: str, steps: in
 
     mesh = make_mesh(shape, axes, device_type="cpu")
     multi_pod = "pod" in axes
-    rules = make_rules(multi_pod=multi_pod)
     out: dict = {}
     for arch, (weights, batch) in inputs(path).items():
         harness = load(arch, smoke=True).clone(dtype=torch.float32)
+        rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
         specs = harness.param_specs()
         param_ps = tree_pspecs(specs, rules)
         B, S = batch["tokens"].shape
@@ -107,10 +108,10 @@ def prefill(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict
 
     mesh = make_mesh(shape, axes, device_type="cpu")
     multi_pod = "pod" in axes
-    rules = make_rules(multi_pod=multi_pod)
     out: dict = {}
     for arch, ((weights, prompt), attn) in inputs(path).items():
         harness = load(arch, smoke=True).clone(dtype=torch.float32)
+        rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
         cell = ShapeCell("p", "prefill", prompt.shape[1], prompt.shape[0])
         serve = build_serve_step(harness, cell, mesh, multi_pod=multi_pod, rules=rules)
         params = _local(from_reference(weights, torch.float32, "cpu"), tree_pspecs(harness.param_specs(), rules),
@@ -163,8 +164,8 @@ def records(rank: int, world: int, shape: tuple, axes: tuple, arch: str, B: int,
 
     mesh = make_mesh(shape, axes, device_type="cpu")
     multi_pod = "pod" in axes
-    rules = make_rules(multi_pod=multi_pod)
     harness = load(arch, smoke=True)
+    rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
     cell = ShapeCell("smoke", "train", S, B)
     bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=opt_cfg(),
                               compression=CompressionConfig(mode="int8"), rules=rules)
@@ -181,3 +182,84 @@ def records(rank: int, world: int, shape: tuple, axes: tuple, arch: str, B: int,
         with recording() as seen:
             params, opt, _, residual = bundle.fn(params, opt, batch, residual)
     return {"records": seen, "wire": {a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()}}
+
+
+def serve(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
+    """For each case of the inputs at ``path`` ({name: dict(arch, weights,
+    prompt, prefix (or None), cache, steps, window (or None))}, numpy,
+    fp32): a served request on this rank's share of the batch, as
+    ``build_serve_step`` runs it on the model axis: prefill of the prompt
+    (after the prefix) into a cache of ``cache`` positions, each rank's
+    block of the cache under the rules' ``cache_seq``, then ``steps`` greedy
+    decode steps (the decode cell's rules, ``sp`` off), each fed the ids
+    this rank chose.  Returns the logits of every step, the ids, the cache
+    blocks after the last step and their slices."""
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import from_reference, tree_init, tree_pspecs
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_serve_step
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    out: dict = {}
+    for name, case in inputs(path).items():
+        harness = load(case["arch"], smoke=True).clone(dtype=torch.float32)
+        if case["window"] is not None:
+            harness = harness.clone(window=case["window"])
+        B, S = case["prompt"].shape
+        P = 0 if case["prefix"] is None else case["prefix"].shape[1]
+        pre, dec = ShapeCell("p", "prefill", S, B), ShapeCell("d", "decode", case["cache"] - P, B)
+        rules = make_rules(moe_strategy=harness.moe_strategy)
+        drules = make_rules(sp=False, moe_strategy=harness.moe_strategy)
+        params = _local(from_reference(case["weights"], torch.float32, "cpu"),
+                        tree_pspecs(harness.param_specs(), rules), mesh)
+        state = harness.serve_state_specs(dec)
+        state_ps = tree_pspecs(state, rules)
+        cache = _local(tree_init(state, None, None, "cpu"), state_ps, mesh)
+        inp = {"tokens": torch.from_numpy(case["prompt"])}
+        if P:
+            inp["prefix_embeds"] = torch.from_numpy(case["prefix"])
+        inp = _local(inp, tree_pspecs(harness.serve_input_specs(pre), rules), mesh)
+        logits, cache = build_serve_step(harness, pre, mesh, rules=rules).fn(params, cache, inp)
+        step = build_serve_step(harness, dec, mesh, rules=drules)
+        kept = {"logits": [logits.numpy()], "ids": []}
+        for i in range(case["steps"]):
+            ids = logits.argmax(-1).to(torch.int32)
+            kept["ids"].append(ids.numpy())
+            logits, cache = step.fn(params, cache, {"tokens": ids, "pos": torch.tensor(P + S + i, dtype=torch.int32)})
+            kept["logits"].append(logits.numpy())
+        kept.update(cache=_np(cache), cache_blocks=_slices(state_ps, state, mesh),
+                    coord=dict(zip(axes, mesh.get_coordinate())), wire=dict(step.fn.wire_bytes))
+        out[name] = kept
+    return out
+
+
+def slots(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
+    """For each case of the inputs at ``path`` ({name: (x (B, S, D),
+    router (D, E), MoE config fields)}, numpy, fp32): ``moe.route`` of this
+    rank's positions of each sequence with the whole sequence's capacity,
+    the slots counted over the model axis (``seq=``): the choices, the
+    slots and which are kept, and the rank's positions."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import MoEConfig, route
+    from repro_torch.parallel.collectives import ModelAxis
+    from repro_torch.parallel.sharding import make_rules, shard_slices
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    model = ModelAxis(mesh, make_rules())
+    out: dict = {}
+    for name, (x, router, fields) in inputs(path).items():
+        cfg = MoEConfig(**fields)
+        rows = shard_slices(("data", "model"), x.shape, mesh)
+        r = route(torch.from_numpy(x)[rows], torch.from_numpy(router), cfg, capacity=cfg.capacity(x.shape[1]),
+                  seq=model)
+        out[name] = {"rows": [(s.start, s.stop) for s in rows], "gate_idx": r.gate_idx.numpy(),
+                     "pos": r.pos.numpy(), "keep": r.keep.numpy()}
+    return out
+
+
+def train_and_serve(rank: int, world: int, shape: tuple, axes: tuple, train_path: str, serve_path: str) -> dict:
+    """``train`` on the cases at ``train_path``, then ``serve`` on those at
+    ``serve_path``, on the same ranks."""
+    return {"train": train(rank, world, shape, axes, train_path), "serve": serve(rank, world, shape, axes, serve_path)}

@@ -85,9 +85,9 @@ def routing_margins():
 
     seen, route = [], moe.route
 
-    def recording(x, router, cfg):
+    def recording(x, router, cfg, **kw):
         seen.append(routing_margin_ulps((x @ router).float(), cfg.topk))
-        return route(x, router, cfg)
+        return route(x, router, cfg, **kw)
 
     moe.route = recording
     try:

@@ -15,6 +15,7 @@ the closed form from the placements.  The reference's own dry-run fails on
 this tree (``test_one_dryrun_cell_subprocess``), so no count is held against
 its output."""
 
+import dataclasses
 import json
 import math
 import os
@@ -249,9 +250,116 @@ def test_granite_train_4k_on_the_production_mesh(multi_pod):
 
 
 def test_cells_not_ported_are_skipped():
-    """decode and every family but the dense one name ROADMAP A13; the
+    """the SSM, hybrid and audio families name ROADMAP A13b; the
     reference's own reason for long_500k on full attention is kept"""
-    assert dryrun.run_cell("granite-8b", "decode_32k", False)["reason"].count("A13") == 1
-    assert "A13" in dryrun.run_cell("mixtral-8x22b", "train_4k", True)["reason"]
+    for arch, shape in (("rwkv6-1.6b", "decode_32k"), ("zamba2-1.2b", "train_4k"), ("whisper-base", "prefill_32k")):
+        rec = dryrun.run_cell(arch, shape, True)
+        assert rec["status"] == "skipped" and rec["reason"].count("A13b") == 1
     rec = dryrun.run_cell("granite-8b", "long_500k", False)
     assert rec["status"] == "skipped" and rec["reason"] == load("granite-8b").skip_reason("long_500k")
+
+
+# ---------------------------------------------------------------------------
+# the dense family's decode, and the MoE and VLM families, on the model axis
+# ---------------------------------------------------------------------------
+
+DECODE = dict(arch="granite-8b", B=8, L=64)
+
+
+def _serve_bundle(mesh, harness, cell):
+    from repro_torch.train.train_step import build_serve_step
+
+    rules = make_rules(sp=cell.kind != "decode", moe_strategy=harness.moe_strategy)
+    return build_serve_step(harness, cell, mesh, rules=rules, use_kernels=False)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "starcoder2-7b", "paligemma-3b"])
+def test_decode_cell_counts(arch):
+    """a decode cell on a fake (data, model) = (2, 2) group: its operand
+    bytes on "model" equal the closed form of the tensor-parallel step
+    (``tests/test_torch_model_axis_decode.decode_model_bytes``, bf16
+    activations): each layer's gathered q/k/v columns and log-sum-exps, its
+    reduce-scatter of the partial outputs and its two sums, the
+    embedding's columns and the logits; nothing on "data"; the trace
+    writes the cell's last position"""
+    from test_torch_model_axis_decode import decode_model_bytes
+
+    from repro_torch.train.train_step import decode_position
+
+    harness = load(arch, smoke=True)
+    cell = ShapeCell("d", "decode", DECODE["L"], DECODE["B"])
+    with fake_mesh((2, 2), ("data", "model")) as mesh:
+        low = lower_bundle(_serve_bundle(mesh, harness, cell), mesh)
+    assert low["operand_bytes_by_axis"] == {"model": decode_model_bytes(harness.cfg, DECODE["B"] // 2, 2, 2)}
+    assert low["c10d_ops"] == len(low["records"]) == 5 * harness.cfg.n_layers + 2
+    assert decode_position(harness, cell) == DECODE["L"] - 1
+
+
+def test_moe_and_vlm_cells_trace():
+    """the MoE family's train cell on a fake (2, 2) group records the same
+    collectives, one for one and in order, as four gloo ranks' transports
+    record in a warm step (``expert_tp``: the buffer and the expert
+    outputs summed over "model", the experts' d_model dim gathered over
+    "data"); the VLM family's train, prefill and decode cells trace"""
+    harness = load("mixtral-8x22b", smoke=True)
+    with fake_mesh(SMOKE["shape"], SMOKE["axes"]) as mesh:
+        bundle = build_train_step(harness, ShapeCell("smoke", "train", SMOKE["S"], SMOKE["B"]), mesh,
+                                  opt_cfg=ranks.opt_cfg(), compression=CompressionConfig(mode="int8"),
+                                  rules=make_rules(moe_strategy="expert_tp"), use_kernels=False)
+        low = lower_bundle(bundle, mesh)
+        vlm = load("paligemma-3b", smoke=True)
+        for cell in (ShapeCell("t", "train", 24, 8), ShapeCell("p", "prefill", 24, 8),
+                     ShapeCell("d", "decode", 24, 8)):
+            b = (build_train_step(vlm, cell, mesh, opt_cfg=ranks.opt_cfg(), rules=make_rules(), use_kernels=False)
+                 if cell.kind == "train" else _serve_bundle(mesh, vlm, cell))
+            assert lower_bundle(b, mesh)["operand_bytes_by_axis"]["model"] > 0
+    assert low["c10d_ops"] == len(low["records"])
+    assert {r[0] for r in low["records"]} >= {"all-gather", "reduce-scatter"}
+    recs = _torch_dist.spawn(ranks.records, 4, _spawn_dir("moe_records"), SMOKE["shape"], SMOKE["axes"],
+                             "mixtral-8x22b", SMOKE["B"], SMOKE["S"], 2)
+    for r in recs:
+        assert r["records"] == low["records"]
+        assert r["wire"] == low["operand_bytes_by_axis"]
+
+
+def _spawn_dir(name):
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"dryrun_{name}_")
+
+
+@pytest.mark.parametrize("arch, shape", [("granite-8b", "decode_32k"), ("dbrx-132b", "decode_32k"),
+                                         ("paligemma-3b", "train_4k")])
+def test_extrapolation_is_exact_on_the_new_cells(arch, shape):
+    """the probes at 1 and 2 layers extrapolate exactly to 4 layers for a
+    decode cell, an MoE cell and a VLM cell on a fake (2, 2) group"""
+    harness = load(arch, smoke=True).clone(n_layers=4)
+    cell = dataclasses.replace(SHAPES[shape], seq_len=64, global_batch=8)
+    with fake_mesh((2, 2), ("data", "model")) as mesh:
+        ext = dryrun.extrapolated_metrics(harness, cell, mesh, False)
+        full = dryrun._probe_metrics(harness, cell, mesh, False)
+    for k in ("flops", "hbm", "wire"):
+        assert ext[k] == full[k] > 0, k
+    assert ext["operand_bytes_by_axis"] == full["operand_bytes_by_axis"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_granite_decode_32k_on_the_production_mesh(multi_pod):
+    """granite-8b decode_32k on both production meshes: "ok", its
+    model-axis operand bytes a step the closed form (36 layers of about
+    0.2 MB: activations only), below a hundredth of the rank's parameter
+    bytes"""
+    from test_torch_model_axis_decode import decode_model_bytes
+
+    rec = dryrun.run_cell("granite-8b", "decode_32k", multi_pod, probes=False)
+    assert rec["status"] == "ok"
+    harness = load("granite-8b")
+    dp = 32 if multi_pod else 16
+    by_axis = rec["collectives"]["operand_bytes_by_axis"]
+    assert by_axis["model"] == decode_model_bytes(harness.cfg, 128 // dp, 16, 2)
+    rules = rules_for_cell(harness, SHAPES["decode_32k"], multi_pod=multi_pod)
+    specs = harness.param_specs()
+    shape, axes = production_shape(multi_pod)
+    params = sum(_parts(math.prod(s.shape), ps, dict(zip(axes, shape))) * 2
+                 for s, ps in zip(tree_leaves(specs), tree_leaves(tree_pspecs(specs, rules))))
+    assert by_axis["model"] < params / 100

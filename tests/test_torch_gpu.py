@@ -556,3 +556,56 @@ def test_flash_attention_sequence_parallel_rows(cuda, G, Sq, Sk, q_start, dtype)
     r = flash_attention_plain(q, k, v, **kw).float()
     limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
     assert ((o - r).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sk,q_local,window,prefix_len,D", [
+    # a model rank's block of the cache in decode: granite-8b (G = 4) at the
+    # block's last key and partway through it; mixtral-8x22b (G = 6) under
+    # its window; paligemma-3b (G = 8, head_dim 256) with its prefix in the block
+    (4, 2048, 2047, None, 0, 128), (4, 2048, 700, None, 0, 128), (6, 512, 511, 4096, 0, 128),
+    (6, 512, 300, 200, 0, 128), (8, 2064, 2063, None, 256, 256), (8, 600, 599, None, 0, 256),
+])
+def test_flash_decode_log_sum_exp_matches_plain(cuda, G, Sk, q_local, window, prefix_len, D, dtype):
+    """The decode kernels' log-sum-exp output (written by the combine
+    kernel) against the plain version's: fp32 within 1e-5 of max(1, |lse|)
+    (the same fp32 scores, summed in another order); the output bit-equal
+    to the same call without it"""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _peaked_qkv(cuda, G, 1, Sk, D, dtype, seed=Sk)
+    kw = dict(causal=True, window=window, prefix_len=prefix_len, q_start=q_local)
+    before = flash_attention.launches
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.equal(o, flash_attention(q, k, v, **kw))
+    ro, rl = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == rl.shape == (2, 2, G, 1)
+    assert ((lse - rl).abs() <= 1e-5 * rl.abs().clamp(min=1.0)).all()
+    limit = torch.full_like(ro.float(), 2e-5) if dtype == torch.float32 else 2.0 ** -7 * ro.float().abs() + 1e-5
+    assert ((o.float() - ro.float()).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,ranks,E,K,D", [(2, 256, 2, 8, 2, 256), (2, 128, 16, 16, 4, 128), (4, 64, 4, 8, 2, 96)])
+def test_moe_dispatch_at_a_ranks_token_share(cuda, B, T, ranks, E, K, D, dtype):
+    """A model rank's ``T`` tokens of a sequence of ``ranks * T`` into the
+    whole sequence's capacity ``C``, its slots offset by the earlier ranks'
+    (the last rank's share, whose slots start past the others'):
+    bit-equal to the plain version"""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain
+    from repro_torch.models.moe import MoEConfig
+
+    C = MoEConfig(n_experts=E, topk=K, d_ff=1).capacity(ranks * T)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    x = torch.randn((B, T, D), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, E, (B, T), generator=gen, device=cuda)
+    onehot = torch.nn.functional.one_hot(idx, E)
+    slot = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1) + (ranks - 1) * T * K // E
+    disp = torch.zeros((B, T, E, C), device=cuda, dtype=dtype)
+    b, t = torch.nonzero(slot < C, as_tuple=True)
+    disp[b, t, idx[b, t], slot[b, t]] = 1
+    o = moe_dispatch(disp, x)
+    torch.cuda.synchronize()
+    assert torch.equal(o, moe_dispatch_plain(disp, x))

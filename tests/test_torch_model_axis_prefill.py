@@ -14,7 +14,7 @@ cache block against the matching slice of the reference's cache at 2e-5 of
 its largest value; one attention layer on a rank's rows, against the keys
 and values gathered over "model", on both paths, against the matching rows
 of the reference's attention over the whole sequence at 2e-5 of the largest
-|output|.  And the cells that wait for ROADMAP A13 refuse with a
+|output|.  And the families that wait for ROADMAP A13b refuse with a
 ``ValueError`` naming it."""
 
 import pickle
@@ -115,12 +115,16 @@ def test_attention_rows_match_full_attention(runs, reference, mesh, arch):
 
 
 def test_model_axis_waits_for_a13_elsewhere():
-    """the MoE family's step and the dense family's decode on a model axis
-    are refused with a ValueError naming ROADMAP A13"""
+    """the SSM, hybrid and audio families' steps on a model axis are
+    refused with a ValueError naming ROADMAP A13b (the dense, MoE and VLM
+    families' are ported)"""
     with fake_mesh((1, 2), ("data", "model")) as mesh:
-        with pytest.raises(ValueError, match="A13"):
-            build_train_step(load("mixtral-8x22b", smoke=True), ShapeCell("s", "train", 16, 2), mesh,
+        with pytest.raises(ValueError, match="A13b"):
+            build_train_step(load("rwkv6-1.6b", smoke=True), ShapeCell("s", "train", 16, 2), mesh,
                              rules=make_rules())
-        with pytest.raises(ValueError, match="A13"):
-            build_serve_step(load("granite-8b", smoke=True), ShapeCell("d", "decode", 16, 2), mesh,
+        with pytest.raises(ValueError, match="A13b"):
+            build_serve_step(load("zamba2-1.2b", smoke=True), ShapeCell("d", "decode", 16, 2), mesh,
                              rules=make_rules(sp=False))
+        with pytest.raises(ValueError, match="A13b"):
+            build_serve_step(load("whisper-base", smoke=True), ShapeCell("p", "prefill", 16, 2), mesh,
+                             rules=make_rules())

@@ -161,7 +161,7 @@ def test_abstract_args_match_tree_abstract(runs):
 
 
 def test_step_needs_a_data_parallel_mesh(runs):
-    """a mesh whose model axis has more than one rank is refused for the MoE
-    family (the dense family's model axis is ported,
-    ``tests/test_torch_model_axis.py``; the others wait for ROADMAP A13)"""
+    """a mesh whose model axis has more than one rank is refused for the SSM
+    family (the dense, MoE and VLM families' model axis is ported,
+    ``tests/test_torch_model_axis*.py``; the others wait for ROADMAP A13b)"""
     assert runs[2][0]["model_axis_refused"]
