@@ -348,11 +348,11 @@ def _flash_cases():
     return cases
 
 
-def _flash_bound_ms(q, k, v, mask_kw) -> tuple[float, str]:
-    """Least time for this call: bytes (q read once, o written once, and
-    each key and value that some row sees read once) over the memory rate,
-    against the operations the visible (query, key) pairs need (two
-    products, 2 flops a multiply-add) over the peak rate."""
+def _flash_bound_ms(q, k, v, mask_kw, out_bytes: int = 0) -> tuple[float, str]:
+    """Least time for this call: bytes (q read once, o and ``out_bytes``
+    more written once, and each key and value that some row sees read once)
+    over the memory rate, against the operations the visible (query, key)
+    pairs need (two products, 2 flops a multiply-add) over the peak rate."""
     from repro_torch.kernels.flash_attention import visible
 
     B, Sq, N, D = q.shape
@@ -362,7 +362,7 @@ def _flash_bound_ms(q, k, v, mask_kw) -> tuple[float, str]:
     pairs = int(seen.sum())
     flops = 4 * D * pairs * B * N
     keys = int(seen.any(0).sum())
-    nbytes = (2 * q.numel() + (k.numel() + v.numel()) * keys // Sk) * q.element_size()
+    nbytes = (2 * q.numel() + (k.numel() + v.numel()) * keys // Sk) * q.element_size() + out_bytes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -586,22 +586,25 @@ def _flash_block_shape(gen, B: int, N: int, K: int, D: int, Lb: int, q_local: in
                        where: str) -> dict:
     """The decode kernels over a model rank's block of the cache, as
     ``layers._attend_block`` calls them on the model axis: every query head
-    of one position against the block's ``Lb`` keys, ``q_start`` the
+    of one position against the block's keys up to the last visible one
+    (``max(min(Lb, q_local + 1), prefix)`` of its ``Lb``), ``q_start`` the
     position less the block's offset, with the log-sum-exp output.  Held:
     the output within one ulp of the plain version's and bit-equal to the
     same call without the log-sum-exp; the log-sum-exp within 1e-5 of
     max(1, |lse|) of the plain version's.  Times: kernel (with the
     log-sum-exp), plain version, the library call (``scaled_dot_product_
-    attention`` over the block with the same mask: the output only) and
-    the bound (q, the
-    block's keys and values read once, o and the log-sum-exp written)."""
+    attention`` over the same keys with the same mask: the output only) and
+    the bound (``_flash_bound_ms``: q and the keys and values some row sees
+    read once, o and the log-sum-exp written)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import visible
 
     dt = torch.bfloat16
+    n = max(min(Lb, q_local + 1), prefix)
     q, k, v = _qkv(gen, (B, 1, N, D), (B, Lb, K, D), dt)
+    k, v = k[:, :n], v[:, :n]
     kw = dict(causal=True, window=None, prefix_len=prefix, q_start=q_local)
     o, lse = ops.flash_attention_bsnd(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
@@ -621,22 +624,19 @@ def _flash_block_shape(gen, B: int, N: int, K: int, D: int, Lb: int, q_local: in
         raise SystemExit(f"flash decode over a model rank's block ({where}): output {err} ({of_limit} of its "
                          f"limit), log-sum-exp {lse_of_limit} of its limit, bit-equal without it: {same}")
 
-    mask = visible(1, Lb, causal=True, window=None, prefix_len=prefix, q_start=q_local, device=q.device)
+    mask = visible(1, n, causal=True, window=None, prefix_len=prefix, q_start=q_local, device=q.device)
 
     def library():
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                               attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-    flops = 4 * D * Lb * B * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    bound_ms, bound_by = _flash_bound_ms(q, k, v, kw, out_bytes=lse.numel() * lse.element_size())
     ms, call_ms = time_ms(lambda: ops.flash_attention_bsnd(q, k, v, return_lse=True, **kw))
-    return {"shape": f"q{tuple(q.shape)} block kv{tuple(k.shape)} bf16 {kw} ({where})",
+    return {"shape": f"q{tuple(q.shape)} keys {n} of a block of {Lb}: kv{tuple(k.shape)} bf16 {kw} ({where})",
             "max_abs_err": err, "err_of_limit": of_limit, "lse_err_of_limit": lse_of_limit,
             "lse_limit": "1e-5 of max(1, |lse|)", "bit_equal_without_lse": same,
             "ms": ms, "call_ms": call_ms, "plain_ms": time_ms(plain)[0],
-            "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(library)[0]}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library)[0]}
 
 
 def _flash_row(gen) -> dict:
@@ -730,10 +730,13 @@ def _flash_row(gen) -> dict:
     # blocks of 2048; granite-8b's last block at the cell's last position,
     # paligemma-3b's first block, which holds its prefix, 33023 positions
     # before the query) and at the dist phase's granite-8b request (2
-    # sequences a rank, blocks of 512, the second block at decode's first step)
+    # sequences a rank, blocks of 512, at decode's first step: the first
+    # block, the whole prompt, and the second, its first key only)
     blocks = {"granite_decode_32k": _flash_block_shape(gen, 8, 32, 8, 128, 2048, 2047, 0, "granite-8b decode_32k"),
               "paligemma_decode_32k": _flash_block_shape(gen, 8, 8, 1, 256, 2064, 33023, 256,
                                                          "paligemma-3b decode_32k, block 0"),
+              "dist_granite_block0": _flash_block_shape(gen, 2, 32, 8, 128, 512, 512, 0,
+                                                        "granite-8b dist request, block 0"),
               "dist_granite": _flash_block_shape(gen, 2, 32, 8, 128, 512, 0, 0, "granite-8b dist request, block 1")}
     return {
         "name": "flash_attention",
@@ -2298,12 +2301,17 @@ def _blocks_of(pspecs, specs, mesh) -> list:
 
 
 def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
-    """One rank of the dist phase (a spawned process) on ``spec``'s mesh.
+    """One rank of the dist phase (a spawned process): ``spec["steps"]``
+    ZeRO-1 steps of ``spec["arch"]`` on ``spec``'s mesh (an MoE model's
+    experts' FSDP dim gathered over "data"), then ``spec["serve"]``'s
+    requests, if any (``_dist_serve``).  Saved: every step's params'
+    digests, the first step's ZeRO-1 shards' digests, its routing of each
+    MoE layer's forward, and its synchronised payload by block (and the
+    gradient, where the payload is not it, as int8 compression makes it),
+    each block once over the ranks: the first data-parallel index's ranks
+    save every leaf, the others the leaves cut over a data-parallel axis.
     Anything it raises ends the process with an error, which
-    ``torch.multiprocessing.spawn`` raises in the parent.  The ranks of the
-    first data-parallel index save their blocks of the first step's
-    synchronised gradient and payload; then the ranks serve
-    ``spec["serve"]``'s requests, if any (``_dist_serve``)."""
+    ``torch.multiprocessing.spawn`` raises in the parent."""
     import datetime
 
     import torch.distributed as dist
@@ -2313,7 +2321,7 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
     from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import ShapeCell
-    from repro_torch.models.param import tree_init, tree_leaves, tree_pspecs
+    from repro_torch.models.param import tree_leaves, tree_pspecs
     from repro_torch.optim.compression import CompressionConfig
     from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
     from repro_torch.train.train_step import build_train_step
@@ -2324,17 +2332,21 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
     try:
         mesh = make_mesh(spec["mesh"], spec["axes"])
         multi_pod = "pod" in spec["axes"]
-        rules = make_rules(multi_pod=multi_pod)
         harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+        rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
         specs = harness.param_specs()
         cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
-        bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=_dist_opt_cfg(),
+        bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=_dist_opt_cfg(spec),
                                   compression=CompressionConfig(mode=spec["compression"]), rules=rules)
         param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
         coord = dict(zip(spec["axes"], mesh.get_coordinate()))
-        first_dp = all(coord[a] == 0 for a in ("pod", "data") if a in coord)
-        params = _local(tree_init(specs, torch.Generator(device="cuda").manual_seed(spec["seed"]),
-                                  torch.bfloat16, "cuda"), param_ps, mesh)
+        dp_axes = {a for a in ("pod", "data") if a in coord}
+        first_dp = all(coord[a] == 0 for a in dp_axes)
+        # the leaves whose block this rank saves: each block once over the ranks
+        dp_cut = [any(dp_axes & set((e,) if isinstance(e, str) else tuple(e or ())) for e in ps)
+                  for ps in tree_leaves(param_ps)]
+        saves = [first_dp or cut for cut in dp_cut]
+        params = _local_init(specs, param_ps, mesh, spec["seed"])
         opt = bundle.init_opt_state(params)
         data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
                               seed=0)
@@ -2344,11 +2356,13 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
                "wire_by_step": [], "coord": coord}
         residual, observe_s = None, 0.0
 
-        def keep(grads, payload):         # the first step's synchronised gradient and payload, by block
+        def keep(grads, payload):         # the first step's synchronised payload (and gradient), by block
             nonlocal observe_s
             t = time.perf_counter()
-            torch.save([g.cpu() for g in tree_leaves(grads)], f"{tmp}/grads0_r{rank}.pt")
-            torch.save([g.cpu() for g in tree_leaves(payload)], f"{tmp}/payload0_r{rank}.pt")
+            g, p = tree_leaves(grads), tree_leaves(payload)
+            out["payload_is_gradient"] = all(torch.equal(a.to(b.dtype), b) for a, b in zip(g, p))
+            for what, leaves in (("payload", p),) + ((("grads", g),) if not out["payload_is_gradient"] else ()):
+                torch.save([x.cpu() if k else None for x, k in zip(leaves, saves)], f"{tmp}/{what}0_r{rank}.pt")
             observe_s = time.perf_counter() - t
 
         try:
@@ -2363,15 +2377,16 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
                 # the last step under the profiler (CPU activity: the host's time in
                 # each part of the step, which the transport's waits are in)
                 with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
-                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof:
+                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof, _routing() as calls:
                     params, opt, metrics, residual = bundle.fn(params, opt, local, residual,
-                                                               keep if step == 0 and first_dp else None)
+                                                               keep if step == 0 else None)
                     torch.cuda.synchronize()
                 out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
+                observe_s = 0.0
                 if prof is not None:
                     out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
-                                                 if e.key.startswith(("train.", "model."))}
-                observe_s = 0.0
+                                                 if e.key.startswith(("train.", "model.", "data.", "pod.",
+                                                                      "data+model."))}
                 out["launches"].append(kernels.launch_counts())
                 out["losses"].append(float(metrics["loss"]))
                 out["grad_norms"].append(float(metrics["grad_norm"]))
@@ -2379,13 +2394,16 @@ def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
                 out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
                 if step == 0:
                     out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
+                    if calls:             # the forward's calls (the recompute's follow, last layer first)
+                        torch.save([c[0].cpu() for c in calls[:harness.cfg.n_layers]], f"{tmp}/routing0_r{rank}.pt")
         finally:
             pipeline.close()
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["wire_bytes_per_step"] = {a: n // spec["steps"] for a, n in bundle.fn.wire_bytes.items()}
         out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
         out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
-        out["first_dp"] = first_dp
+        out["input_block"] = _blocks_of(input_ps, harness.train_input_specs(cell), mesh)[1]   # tokens
+        out["n_synced"] = sum(not c for c in dp_cut)
         del params, opt, residual, bundle
         out["serve"] = {s["arch"]: _dist_serve(rank, tmp, s, mesh) for s in spec.get("serve", [])}
         with open(f"{tmp}/rank{rank}.json", "w") as f:
@@ -2504,10 +2522,14 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
     choices (a bf16 near-tie may route or choose apart: one token to
     another expert moves its output by O(1)).  Held: each rank's logits (its
     share's rows) at every step within 3e-2 of the largest |logit| (at
-    least 3e-2), as the serve phase holds its paths; at every step the id
-    the ranks chose within that limit of the one process's best (the ids
-    equal but where a near-tie lies within the limit: ``same_ids`` says
-    whether they all are); each rank's final cache block within 3e-2 of the
+    least 3e-2), as the serve phase holds its paths; at every step the ids
+    the ranks chose equal to the one process's best, but at a near-tie:
+    a row whose one-process margin of its best over the ranks' id is no
+    more than the error measured on those two logits (|the ranks' logit -
+    the one process's| of each, summed: the most by which two logits that
+    far apart can change places), each listed with its step, row and margin
+    (``near_ties``), the chosen id also within the logit limit of the best;
+    each rank's final cache block within 3e-2 of the
     largest |value| of the one process's matching slice; every rank's
     launches in prefill and in each decode step as
     ``_serve_expected_launches`` works them out."""
@@ -2560,7 +2582,7 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
     del params
     torch.cuda.empty_cache()
     logit_err = logit_of_limit = short = cache_of_limit = 0.0
-    same = True
+    near_ties = []
     for i, ref in enumerate(one):
         limit = 3e-2 * max(1.0, ref.abs().max().item())
         for g, rw in zip(got, rows):
@@ -2569,7 +2591,17 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
         if i < steps:
             chosen = torch.gather(ref, -1, ids[i][..., None].long())[..., 0]
             short = max(short, (ref.max(-1).values - chosen).max().item() / limit)
-            same = same and bool(torch.equal(ref.argmax(-1).to(torch.int32), ids[i]))
+            best = ref.argmax(-1)
+            for b in torch.nonzero(best[:, 0] != ids[i][:, 0].long()).flatten().tolist():
+                two = [int(best[b, 0]), int(ids[i][b, 0])]
+                held = [g["logits"][i][b - rw.start, 0].float() for g, rw in zip(got, rows) if rw.start <= b < rw.stop]
+                err = max((x[two] - ref[b, 0, two]).abs().sum().item() for x in held)
+                margin = (ref[b, 0, two[0]] - ref[b, 0, two[1]]).item()
+                near_ties.append({"step": i, "row": b, "best": two[0], "chosen": two[1], "margin": margin,
+                                  "error_on_the_two": err, "row_max_error": max((x - ref[b, 0]).abs().max().item()
+                                                                                for x in held),
+                                  "margin_of_limit": margin / limit})
+    ids_ok = all(t["margin"] <= t["error_on_the_two"] for t in near_ties)
     for g, m in zip(got, mine):
         for c, want, b in zip(g["cache"], cache, m["cache_blocks"]):
             want = want[tuple(slice(x, y) for x, y in b)].float()
@@ -2584,12 +2616,13 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
            "single_process_s": single_s, "peak_memory_gb_by_rank": [m["peak_memory_gb"] for m in mine],
            "prefill_wire_bytes_rank0": mine[0]["wire"][0], "decode_wire_bytes_per_step_rank0": mine[0]["wire"][-1],
            "logits_max_abs_err": logit_err, "logits_of_limit": logit_of_limit, "chosen_short_of_best_of_limit": short,
-           "same_ids": same, "cache_worst_of_limit": cache_of_limit,
+           "same_ids": not near_ties, "near_ties": near_ties, "ids_equal_but_near_ties": ids_ok,
+           "cache_worst_of_limit": cache_of_limit,
            "limit": "3e-2 of the largest |logit| (at least 3e-2) / of the largest |cache value|",
            "routing_replayed_calls": len(replay), "launches_prefill_rank0": mine[0]["launches"][0],
            "launches_decode_step_rank0": mine[0]["launches"][-1], "expected_prefill": want_pre,
            "expected_decode_step": want_dec, "launches_as_expected": launches_ok}
-    if not (logit_of_limit <= 1.0 and short <= 1.0 and cache_of_limit <= 1.0 and launches_ok):
+    if not (logit_of_limit <= 1.0 and short <= 1.0 and ids_ok and cache_of_limit <= 1.0 and launches_ok):
         raise SystemExit(f"dist serve of {spec['arch']} on the model axis: a check failed: {out}")
     return out
 
@@ -2609,108 +2642,6 @@ def _moe_train_expected_launches(harness, n_synced: int) -> dict[str, int]:
     n = harness.cfg.n_layers
     return {"flash_attention": 2 * n, "moe_dispatch": 2 * n, "ssd_scan": 0, "rwkv6_scan": 0,
             "ccu_reduce": 18 * n + 2 + 1 + n_synced + 2}
-
-
-def _dist_moe_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
-    """One rank of the dist phase's MoE mesh (a spawned process):
-    ``spec["steps"]`` ZeRO-1 steps of ``spec["arch"]`` on (data, model) =
-    (2, 2), its experts' FSDP dim gathered over "data"; the first step's
-    routing of each layer's forward, its synchronised gradient blocks (each
-    block once over the ranks: the first data index's ranks save every
-    leaf, the others the leaves cut over "data"), its ZeRO-1 shards'
-    digests and every step's params' digests saved; then ``spec["serve"]``'s
-    requests (``_dist_serve``)."""
-    import datetime
-
-    import torch.distributed as dist
-
-    from repro_torch import kernels
-    from repro_torch.configs import load
-    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.api import ShapeCell
-    from repro_torch.models.param import tree_leaves, tree_pspecs
-    from repro_torch.optim.compression import CompressionConfig
-    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
-    from repro_torch.train.train_step import build_train_step
-
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
-                            timeout=datetime.timedelta(minutes=10))
-    try:
-        mesh = make_mesh(spec["mesh"], spec["axes"])
-        harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
-        rules = make_rules(moe_strategy=harness.moe_strategy)
-        specs = harness.param_specs()
-        cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
-        bundle = build_train_step(harness, cell, mesh, opt_cfg=_dist_opt_cfg(spec),
-                                  compression=CompressionConfig(mode=spec["compression"]), rules=rules)
-        param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
-        coord = dict(zip(spec["axes"], mesh.get_coordinate()))
-        # the leaves whose block this rank saves: each block once over the ranks
-        data_cut = [any("data" in ((e,) if isinstance(e, str) else tuple(e or ())) for e in ps)
-                    for ps in tree_leaves(param_ps)]
-        saves = [coord["data"] == 0 or cut for cut in data_cut]
-        params = _local_init(specs, param_ps, mesh, spec["seed"])
-        opt = bundle.init_opt_state(params)
-        data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
-                              seed=0)
-        pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
-        torch.cuda.reset_peak_memory_stats()
-        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": [],
-               "wire_by_step": [], "coord": coord}
-        observe_s = 0.0
-
-        def keep(grads, payload):
-            nonlocal observe_s
-            t = time.perf_counter()
-            g, p = tree_leaves(grads), tree_leaves(payload)
-            out["payload_is_gradient"] = all(torch.equal(a.to(b.dtype), b) for a, b in zip(g, p))
-            torch.save([x.cpu() if k else None for x, k in zip(p, saves)], f"{tmp}/moe_payload_r{rank}.pt")
-            observe_s = time.perf_counter() - t
-
-        try:
-            for step in range(spec["steps"]):
-                batch = next(pipeline)
-                local = _local({k: torch.from_numpy(batch[k]).to("cuda") for k in ("tokens", "labels")},
-                               input_ps, mesh)
-                wire0 = dict(bundle.fn.wire_bytes)
-                kernels.reset_launch_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
-                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof, _routing() as calls:
-                    params, opt, metrics, _ = bundle.fn(params, opt, local, None, keep if step == 0 else None)
-                    torch.cuda.synchronize()
-                out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
-                observe_s = 0.0
-                if prof is not None:
-                    out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
-                                                 if e.key.startswith(("train.", "model.", "data.", "data+model."))}
-                out["launches"].append(kernels.launch_counts())
-                out["losses"].append(float(metrics["loss"]))
-                out["grad_norms"].append(float(metrics["grad_norm"]))
-                out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
-                out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
-                if step == 0:
-                    out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
-                    # the forward's calls (the recompute's follow, last layer first)
-                    torch.save([c[0].cpu() for c in calls[:harness.cfg.n_layers]], f"{tmp}/moe_routing_r{rank}.pt")
-        finally:
-            pipeline.close()
-        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
-        out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 16), specs, mesh)
-        out["input_block"] = _blocks_of(input_ps, harness.train_input_specs(cell), mesh)[1]   # tokens
-        out["saves"] = saves
-        out["n_synced"] = sum(not c for c in data_cut)
-        del params, opt, bundle
-        out["serve"] = {s["arch"]: _dist_serve(rank, tmp, s, mesh) for s in spec["serve"]}
-        with open(f"{tmp}/rank{rank}.json", "w") as f:
-            json.dump(out, f)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
 
 
 def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
@@ -2744,12 +2675,7 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
                 identical = identical and seen.setdefault(key, d) == d
     expected = _moe_train_expected_launches(harness, ranks[0]["n_synced"])
     launches_ok = all(c == expected for r in ranks for c in r["launches"])
-    # the first step's payload whole, from each block's one saver
-    like = [torch.zeros(s.shape, dtype=torch.bfloat16) for s in tree_leaves(harness.param_specs())]
-    for r, res in enumerate(ranks):
-        for f, g, blk in zip(like, torch.load(f"{tmp}/moe_payload_r{r}.pt"), res["param_blocks"]):
-            if g is not None:
-                f[tuple(slice(a, b) for a, b in blk)] = g
+    like = _assemble(harness, ranks, tmp, "payload")
     cfg = _dist_opt_cfg(spec)
     whole = float(torch.sqrt(sum(torch.sum(torch.square(g.cuda().float())) for g in like)))
     norm = {"ranks": ranks[0]["grad_norms"][0], "whole_payload": whole,
@@ -2788,7 +2714,7 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
     for layer in range(n):
         whole_idx = None
         for r, res in enumerate(ranks):
-            c = torch.load(f"{tmp}/moe_routing_r{r}.pt")[layer]
+            c = torch.load(f"{tmp}/routing0_r{r}.pt")[layer]
             if whole_idx is None:
                 whole_idx = torch.zeros((spec["batch"], spec["seq"], c.shape[-1]), dtype=c.dtype)
             whole_idx[tuple(slice(a, b) for a, b in res["input_block"])] = c
@@ -2822,7 +2748,7 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
            "loss_max_abs_err": abs(mean_loss - float(loss)), "loss_limit": 3e-2,
            "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
            "grad_limit": "3e-2 of the leaf's largest |g|", "clip_norm": norm,
-           "payload_is_gradient": all(r["payload_is_gradient"] for r in ranks if "payload_is_gradient" in r),
+           "payload_is_gradient": all(r["payload_is_gradient"] for r in ranks),
            "blocks_bit_identical_every_step": identical, "shards_and_params_equal_update_leaf": not mismatch,
            "mismatches": mismatch[:10], "launches_per_step_and_rank": ranks[0]["launches"][0],
            "expected_launches": expected, "launches_as_expected": launches_ok}
@@ -2883,7 +2809,7 @@ def _model_axis_rows(harness, spec: dict) -> dict[str, tuple[int, int]]:
     return rows
 
 
-def _spawn(spec: dict, target) -> tuple[list[dict], float, str]:
+def _spawn(spec: dict) -> tuple[list[dict], float, str]:
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2893,7 +2819,7 @@ def _spawn(spec: dict, target) -> tuple[list[dict], float, str]:
     # the ranks allocate in expandable segments: four training states share the card
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t0 = time.perf_counter()
-    mp.spawn(target, args=(world, tmp, spec), nprocs=world, join=True)
+    mp.spawn(_dist_rank, args=(world, tmp, spec), nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
     ranks = []
     for r in range(world):
@@ -2903,14 +2829,16 @@ def _spawn(spec: dict, target) -> tuple[list[dict], float, str]:
 
 
 def _assemble(harness, ranks: list[dict], tmp: str, what: str) -> list[torch.Tensor]:
-    """The first step's ``what`` (grads or payload) whole, from the saved
-    blocks of the first data-parallel index's ranks."""
+    """The first step's ``what`` (grads or payload) whole, from each block's
+    one saver (``_dist_rank``); the payload where it is the gradient."""
     from repro_torch.models.param import tree_leaves
 
+    if what == "grads" and ranks[0]["payload_is_gradient"]:
+        what = "payload"
     full = [torch.zeros(s.shape, dtype=torch.bfloat16) for s in tree_leaves(harness.param_specs())]
     for r, res in enumerate(ranks):
-        if res["first_dp"]:
-            for f, g, blk in zip(full, torch.load(f"{tmp}/{what}0_r{r}.pt"), res["param_blocks"]):
+        for f, g, blk in zip(full, torch.load(f"{tmp}/{what}0_r{r}.pt"), res["param_blocks"]):
+            if g is not None:
                 f[tuple(slice(a, b) for a, b in blk)] = g
     return full
 
@@ -3067,7 +2995,7 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     = (2, 2), the dense family's sequence-parallel model axis, then served
     requests on it; ``DIST_MOE``: the same mesh, the MoE family, its
     experts' FSDP over "data", then its requests), the ranks spawned once
-    the kernels are built (``_dist_rank``, ``_dist_moe_rank``), then held
+    the kernels are built (``_dist_rank``), then held
     here (``_check_mesh``, ``_check_moe_train``): the params of every rank
     bit-identical where they hold the same block, after every step; each
     rank's ZeRO-1 shard of master / m / v after the first step equal to
@@ -3097,9 +3025,8 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     names = list(_leaf_sizes(harness))
     torch.cuda.empty_cache()
     runs = {}
-    for key, spec, target in (("dist", DIST, _dist_rank), ("dist_model", DIST_MODEL, _dist_rank),
-                              ("dist_moe", DIST_MOE, _dist_moe_rank)):
-        runs[key] = _spawn(spec, target)
+    for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL), ("dist_moe", DIST_MOE)):
+        runs[key] = _spawn(spec)
 
     # one process, global batch 8, from the same weights
     args = train.build_parser().parse_args([
@@ -3170,15 +3097,16 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
 def _decode_ccu_rows(spec: dict) -> dict:
     """``ccu_reduce`` at the P = 2 rows of a decode step on the model axis
     (granite-8b on (2, 2), 2 sequences a rank): each layer's combine of the
-    ranks' partial outputs, a reduce-scatter of bf16 rows of B·N·Dh/2, and
-    its two partial sums (the output projection's and the MLP's), bf16
-    rows of B·D."""
+    ranks' partial outputs, a reduce-scatter whose received rows of B·N·Dh/2
+    are scaled in fp32 before the sum (fp32 rows), and its two partial sums
+    (the output projection's and the MLP's), bf16 rows of B·D."""
     from repro_torch.configs import load
 
     cfg = load(spec["arch"]).cfg
     B, L = spec["batch"] // 2, spec["n_layers"]
-    combine = _ccu_dist_rows({"combine (a layer)": (B * cfg.n_heads * cfg.head_dim // 2, L)}, (torch.bfloat16,),
-                             "bf16 rows of the scaled partial outputs, reduce-scattered over model")
+    combine = _ccu_dist_rows({"combine (a layer)": (B * cfg.n_heads * cfg.head_dim // 2, L)}, (torch.float32,),
+                             "fp32 rows of the partial outputs reduce-scattered over model, each scaled by its "
+                             "rank's weight where it is summed")
     sums = _ccu_dist_rows({"wo partial sum (a layer)": (B * cfg.d_model, L), "mlp partial sum (a layer)":
                            (B * cfg.d_model, L)}, (torch.bfloat16,), "bf16 rows of the row-parallel partial sums")
     keys = ("launches", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")

@@ -27,10 +27,11 @@ few KB), writes the new key and value into the block that owns the
 position, attends every query head over the rank's own block of the cache
 (``_attend_block``: flash decode returning each row's log-sum-exp, or none
 where the block has no visible key) and combines the ranks' partial
-outputs as the flash kernel combines its key splits (``_combine``): each
-scaled by ``exp(lse_r - lse)`` and reduce-scattered over the head dim, the
-sums in ``ccu_reduce`` in rank order, so each rank holds its heads' rows for
-the row-parallel output projection; the projection's and the MLP's down
+outputs as the flash kernel combines its key splits (``_combine``):
+reduce-scattered over the head dim, each chunk scaled by ``exp(lse_r -
+lse)`` in fp32 where it is summed, the sums in ``ccu_reduce`` in rank
+order, so each rank holds its heads' rows for the row-parallel output
+projection; the projection's and the MLP's down
 projection's partial sums are summed over the axis in ``ccu_reduce``.
 ``embed`` looks up the rank's columns of the table and gathers them,
 ``unembed`` computes the rank's vocabulary shard and gathers the logits.
@@ -241,9 +242,9 @@ def sdpa(
 ):
     """Reference grouped-query attention, with the reference's arithmetic:
     probabilities are cast to v's type before the second product.  With
-    ``return_lse`` also each row's log-sum-exp of its biased scores, with
-    the output in the layout ``(B, Sq, N, Dh)`` and the log-sum-exp
-    ``(B, Sq, N)`` fp32 (a model rank's decode over its block of the cache)."""
+    ``return_lse`` also each row's log-sum-exp of its biased scores,
+    ``(B, Sq, K, G)`` fp32 (a model rank's decode over its block of the
+    cache)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
     if bias is not None:
@@ -252,9 +253,7 @@ def sdpa(
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     if not return_lse:
         return out
-    B, Sq = out.shape[:2]
-    lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2).reshape(B, Sq, -1)
-    return out.reshape(B, Sq, -1, out.shape[-1]), lse
+    return out, torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2)
 
 
 def attention(
@@ -428,21 +427,30 @@ def _attend_block(rt: Runtime, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tens
     K = k.shape[2]
     bias = _mask_bias(torch.full((S,), q_local, device=q.device), torch.arange(n, device=q.device), cfg.causal,
                       cfg.window, prefix)
-    return sdpa(q.reshape(B, S, K, N // K, Dh), k, v, bias, return_lse=True)
+    o, lse = sdpa(q.reshape(B, S, K, N // K, Dh), k, v, bias, return_lse=True)
+    return o.reshape(q.shape), lse.reshape(B, S, N)
 
 
 def _combine(model, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """The ranks' partial outputs ``o (B, 1, N, Dh)`` with their
     log-sum-exps ``lse (B, 1, N)`` combined as the flash kernel combines its
-    splits: ``lse`` gathered from every rank, each output scaled by
-    ``exp(lse_r - logsumexp_r lse_r)`` (in fp32, rounded once to ``o``'s
-    type: the wire carries activations in their type) and reduce-scattered
-    over the flattened head dim (the sums in ``ccu_reduce``, fp32, rank
-    order).  Returns this rank's chunk ``(B, 1, N * Dh / P)`` in ``o``'s
-    type: the rows of ``wo`` it holds."""
-    total = torch.logsumexp(model.rows(lse), dim=0)
-    scaled = (o.float() * torch.exp(lse - total)[..., None]).to(o.dtype).flatten(-2)
-    return model.reduce_scatter(scaled, scaled.ndim - 1)
+    splits, in fp32: ``lse`` gathered from every rank; each rank's output
+    sent as it is (its chunk of heads to the rank holding those rows of
+    ``wo``: an exchange of a reduce-scatter), then on the receiving rank
+    each chunk scaled by ``exp(lse_r - logsumexp_r lse_r)`` in fp32 and the
+    chunks summed by one ``reduce`` (``ccu_reduce``) in rank order.  The
+    same bits as scaling on the sender and reduce-scattering fp32 rows; the
+    wire carries ``o``'s type.  Returns this rank's chunk ``(B, 1, N * Dh /
+    P)``, rounded once to ``o``'s type: the rows of ``wo`` it holds."""
+    P, (B, S, N, Dh) = model.size, o.shape
+    lses = model.rows(lse)                                                      # (P, B, 1, N)
+    weight = torch.exp(lses - torch.logsumexp(lses, dim=0))[..., None].expand(P, B, S, N, Dh)
+    # chunk p of the flattened heads goes to rank p; row r of ``got`` is rank r's chunk of ours
+    chunks = o.flatten(-2).unflatten(-1, (P, -1)).movedim(-2, 0)                # (P, B, 1, N * Dh / P)
+    got = model.transport.all_to_all(chunks.contiguous(), kind="reduce-scatter")
+    mine = weight.flatten(-2).unflatten(-1, (P, -1))[..., model.rank, :]         # (P, B, 1, N * Dh / P)
+    scaled = got.float() * mine
+    return model.reduce(scaled.reshape(P, -1)).view(B, S, -1).to(o.dtype)
 
 
 def init_kv_cache(

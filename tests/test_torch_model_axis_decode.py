@@ -129,7 +129,8 @@ def decode_model_bytes(cfg, B_local: int, m: int, itemsize: int = 4) -> int:
     """The operand bytes a rank hands the "model" axis in one decode step
     of the dense family, from the shapes alone: a layer gathers its columns
     of q, k and v and the (B, N) fp32 log-sum-exps, reduce-scatters the
-    scaled (B, N·Dh) partial outputs, and sums two (B, D) partials (the
+    (B, N·Dh) partial outputs (in their type: scaled in fp32 where they are
+    summed), and sums two (B, D) partials (the
     output projection's and the MLP's); the step gathers the embedding's
     columns and the logits.  Activations only, in their type: no term is a
     weight."""
@@ -176,6 +177,48 @@ def test_flash_plain_log_sum_exp(window, prefix):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     with pytest.raises(ValueError, match="decode"):
         flash_attention(q.repeat(1, 1, 1, 9, 1), k, v, return_lse=True, causal=True)
+
+
+class _RankOf:
+    """Rank ``rank`` of a model axis of ``len(outs)`` ranks, in one process:
+    what ``layers._combine`` asks of the axis, answered from every rank's
+    partial output and log-sum-exp."""
+
+    def __init__(self, rank, outs, lses):
+        self.rank, self.size, self.outs, self.lses = rank, len(outs), outs, lses
+        self.transport = self
+        self.reduce = PL.ops.ccu_reduce
+
+    def rows(self, x):
+        return torch.stack(self.lses)
+
+    def all_to_all(self, chunks, kind):
+        return torch.stack([o.flatten(-2).unflatten(-1, (self.size, -1))[..., self.rank, :] for o in self.outs])
+
+
+def test_combine_sums_in_fp32():
+    """``layers._combine`` on four ranks' bf16 partial outputs (one rank
+    with no visible key: log-sum-exp -inf, output 0) gives each rank the
+    bits of the fp32 combine: every output scaled in fp32 by ``exp(lse_r -
+    lse)``, its chunk of heads summed in rank order by ``ccu_reduce``,
+    rounded once to bf16; within one bf16 ulp of the float64 combine"""
+    gen = torch.Generator().manual_seed(11)
+    P, B, N, Dh = 4, 3, 6, 16           # 6 heads on 4 ranks: the chunks cut a head
+    outs = [torch.randn((B, 1, N, Dh), generator=gen).to(torch.bfloat16) for _ in range(P)]
+    lses = [3 * torch.randn((B, 1, N), generator=gen) for _ in range(P)]
+    outs[1], lses[1] = torch.zeros_like(outs[1]), torch.full_like(lses[1], -float("inf"))
+    total = torch.logsumexp(torch.stack(lses), dim=0)
+    scaled = [(o.float() * torch.exp(l - total)[..., None]).flatten(-2) for o, l in zip(outs, lses)]
+    exact = sum(o.double() * torch.exp(l.double() - total.double())[..., None] for o, l in zip(outs, lses))
+    exact = exact.flatten(-2)
+    w = N * Dh // P
+    for r in range(P):
+        got = PL._combine(_RankOf(r, outs, lses), outs[r], lses[r])
+        rows = torch.stack([x[..., r * w:(r + 1) * w].reshape(-1) for x in scaled])
+        assert got.dtype == torch.bfloat16 and got.shape == (B, 1, w)
+        assert torch.equal(got, PL.ops.ccu_reduce(rows).view(B, 1, w).to(torch.bfloat16))
+        want = exact[..., r * w:(r + 1) * w]
+        assert ((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 1e-30).all()
 
 
 @pytest.mark.parametrize("use_kernels", [True, False], ids=["kernel", "plain"])
