@@ -28,8 +28,10 @@ at P = 2, on (pod, data, model) = (2, 2, 1) and on the dense family's
 sequence-parallel (data, model) = (2, 2); on that mesh served requests of
 granite-8b and paligemma-3b (prefill into a longer cache, decode on the
 model axis through flash's log-sum-exp output), mixtral-8x22b trained (its
-experts' FSDP over "data") and served, and dbrx-132b served; and a restart
-from a checkpoint.  It holds
+experts' FSDP over "data") and served, and dbrx-132b served, then
+rwkv6-1.6b, zamba2-1.2b and whisper-base trained and served on the model
+axis (every layer's scan on the rank's heads); and a restart from a
+checkpoint.  It holds
 every hand-written kernel of those paths against its plain PyTorch version
 on the card, the scans and the dispatch also under autograd at their
 training shapes.  Phases, one JSON line each:
@@ -91,8 +93,16 @@ training shapes.  Phases, one JSON line each:
                 dry-run bytes; then mixtral-8x22b (1 layer, expert_tp) 2
                 ZeRO-1 steps held the same way (one process routed by the
                 ranks' choices) and its dry-run bytes, then mixtral's and
-                dbrx-132b's requests (``DIST_MOE``); ``ccu_reduce`` timed
-                at the meshes' P = 2 rows and decode's (``phase_dist``)
+                dbrx-132b's requests (``DIST_MOE``); then, in one spawn,
+                rwkv6-1.6b (2 layers), zamba2-1.2b (7) and whisper-base
+                (6 + 6, drawn frames) 2 int8 steps each on the same mesh,
+                held leaf by leaf (zamba2 also 2 steps in fp32, held end
+                to end; in bf16 layer by layer: bf16 rounding carries past
+                3e-2 at its depth), and their requests (zamba2's in bf16
+                and in fp32), zamba2's train step's and
+                rwkv6's decode step's dry-run bytes (``DIST_FAMILIES``);
+                ``ccu_reduce`` timed at the meshes' P = 2 rows and
+                decode's (``phase_dist``)
 8. ``restart``  granite-3-2b smoke through the kernel path, int8, 10 steps,
                 a save, a new run from fresh trees that resumes it for 10
                 more, held against 20 straight (``_restart_check``)
@@ -191,6 +201,29 @@ DIST_MOE = dict(arch="mixtral-8x22b", n_layers=1, mesh=(2, 2), axes=("data", "mo
                 seed=0, compression="none", lr=3e-4,
                 serve=[dict(arch="mixtral-8x22b", n_layers=1, batch=4, prompt_len=512, cache=1024, steps=4, seed=0),
                        dict(arch="dbrx-132b", n_layers=1, batch=4, prompt_len=512, cache=1024, steps=4, seed=0)])
+
+# The SSM, hybrid and audio families on the same mesh, one spawn, each in
+# turn (``_rank_train``): int8 ZeRO-1, global batch 8, seq 256, 2 steps;
+# rwkv6-1.6b at 2 of its 24 layers (tensor-parallel over its 32 heads: 16 a
+# rank, every rank the whole sequences), zamba2-1.2b at 7 of its 38 layers
+# (its shared block once: (7 - 1) // 6), whisper-base at its full 6 + 6
+# layers through ``EncDecHarness.loss`` with 1536 drawn frames a sequence
+# (768 a model rank); then each one's request as above (whisper: its 1536
+# drawn frames and a prompt of 64 into a cache of 128).  zamba2 runs twice,
+# in bf16 and in fp32 (the same drawn weights, cast), each trained and
+# served: the fp32 run is held end to end; in bf16 its random weights carry
+# the ranks' other roundings past the limit at 7 layers
+DIST_FAMILIES = dict(
+    mesh=(2, 2), axes=("data", "model"), batch=8, seq=256, steps=2, seed=0, compression="int8", lr=3e-4,
+    runs=[dict(arch="rwkv6-1.6b", n_layers=2,
+               serve=[dict(arch="rwkv6-1.6b", n_layers=2, batch=4, prompt_len=512, cache=1024, steps=8, seed=0)]),
+          dict(arch="zamba2-1.2b", n_layers=7,
+               serve=[dict(arch="zamba2-1.2b", n_layers=7, batch=4, prompt_len=512, cache=1024, steps=8, seed=0)]),
+          dict(arch="zamba2-1.2b", n_layers=7, dtype="float32",
+               serve=[dict(arch="zamba2-1.2b", n_layers=7, batch=4, prompt_len=512, cache=1024, steps=8, seed=0,
+                           dtype="float32")]),
+          dict(arch="whisper-base", n_layers=6,
+               serve=[dict(arch="whisper-base", n_layers=6, batch=4, prompt_len=64, cache=128, steps=8, seed=0)])])
 
 
 def emit(phase: str, **fields) -> None:
@@ -738,6 +771,21 @@ def _flash_row(gen) -> dict:
               "dist_granite_block0": _flash_block_shape(gen, 2, 32, 8, 128, 512, 512, 0,
                                                         "granite-8b dist request, block 0"),
               "dist_granite": _flash_block_shape(gen, 2, 32, 8, 128, 512, 0, 0, "granite-8b dist request, block 1")}
+    # whisper-base's cross-attention on the model axis, the dist request on
+    # (data, model) = (2, 2) (2 sequences a rank): prefill, the rank's 32
+    # decoder rows with every head (its weights gathered) over all 1536
+    # frames (the encoder's output gathered); decode, the rank's 4 whole
+    # heads of 8 over every frame
+    wh = next(r for r in DIST_FAMILIES["runs"] if r["arch"] == "whisper-base")["serve"][0]
+    Bw = wh["batch"] // 2
+    _, k_w, v_w = _qkv(gen, (Bw, 1, 8, D), (Bw, T, 8, D), dt)
+    cross = {"prefill": _flash_main_shape(_rand(gen, (Bw, wh["prompt_len"] // 2, 8, D), dt, 2.0), k_w, v_w, no_mask,
+                                          "whisper cross-attention prefill on the model axis"),
+             "decode": _flash_main_shape(_rand(gen, (Bw, 1, 4, D), dt, 2.0), k_w[:, :, :4].contiguous(),
+                                         v_w[:, :, :4].contiguous(), no_mask,
+                                         "whisper cross-attention decode on the model axis")}
+    for row in cross.values():
+        row["request_launches"] = None          # filled in from the dist phase's request
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -759,6 +807,7 @@ def _flash_row(gen) -> dict:
         "paligemma_train": rows["paligemma_train"],
         "sequence_parallel": sp,
         "model_axis_decode": blocks,
+        "model_axis_whisper_cross": cross,
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -1047,6 +1096,7 @@ def _ssd_row(gen) -> dict:
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
         "train": train_row,
+        "model_axis_shares": _ssd_shares(gen, excess),
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -1064,6 +1114,78 @@ def _ssd_work(xh, log_l, Bm, Cm, y, h, chunk) -> tuple[int, int, int]:
     pairs = sum(q * (q + 1) // 2 for q in [min(chunk, S - s0) for s0 in range(0, S, chunk)])
     flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
     return nbytes, flops, pairs
+
+
+def _share_row(name: str, call, plain, outputs, work, dt, excess, grid: int, where: str) -> dict:
+    """A scan at a model rank's share of the heads: held against its plain
+    version (``excess``, the row's limits), timed beside it (the plain
+    version's scan loops in Python: 3 calls where the sequence is long) and
+    the bound; ``grid`` the kernel's blocks, against the card's 132 SMs."""
+    o = call()
+    torch.cuda.synchronize()
+    p = plain()
+    err, of_limit = excess(*o, *p)
+    if not of_limit <= 1.0:
+        raise SystemExit(f"{name} at {where}: max_abs_err={err} vs plain, {of_limit} of its limit")
+    nbytes, flops = work(*o)[:2]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    ms, call_ms = time_ms(call, iters=10, warmup=2)
+    long = outputs[0][1] > 4096
+    return {"where": where, "shape": outputs, "max_abs_err": err, "err_of_limit": of_limit, "ms": ms,
+            "call_ms": call_ms, "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1)[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "grid_blocks": grid, "sms": 132, "library_ms": None}
+
+
+def _rwkv_shares(gen, excess) -> dict:
+    """``rwkv6_scan`` at a model rank's heads: the dist request's share on
+    (data, model) = (2, 2) (2 sequences of 512, 16 of 32 heads) and a rank's
+    share of prefill_32k on (16, 16) (2 sequences of 32768, 2 heads); r/k/v
+    as the column-parallel products give them, ``bonus_u`` sliced to the
+    rank's channels.  The grid is (heads, batch): 4 blocks at the
+    production share."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+
+    dt, N, out = torch.bfloat16, 64, {}
+    for key, (B, S, H) in {"dist_2x2": (2, 512, 16), "prefill_32k_16x16": (2, 32768, 2)}.items():
+        r, k, v = (_rand(gen, (B, S, H * N), dt, 0.5).view(B, S, H, N) for _ in range(3))
+        w = torch.sigmoid(_rand(gen, (B, S, H, N), torch.float32, 1.0)) * 0.98 + 0.01
+        u = _rand(gen, (32 * N,), dt, 0.3)[:H * N].view(H, N)
+        out[key] = _share_row("rwkv6_scan", lambda: ops.rwkv6_scan(r, k, v, w, u, chunk=128),
+                              lambda: rwkv6_scan_plain(r, k, v, w, u, chunk=128), [list(r.shape)],
+                              lambda y, st: _rwkv_work(r, k, v, w, u, y, st, 128), dt,
+                              lambda *a: excess(*a, dt, 5e-5), H * B,
+                              f"{key}: r/k/v{tuple(r.shape)}")
+        del r, k, v, w
+    out["dist_2x2"]["launches"] = None          # filled in from the dist phase's request
+    return out
+
+
+def _ssd_shares(gen, excess) -> dict:
+    """``ssd_scan`` at a model rank's heads: the dist request's share on
+    (data, model) = (2, 2) (2 sequences of 512, 32 of 64 heads) and a rank's
+    share of prefill_32k on (16, 16) (2 sequences of 32768, 4 heads); B and
+    C whole (N = 64), slices of the rank's conv output (its d_inner
+    channels and the 2N of B and C) as the split leaves them.  The grid is
+    (heads / 2, batch): 4 blocks at the production share."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    dt, P, N, out = torch.bfloat16, 64, 64, {}
+    for key, (B, S, H) in {"dist_2x2": (2, 512, 32), "prefill_32k_16x16": (2, 32768, 4)}.items():
+        conv = _rand(gen, (B, S, H * P + 2 * N), dt, 0.5)
+        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+        xh = _rand(gen, (B, S, H, P), dt, 0.5)
+        log_l = -torch.nn.functional.softplus(_rand(gen, (B, S, H), torch.float32, 1.0))
+        out[key] = _share_row("ssd_scan", lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128),
+                              lambda: ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128), [list(xh.shape), list(Bm.shape)],
+                              lambda y, h: _ssd_work(xh, log_l, Bm, Cm, y, h, 128), dt,
+                              lambda *a: excess(*a, dt), -(-H // 2) * B,
+                              f"{key}: xh{tuple(xh.shape)} B/C{tuple(Bm.shape)}")
+        del conv, xh, log_l
+    out["dist_2x2"]["launches"] = None          # filled in from the dist phase's request
+    return out
 
 
 def _rwkv_cases():
@@ -1240,6 +1362,7 @@ def _rwkv_row(gen) -> dict:
         "library_ms": None,
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
         "train": train_row,
+        "model_axis_shares": _rwkv_shares(gen, excess),
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -2301,116 +2424,276 @@ def _blocks_of(pspecs, specs, mesh) -> list:
 
 
 def _dist_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
-    """One rank of the dist phase (a spawned process): ``spec["steps"]``
-    ZeRO-1 steps of ``spec["arch"]`` on ``spec``'s mesh (an MoE model's
-    experts' FSDP dim gathered over "data"), then ``spec["serve"]``'s
-    requests, if any (``_dist_serve``).  Saved: every step's params'
-    digests, the first step's ZeRO-1 shards' digests, its routing of each
-    MoE layer's forward, and its synchronised payload by block (and the
-    gradient, where the payload is not it, as int8 compression makes it),
-    each block once over the ranks: the first data-parallel index's ranks
-    save every leaf, the others the leaves cut over a data-parallel axis.
-    Anything it raises ends the process with an error, which
+    """One rank of the dist phase (a spawned process): ``_rank_train`` of
+    ``spec``, or of each of ``spec["runs"]`` in turn on the one mesh (the
+    SSM, hybrid and audio families, ``DIST_FAMILIES``), its results under
+    ``"runs"`` by ``_serve_key`` (arch and type) and its files tagged so.  Anything it
+    raises ends the process with an error, which
     ``torch.multiprocessing.spawn`` raises in the parent."""
     import datetime
 
     import torch.distributed as dist
 
-    from repro_torch import kernels
-    from repro_torch.configs import load
-    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.api import ShapeCell
-    from repro_torch.models.param import tree_leaves, tree_pspecs
-    from repro_torch.optim.compression import CompressionConfig
-    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
-    from repro_torch.train.train_step import build_train_step
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
                             timeout=datetime.timedelta(minutes=10))
     try:
         mesh = make_mesh(spec["mesh"], spec["axes"])
-        multi_pod = "pod" in spec["axes"]
-        harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
-        rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
-        specs = harness.param_specs()
-        cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
-        bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=_dist_opt_cfg(spec),
-                                  compression=CompressionConfig(mode=spec["compression"]), rules=rules)
-        param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
-        coord = dict(zip(spec["axes"], mesh.get_coordinate()))
-        dp_axes = {a for a in ("pod", "data") if a in coord}
-        first_dp = all(coord[a] == 0 for a in dp_axes)
-        # the leaves whose block this rank saves: each block once over the ranks
-        dp_cut = [any(dp_axes & set((e,) if isinstance(e, str) else tuple(e or ())) for e in ps)
-                  for ps in tree_leaves(param_ps)]
-        saves = [first_dp or cut for cut in dp_cut]
-        params = _local_init(specs, param_ps, mesh, spec["seed"])
-        opt = bundle.init_opt_state(params)
-        data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
-                              seed=0)
-        pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
-        torch.cuda.reset_peak_memory_stats()
-        out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": [],
-               "wire_by_step": [], "coord": coord}
-        residual, observe_s = None, 0.0
-
-        def keep(grads, payload):         # the first step's synchronised payload (and gradient), by block
-            nonlocal observe_s
-            t = time.perf_counter()
-            g, p = tree_leaves(grads), tree_leaves(payload)
-            out["payload_is_gradient"] = all(torch.equal(a.to(b.dtype), b) for a, b in zip(g, p))
-            for what, leaves in (("payload", p),) + ((("grads", g),) if not out["payload_is_gradient"] else ()):
-                torch.save([x.cpu() if k else None for x, k in zip(leaves, saves)], f"{tmp}/{what}0_r{rank}.pt")
-            observe_s = time.perf_counter() - t
-
-        try:
-            for step in range(spec["steps"]):
-                batch = next(pipeline)
-                local = _local({k: torch.from_numpy(batch[k]).to("cuda") for k in ("tokens", "labels")},
-                               input_ps, mesh)
-                wire0 = dict(bundle.fn.wire_bytes)
-                kernels.reset_launch_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                # the last step under the profiler (CPU activity: the host's time in
-                # each part of the step, which the transport's waits are in)
-                with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
-                      if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof, _routing() as calls:
-                    params, opt, metrics, residual = bundle.fn(params, opt, local, residual,
-                                                               keep if step == 0 else None)
-                    torch.cuda.synchronize()
-                out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
-                observe_s = 0.0
-                if prof is not None:
-                    out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
-                                                 if e.key.startswith(("train.", "model.", "data.", "pod.",
-                                                                      "data+model."))}
-                out["launches"].append(kernels.launch_counts())
-                out["losses"].append(float(metrics["loss"]))
-                out["grad_norms"].append(float(metrics["grad_norm"]))
-                out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
-                out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
-                if step == 0:
-                    out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
-                    if calls:             # the forward's calls (the recompute's follow, last layer first)
-                        torch.save([c[0].cpu() for c in calls[:harness.cfg.n_layers]], f"{tmp}/routing0_r{rank}.pt")
-        finally:
-            pipeline.close()
-        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["wire_bytes_per_step"] = {a: n // spec["steps"] for a, n in bundle.fn.wire_bytes.items()}
-        out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
-        out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
-        out["input_block"] = _blocks_of(input_ps, harness.train_input_specs(cell), mesh)[1]   # tokens
-        out["n_synced"] = sum(not c for c in dp_cut)
-        del params, opt, residual, bundle
-        out["serve"] = {s["arch"]: _dist_serve(rank, tmp, s, mesh) for s in spec.get("serve", [])}
+        if "runs" in spec:
+            out = {"runs": {}}
+            for run in spec["runs"]:
+                out["runs"][_serve_key(run)] = _rank_train(rank, tmp, {**spec, **run}, mesh, f"{_serve_key(run)}_")
+                torch.cuda.empty_cache()
+        else:
+            out = _rank_train(rank, tmp, spec, mesh, "")
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _batch(harness, spec: dict, batch: dict) -> dict:
+    """A training step's whole batch on the card: the pipeline's tokens and
+    labels, and for the encoder-decoder frames drawn from the seed and the
+    step (as ``EncDecHarness.loss`` takes them: the training loop feeds none,
+    ROADMAP C5)."""
+    out = {k: torch.from_numpy(batch[k]).to("cuda") for k in ("tokens", "labels")}
+    if harness.family == "audio":
+        gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 100 + int(batch["step"]))
+        out["frames"] = torch.randn((spec["batch"], harness.cfg.n_frames, harness.cfg.d_model), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+    return out
+
+
+def _layer_inputs(spec: dict, harness) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer check's input and output gradient, (B, S, D) bf16 drawn on
+    the card from the seed, B a data rank's share of the batch (every data
+    rank takes the same)."""
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 5)
+    shape = (spec["batch"] // 2, spec["seq"], harness.cfg.d_model)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+
+
+def _hybrid_units(harness, params) -> list:
+    """(label, fn(rt, h, weights, positions) -> the increment, weights, their
+    specs) of zamba2's first Mamba2 layer (norm and mixer) and of its shared
+    block."""
+    from repro_torch.models import hybrid
+    from repro_torch.models import layers as L
+    from repro_torch.models.mamba2 import mamba2_apply, mamba2_specs
+    from repro_torch.models.param import tree_map
+
+    cfg = harness.cfg
+    return [("mamba 0", lambda rt, h, w, pos: mamba2_apply(rt, w["mamba"], L.rmsnorm(w["norm"], h), cfg.mamba)[0],
+             tree_map(lambda t: t[0], params["mamba_blocks"]),
+             {"norm": L.rmsnorm_spec(cfg.d_model), "mamba": mamba2_specs(cfg.mamba)}),
+            ("shared block", lambda rt, h, w, pos: hybrid._shared_block(rt, cfg, w, h, pos)[0] - h,
+             params["shared"], hybrid._shared_specs(cfg))]
+
+
+def _rank_layers(rank: int, tmp: str, spec: dict, mesh, harness, params, tag: str) -> None:
+    """zamba2's layer check on the model axis, on the initial weights: each
+    of ``_hybrid_units`` on the rank's positions of ``_layer_inputs``' x
+    under autograd, differentiated along the rank's positions of the drawn
+    output gradient with respect to its input and every weight (the rank's
+    block where the rules cut it, its part of the sum where they do not).
+    The first data rank's model ranks save them."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.collectives import ModelAxis
+    from repro_torch.parallel.sharding import make_rules
+
+    model = ModelAxis(mesh, make_rules())
+    rt = Runtime(model=model)
+    x, go = _layer_inputs(spec, harness)
+    n = spec["seq"] // model.size
+    rows = slice(model.rank * n, (model.rank + 1) * n)
+    positions = torch.arange(rows.start, rows.stop, device="cuda")
+    out = {}
+    for label, fn, tree, _ in _hybrid_units(harness, params):
+        xl = x[:, rows].clone().requires_grad_()
+        w = tree_map(lambda t: t.detach().requires_grad_(), tree)
+        with torch.enable_grad():
+            y = fn(rt, xl, w, positions)
+            grads = torch.autograd.grad(y, [xl] + tree_leaves(w), go[:, rows])
+        out[label] = [y.detach().cpu()] + [g.cpu() for g in grads]
+    if dict(zip(spec["axes"], mesh.get_coordinate()))["data"] == 0:
+        torch.save(out, f"{tmp}/{tag}layers_r{rank}.pt")
+
+
+def _check_rank_layers(spec: dict, ranks: list[dict], tmp: str, tag: str) -> dict:
+    """zamba2's layers on the model axis against one process on the same
+    input, weights and output gradient (``_rank_layers``): each rank's
+    increment and input gradient on its positions, each weight's gradient
+    (a cut leaf's block from its rank, a replicated leaf's the sum of the
+    model ranks' parts) within 3e-2 of the one process's largest |value|,
+    as the train phase holds the recurrent families' layers
+    (``_train_layers``)."""
+    from repro_torch.configs import load
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves, tree_map, tree_pspecs
+    from repro_torch.parallel.sharding import local_slices, make_rules
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                       torch.bfloat16, "cuda")
+    x, go = _layer_inputs(spec, harness)
+    sizes = dict(zip(spec["axes"], spec["mesh"]))
+    mine = [(r, res["coord"]) for r, res in enumerate(ranks) if res["coord"]["data"] == 0]
+    got = {r: torch.load(f"{tmp}/{tag}layers_r{r}.pt") for r, _ in mine}
+    n = spec["seq"] // sizes["model"]
+    worst, at = {"increment": 0.0, "input_grad": 0.0, "weight_grad": 0.0}, {}
+
+    def note(key, err, want, label):
+        r = err / (3e-2 * want.float().abs().max().item())
+        if r > worst[key]:
+            worst[key], at[key] = r, label
+
+    for label, fn, tree, specs in _hybrid_units(harness, params):
+        xi = x.clone().requires_grad_()
+        w = tree_map(lambda t: t.detach().requires_grad_(), tree)
+        with torch.enable_grad():
+            y = fn(Runtime(), xi, w, torch.arange(spec["seq"], device="cuda"))
+            want = [y.detach()] + list(torch.autograd.grad(y, [xi] + tree_leaves(w), go))
+        for r, coord in mine:
+            rows = slice(coord["model"] * n, (coord["model"] + 1) * n)
+            for key, i in (("increment", 0), ("input_grad", 1)):
+                note(key, (got[r][label][i].cuda().float() - want[i][:, rows].float()).abs().max().item(),
+                     want[i], label)
+        for j, (leaf, ps) in enumerate(zip(want[2:], tree_leaves(tree_pspecs(specs, make_rules())))):
+            if any("model" in ((e,) if isinstance(e, str) else tuple(e or ())) for e in ps):
+                for r, coord in mine:
+                    blk = local_slices(ps, tuple(leaf.shape), sizes, coord)
+                    note("weight_grad", (got[r][label][2 + j].cuda().float() - leaf[blk].float()).abs().max().item(),
+                         leaf, f"{label} leaf {j}")
+            else:
+                total = sum(got[r][label][2 + j].cuda().float() for r, _ in mine)
+                note("weight_grad", (total - leaf.float()).abs().max().item(), leaf, f"{label} leaf {j}")
+    del params
+    out = {"max_err_of_limit": worst, "at": at, "limit": "3e-2 of the one process's largest |value|",
+           "units": ["mamba 0", "shared block"]}
+    if not max(worst.values()) <= 1.0:
+        raise SystemExit(f"dist {spec['arch']}: a layer on the model axis vs one process on the same input "
+                         f"exceeds 3e-2 of the largest value: {out}")
+    return out
+
+
+def _rank_train(rank: int, tmp: str, spec: dict, mesh, tag: str) -> dict:
+    """``spec["steps"]`` ZeRO-1 steps of ``spec["arch"]`` on ``spec``'s
+    mesh (an MoE model's experts' FSDP dim gathered over "data"; an RWKV-6
+    model's time-mix leaves drawn, ``_draw_time_mix``; in ``spec["dtype"]``
+    where given, the drawn bf16 weights cast to it), then
+    ``spec["serve"]``'s requests, if any (``_dist_serve``).  Saved (files
+    tagged ``tag``): every step's params' digests, the first step's ZeRO-1
+    shards' digests, its routing of each MoE layer's forward, and its
+    synchronised payload by block (and the gradient, where the payload is
+    not it, as int8 compression makes it), each block once over the ranks:
+    the first data-parallel index's ranks save every leaf, the others the
+    leaves cut over a data-parallel axis.  Returns what the checks read."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.models.param import tree_leaves, tree_map, tree_pspecs
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.parallel.sharding import make_rules, tree_zero1_pspecs
+    from repro_torch.train.train_step import build_train_step
+
+    multi_pod = "pod" in spec["axes"]
+    harness = _serve_harness(spec)
+    rules = make_rules(multi_pod=multi_pod, moe_strategy=harness.moe_strategy)
+    specs = harness.param_specs()
+    cell = ShapeCell("dist", "train", spec["seq"], spec["batch"])
+    bundle = build_train_step(harness, cell, mesh, multi_pod=multi_pod, opt_cfg=_dist_opt_cfg(spec),
+                              compression=CompressionConfig(mode=spec["compression"]), rules=rules)
+    param_ps, input_ps = tree_pspecs(specs, rules), tree_pspecs(harness.train_input_specs(cell), rules)
+    coord = dict(zip(spec["axes"], mesh.get_coordinate()))
+    dp_axes = {a for a in ("pod", "data") if a in coord}
+    first_dp = all(coord[a] == 0 for a in dp_axes)
+    # the leaves whose block this rank saves: each block once over the ranks
+    dp_cut = [any(dp_axes & set((e,) if isinstance(e, str) else tuple(e or ())) for e in ps)
+              for ps in tree_leaves(param_ps)]
+    saves = [first_dp or cut for cut in dp_cut]
+    params = _local_init(specs, param_ps, mesh, spec["seed"])
+    _draw_time_mix(harness, params, spec["seed"] + 3)             # whole leaves on every rank
+    params = tree_map(lambda t: t.to(harness.cfg.dtype), params)
+    if harness.family == "hybrid" and harness.cfg.dtype == torch.bfloat16:
+        _rank_layers(rank, tmp, spec, mesh, harness, params, tag)
+    opt = bundle.init_opt_state(params)
+    data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size,
+                          seed=0)
+    pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "launches": [], "params_digest": [],
+           "wire_by_step": [], "coord": coord}
+    residual, observe_s = None, 0.0
+
+    def keep(grads, payload):         # the first step's synchronised payload (and gradient), by block
+        nonlocal observe_s
+        t = time.perf_counter()
+        g, p = tree_leaves(grads), tree_leaves(payload)
+        out["payload_is_gradient"] = all(torch.equal(a.to(b.dtype), b) for a, b in zip(g, p))
+        for what, leaves in (("payload", p),) + ((("grads", g),) if not out["payload_is_gradient"] else ()):
+            torch.save([x.cpu() if k else None for x, k in zip(leaves, saves)], f"{tmp}/{tag}{what}0_r{rank}.pt")
+        observe_s = time.perf_counter() - t
+
+    try:
+        for step in range(spec["steps"]):
+            local = _local(_batch(harness, spec, next(pipeline)), input_ps, mesh)
+            wire0 = dict(bundle.fn.wire_bytes)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the last step under the profiler (CPU activity: the host's time in
+            # each part of the step, which the transport's waits are in)
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+                  if step == spec["steps"] - 1 else contextlib.nullcontext()) as prof, _routing() as calls:
+                params, opt, metrics, residual = bundle.fn(params, opt, local, residual,
+                                                           keep if step == 0 else None)
+                torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0 - observe_s) * 1e3)
+            observe_s = 0.0
+            if prof is not None:
+                out["last_step_parts_ms"] = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                                             if e.key.startswith(("train.", "model.", "data.", "pod.",
+                                                                  "data+model."))}
+            out["launches"].append(kernels.launch_counts())
+            out["losses"].append(float(metrics["loss"]))
+            out["grad_norms"].append(float(metrics["grad_norm"]))
+            out["params_digest"].append([_digest(p) for p in tree_leaves(params)])
+            out["wire_by_step"].append({a: n - wire0.get(a, 0) for a, n in bundle.fn.wire_bytes.items()})
+            if step == 0:
+                out["shard_digest"] = {k: [_digest(t) for t in tree_leaves(opt[k])] for k in ("master", "m", "v")}
+                if calls:             # the forward's calls (the recompute's follow, last layer first)
+                    torch.save([c[0].cpu() for c in calls[:harness.cfg.n_layers]], f"{tmp}/{tag}routing0_r{rank}.pt")
+    finally:
+        pipeline.close()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wire_bytes_per_step"] = {a: n // spec["steps"] for a, n in bundle.fn.wire_bytes.items()}
+    out["param_blocks"] = _blocks_of(param_ps, specs, mesh)
+    out["blocks"] = _blocks_of(tree_zero1_pspecs(specs, rules, 32 if multi_pod else 16), specs, mesh)
+    out["input_block"] = _blocks_of(input_ps, harness.train_input_specs(cell), mesh)[
+        sorted(harness.train_input_specs(cell)).index("tokens")]
+    out["n_synced"] = sum(not c for c in dp_cut)
+    del params, opt, residual, bundle
+    out["serve"] = {_serve_key(s): _dist_serve(rank, tmp, s, mesh) for s in spec.get("serve", [])}
+    return out
+
+
+def _serve_key(spec: dict) -> str:
+    """A served request's name: its arch, and its type where it is not bf16."""
+    return spec["arch"] + ("" if spec.get("dtype", "bfloat16") == "bfloat16" else f"_{spec['dtype']}")
+
+
+def _serve_harness(spec: dict):
+    """A run's or a served request's harness (its depth and, where given,
+    its type)."""
+    from repro_torch.configs import load
+
+    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    return harness.clone(dtype=torch.float32) if spec.get("dtype") == "float32" else harness
 
 
 def _serve_inputs(harness, spec: dict) -> dict:
@@ -2453,8 +2736,36 @@ def _serve_expected_launches(harness) -> tuple[dict[str, int], dict[str, int]]:
     gathers sum nothing.  Decode: flash once a layer over the rank's block,
     the dispatch once a layer; 3 ``ccu_reduce`` a layer: the attention's
     combine (a reduce-scatter), the output projection's and the MLP's (or
-    the MoE layer's) partial sums."""
+    the MoE layer's) partial sums.
+
+    The SSM, hybrid and audio families (every count a rank's):
+    rwkv6-1.6b prefills with ``rwkv6_scan`` once a layer on the rank's
+    heads, and a layer's 3 ``ccu_reduce`` in prefill and in each decode
+    step: ``ln_out``'s sums of squares and ``wo``'s partial output summed
+    (``all_reduce``: one reduce-scatter each), the channel mix's ``vv``
+    reduce-scattered; decode is the plain recurrence (no scan).  zamba2-1.2b
+    prefills with ``ssd_scan`` once a Mamba2 layer and flash once a shared
+    call, 2 ``ccu_reduce`` a Mamba2 layer (``out_norm``'s sums of squares,
+    ``out_proj``'s output reduce-scattered to the rank's positions); a
+    decode step: flash once a shared call, 2 ``ccu_reduce`` a Mamba2 layer
+    (the two sums) and 3 a shared call (as a dense layer).  whisper-base
+    prefills with flash 3 times a layer (encoder, self- and
+    cross-attention), summing nothing (its model-axis traffic there is
+    gathers); a decode step: flash twice a layer (self-attention over the
+    rank's block, cross-attention over the rank's whole heads and every
+    frame: 8 heads on 2 ranks), 4 ``ccu_reduce`` a layer (the combine, the
+    self- and cross-attention's ``wo`` sums, the MLP's)."""
     n = harness.cfg.n_layers
+    none = {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    if harness.family == "ssm":
+        return {**none, "rwkv6_scan": n, "ccu_reduce": 3 * n}, {**none, "ccu_reduce": 3 * n}
+    if harness.family == "hybrid":
+        c = harness.cfg.n_shared_calls
+        return ({**none, "ssd_scan": n, "flash_attention": c, "ccu_reduce": 2 * n},
+                {**none, "flash_attention": c, "ccu_reduce": 2 * n + 3 * c})
+    if harness.family == "audio":
+        return {**none, "flash_attention": 3 * n, "ccu_reduce": 0}, {**none, "flash_attention": 2 * n,
+                                                                      "ccu_reduce": 4 * n}
     moe = harness.family == "moe"
     sums = 0 if not moe else (2 if harness.moe_strategy == "expert_tp" else 1)
     base = {"flash_attention": n, "moe_dispatch": n if moe else 0, "ssd_scan": 0, "rwkv6_scan": 0}
@@ -2470,25 +2781,26 @@ def _dist_serve(rank: int, tmp: str, spec: dict, mesh) -> dict:
     Saves the logits, ids, the MoE layers' choices and the final cache
     block; returns the launches, times and operand bytes of each step."""
     from repro_torch import kernels
-    from repro_torch.configs import load
-    from repro_torch.models.param import tree_init, tree_leaves, tree_pspecs
+    from repro_torch.models.param import tree_init, tree_leaves, tree_map, tree_pspecs
     from repro_torch.parallel.sharding import make_rules
     from repro_torch.train.train_step import build_serve_step
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    harness = _serve_harness(spec)
     pre, dec = _serve_cells(harness, spec)
     rules = make_rules(moe_strategy=harness.moe_strategy)
     specs = harness.param_specs()
     params = _local_init(specs, tree_pspecs(specs, rules), mesh, spec["seed"])
+    _draw_time_mix(harness, params, spec["seed"] + 3)             # whole leaves on every rank
+    params = tree_map(lambda t: t.to(harness.cfg.dtype), params)
     state = harness.serve_state_specs(dec)
     state_ps = tree_pspecs(state, rules)
     cache = _local(tree_init(state, None, None, "cuda"), state_ps, mesh)
     inputs = _local(_serve_inputs(harness, spec), tree_pspecs(harness.serve_input_specs(pre), rules), mesh)
     prefill = build_serve_step(harness, pre, mesh, rules=rules)
     step = build_serve_step(harness, dec, mesh, rules=make_rules(sp=False, moe_strategy=harness.moe_strategy))
-    P, S = harness.prefix_tokens, spec["prompt_len"]
+    P, S = getattr(harness, "prefix_tokens", 0), spec["prompt_len"]
     out = {"launches": [], "ms": [], "wire": []}
     kept = {"logits": [], "ids": []}
     with torch.no_grad(), _routing() as calls:
@@ -2508,7 +2820,7 @@ def _dist_serve(rank: int, tmp: str, spec: dict, mesh) -> dict:
             kept["ids"].append(logits.argmax(-1).to(torch.int32).cpu())
     kept["cache"] = [c.cpu() for c in tree_leaves(cache)]
     kept["routing"] = [c[0].cpu() for c in calls]
-    torch.save(kept, f"{tmp}/serve_{spec['arch']}_r{rank}.pt")
+    torch.save(kept, f"{tmp}/serve_{_serve_key(spec)}_r{rank}.pt")
     out.update(cache_blocks=_blocks_of(state_ps, state, mesh), coord=dict(zip(mesh.mesh_dim_names,
                                                                                mesh.get_coordinate())),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -2533,17 +2845,17 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
     largest |value| of the one process's matching slice; every rank's
     launches in prefill and in each decode step as
     ``_serve_expected_launches`` works them out."""
-    from repro_torch.configs import load
     from repro_torch.models.layers import Runtime
-    from repro_torch.models.param import tree_init, tree_leaves
+    from repro_torch.models.param import tree_init, tree_leaves, tree_map
 
-    harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    harness = _serve_harness(spec)
     pre, dec = _serve_cells(harness, spec)
     n, steps = harness.cfg.n_layers, spec["steps"]
-    got = [torch.load(f"{tmp}/serve_{spec['arch']}_r{r}.pt") for r in range(len(ranks))]
-    mine = [r["serve"][spec["arch"]] for r in ranks]
-    rows = [slice(*m["cache_blocks"][0][1]) for m in mine]                # the cache's batch dim
-    B, T = spec["batch"], harness.prefix_tokens + spec["prompt_len"]
+    got = [torch.load(f"{tmp}/serve_{_serve_key(spec)}_r{r}.pt") for r in range(len(ranks))]
+    mine = [r["serve"][_serve_key(spec)] for r in ranks]
+    B, T = spec["batch"], getattr(harness, "prefix_tokens", 0) + spec["prompt_len"]
+    n_data = len({m["coord"]["data"] for m in mine})
+    rows = [slice(m["coord"]["data"] * B // n_data, (m["coord"]["data"] + 1) * B // n_data) for m in mine]
     by_model = {}
     for g, m, rw in zip(got, mine, rows):
         by_model.setdefault(m["coord"]["model"], []).append((g, rw))
@@ -2565,9 +2877,11 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
         replay.append((whole.cuda(), None))
     params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
+    _draw_time_mix(harness, params, spec["seed"] + 3)
+    params = tree_map(lambda t: t.to(harness.cfg.dtype), params)
     cache = tree_init(harness.serve_state_specs(dec), None, None, "cuda")
     inputs = _serve_inputs(harness, spec)
-    P, S = harness.prefix_tokens, spec["prompt_len"]
+    P, S = getattr(harness, "prefix_tokens", 0), spec["prompt_len"]
     one = []
     with torch.no_grad(), _routing(replay=replay or None):
         t0 = time.perf_counter()
@@ -2579,12 +2893,35 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
         torch.cuda.synchronize()
         single_s = time.perf_counter() - t0
     cache = [c.cpu() for c in tree_leaves(cache)]
+    logit_witness = cache_witness = None
+    if harness.family in RECURRENT and harness.cfg.dtype == torch.bfloat16:
+        # as the serve phase holds these families: each limit the larger of
+        # 3e-2 of the largest and how far the one process moves when 1 % of
+        # the prompt's embedding moves by one ulp (``_moved_prompt``), or
+        # when it runs the plain path, fed the same ids
+        logit_witness = [0.0] * (steps + 1)
+        cache_witness = [0.0] * len(cache)
+        for rt, moved_prompt in ((Runtime(), _moved_prompt(spec["seed"])),
+                                 (Runtime(use_kernels=False), contextlib.nullcontext())):
+            other = tree_init(harness.serve_state_specs(dec), None, None, "cuda")
+            with torch.no_grad(), moved_prompt:
+                logits, other = harness.prefill(rt)(params, other, **inputs)
+                seen = [logits.float().cpu()]
+                for i in range(steps):
+                    logits, other = harness.decode(rt)(params, other, ids[i].cuda(), P + S + i)
+                    seen.append(logits.float().cpu())
+            logit_witness = [max(w, (a - b).abs().max().item()) for w, a, b in zip(logit_witness, seen, one)]
+            cache_witness = [max(w, (a.float().cpu() - b.float()).abs().max().item())
+                             for w, a, b in zip(cache_witness, tree_leaves(other), cache)]
+            del other
     del params
     torch.cuda.empty_cache()
     logit_err = logit_of_limit = short = cache_of_limit = 0.0
     near_ties = []
     for i, ref in enumerate(one):
         limit = 3e-2 * max(1.0, ref.abs().max().item())
+        if logit_witness is not None:
+            limit = max(limit, logit_witness[i])
         for g, rw in zip(got, rows):
             err = (g["logits"][i].float() - ref[rw]).abs().max().item()
             logit_err, logit_of_limit = max(logit_err, err), max(logit_of_limit, err / limit)
@@ -2603,10 +2940,12 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
                                   "margin_of_limit": margin / limit})
     ids_ok = all(t["margin"] <= t["error_on_the_two"] for t in near_ties)
     for g, m in zip(got, mine):
-        for c, want, b in zip(g["cache"], cache, m["cache_blocks"]):
+        for j, (c, want, b) in enumerate(zip(g["cache"], cache, m["cache_blocks"])):
             want = want[tuple(slice(x, y) for x, y in b)].float()
-            cache_of_limit = max(cache_of_limit,
-                                 (c.float() - want).abs().max().item() / (3e-2 * max(want.abs().max().item(), 1e-30)))
+            lim = 3e-2 * max(want.abs().max().item(), 1e-30)
+            if cache_witness is not None:
+                lim = max(lim, cache_witness[j])
+            cache_of_limit = max(cache_of_limit, (c.float() - want).abs().max().item() / lim)
     want_pre, want_dec = _serve_expected_launches(harness)
     launches_ok = all(m["launches"][0] == want_pre and all(c == want_dec for c in m["launches"][1:]) for m in mine)
     out = {"arch": spec["arch"], "n_layers": n, "batch": B, "prompt_len": spec["prompt_len"], "prefix": P,
@@ -2618,12 +2957,22 @@ def _check_serve(spec: dict, ranks: list[dict], tmp: str) -> dict:
            "logits_max_abs_err": logit_err, "logits_of_limit": logit_of_limit, "chosen_short_of_best_of_limit": short,
            "same_ids": not near_ties, "near_ties": near_ties, "ids_equal_but_near_ties": ids_ok,
            "cache_worst_of_limit": cache_of_limit,
-           "limit": "3e-2 of the largest |logit| (at least 3e-2) / of the largest |cache value|",
+           "limit": "3e-2 of the largest |logit| (at least 3e-2) / of the largest |cache value|" + (
+               "" if logit_witness is None else ", or the witness where larger (the one process with 1 % of "
+                                                "its prompt's embedding one ulp up, or through the plain path)"),
+           "logit_witness_by_step": logit_witness, "cache_witness_by_leaf": cache_witness,
            "routing_replayed_calls": len(replay), "launches_prefill_rank0": mine[0]["launches"][0],
            "launches_decode_step_rank0": mine[0]["launches"][-1], "expected_prefill": want_pre,
            "expected_decode_step": want_dec, "launches_as_expected": launches_ok}
-    if not (logit_of_limit <= 1.0 and short <= 1.0 and ids_ok and cache_of_limit <= 1.0 and launches_ok):
-        raise SystemExit(f"dist serve of {spec['arch']} on the model axis: a check failed: {out}")
+    # a hybrid model in bf16 carries the ranks' other roundings in every
+    # layer past its witness at depth (PERF.md §6): its request is held end
+    # to end in fp32, as C7 holds its paths, and in bf16 for its ids and
+    # launches, the logits and caches reported
+    held = harness.family != "hybrid" or harness.cfg.dtype == torch.float32
+    out["dtype"], out["logits_and_caches_held"] = str(harness.cfg.dtype).split(".")[-1], held
+    if not (short <= 1.0 and ids_ok and launches_ok and (not held or (logit_of_limit <= 1.0
+                                                                       and cache_of_limit <= 1.0))):
+        raise SystemExit(f"dist serve of {_serve_key(spec)} on the model axis: a check failed: {out}")
     return out
 
 
@@ -2645,24 +2994,77 @@ def _moe_train_expected_launches(harness, n_synced: int) -> dict[str, int]:
 
 
 def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
-    """The MoE mesh's training held (``phase_dist``): every block of every
-    leaf bit-identical on the ranks that hold it, after every step (the
-    data ranks share the leaves not cut over "data"); the clip norm the
-    same on every rank and within 1e-5 of the whole payload's; each rank's
-    ZeRO-1 shard of master / m / v after the first step, and its params,
-    bit-equal to ``step_scalars`` (with the ranks' norm) + ``update_leaf``
-    on the whole leaf, leaf by leaf; the first step's loss and synchronised
-    gradients within 3e-2 (of each leaf's largest |g|) of one process's
-    (``value_and_grad`` of the loss on the same first batch, routed by the
-    ranks' choices); the launches of every step and rank as
-    ``_moe_train_expected_launches`` works them out."""
+    """The MoE mesh's training held by ``_check_train_leafwise``, its
+    launches as ``_moe_train_expected_launches`` works them out, its
+    payload the gradient (no compression)."""
     from repro_torch.configs import load
-    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
-    from repro_torch.models.layers import Runtime
-    from repro_torch.models.param import tree_init, tree_leaves, value_and_grad
-    from repro_torch.optim import adamw
 
     harness = load(spec["arch"]).clone(n_layers=spec["n_layers"])
+    out = _check_train_leafwise(spec, ranks, tmp, _moe_train_expected_launches(harness, ranks[0]["n_synced"]))
+    out["strategy"] = harness.moe_strategy
+    if not out["payload_is_gradient"]:
+        raise SystemExit(f"dist MoE training: the payload is not the gradient: {out}")
+    return out
+
+
+def _family_train_expected_launches(harness, n_leaves: int) -> dict[str, int]:
+    """A train step of one rank of the SSM, hybrid or audio family on
+    (data, model) = (2, 2), int8, worked out from the code.  Every family:
+    the sum of the losses and replicated gradients over "model" and each
+    leaf's sum of squares there (2), each leaf reduce-scattered over
+    "data" and its int8 payload (2 a leaf).  rwkv6-1.6b (its blocks
+    recomputed): a layer's scan twice and 9 ``ccu_reduce`` (forward and
+    recompute 3 each: ``ln_out``'s sums of squares, ``wo``'s sum, the
+    channel mix's reduce-scatter; backward 3: the two sums' backward sums
+    and the product's gather's reduce-scatter), the embedding's and the
+    logits' gathers' reduce-scatters (2).  zamba2-1.2b: a Mamba2 layer's
+    scan twice and 6 (forward 2: the sums of squares, the output's
+    reduce-scatter; recompute 1: it stops before the reduce-scatter, whose
+    backward keeps nothing; backward 3: the reduce-scatters of the x and
+    ``in_proj`` gathers, the sums of squares' backward sum), a shared call's
+    flash once (not recomputed) and 9 reduce-scatters (its 7 gathered
+    weights, K and V), the token table's and the unembedding's (2).
+    whisper-base (encoder and decoder blocks recomputed): an encoder layer's
+    flash twice and 12 reduce-scatters (its 10 gathered weights and biases,
+    K and V), a decoder layer's flash 4 times (self- and cross-attention)
+    and 19 (17 gathered leaves, the self-attention's K and V), the encoder
+    output's gather's (1), the token table's and the unembedding's (2)."""
+    n = harness.cfg.n_layers
+    none = {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+    base = 2 + 2 * n_leaves
+    if harness.family == "ssm":
+        return {**none, "rwkv6_scan": 2 * n, "ccu_reduce": 9 * n + 2 + base}
+    if harness.family == "hybrid":
+        c = harness.cfg.n_shared_calls
+        return {**none, "ssd_scan": 2 * n, "flash_attention": c, "ccu_reduce": 6 * n + 9 * c + 2 + base}
+    return {**none, "flash_attention": 6 * n, "ccu_reduce": 31 * n + 3 + base}
+
+
+def _check_train_leafwise(spec: dict, ranks: list[dict], tmp: str, expected: dict, tag: str = "") -> dict:
+    """A model-axis mesh's training held leaf by leaf (``phase_dist``):
+    every block of every leaf bit-identical on the ranks that hold it,
+    after every step (the data ranks share the leaves not cut over "data");
+    the clip norm the same on every rank and within 1e-5 of the whole
+    payload's; each rank's ZeRO-1 shard of master / m / v after the first
+    step, and its params, bit-equal to ``step_scalars`` (with the ranks'
+    norm) + ``update_leaf`` on the whole leaf, leaf by leaf; the first
+    step's loss and synchronised gradients within 3e-2 (of each leaf's
+    largest |g|; a key bias's, whose exact value is zero, of its
+    projection's weights') of one process's (``value_and_grad`` of the loss
+    on the same first batch, an MoE model routed by the ranks' choices); the
+    launches of every step and rank ``expected``.  ``tag`` names the
+    ranks' files of this run.  A recurrent family's bf16 gradients are
+    reported beside two witnesses of the one process's own rounding; the
+    hybrid family's in bf16 are not held at whole depth but layer by layer
+    (``_check_rank_layers``), as the train phase holds it: a random zamba2
+    in bf16 carries the ranks' other roundings in every layer past the
+    3e-2 at 7 layers (PERF.md §6); its fp32 run is held whole."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves, tree_map, value_and_grad
+    from repro_torch.optim import adamw
+
+    harness = _serve_harness(spec)
     names = list(_leaf_sizes(harness))
     n = harness.cfg.n_layers
     # 1. every block the same on the ranks that hold it
@@ -2673,24 +3075,25 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
             for i, (blk, d) in enumerate(zip(r["param_blocks"], r["params_digest"][step])):
                 key = (i, str(blk))
                 identical = identical and seen.setdefault(key, d) == d
-    expected = _moe_train_expected_launches(harness, ranks[0]["n_synced"])
     launches_ok = all(c == expected for r in ranks for c in r["launches"])
-    like = _assemble(harness, ranks, tmp, "payload")
+    like = _assemble(harness, ranks, tmp, "payload", tag)
     cfg = _dist_opt_cfg(spec)
     whole = float(torch.sqrt(sum(torch.sum(torch.square(g.cuda().float())) for g in like)))
     norm = {"ranks": ranks[0]["grad_norms"][0], "whole_payload": whole,
             "same_on_every_rank": all(r["grad_norms"] == ranks[0]["grad_norms"] for r in ranks),
             "rel_err": abs(ranks[0]["grad_norms"][0] - whole) / whole, "limit": 1e-5}
     if not (norm["same_on_every_rank"] and norm["rel_err"] <= norm["limit"]):
-        raise SystemExit(f"dist MoE: the clip norm failed: {norm}")
+        raise SystemExit(f"dist {spec['arch']}: the clip norm failed: {norm}")
     # 2. the shards and params leaf by leaf, from the same drawn weights
     params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
                        torch.bfloat16, "cuda")
+    _draw_time_mix(harness, params, spec["seed"] + 3)
+    params = tree_map(lambda t: t.to(harness.cfg.dtype), params)
     k = adamw.step_scalars(cfg, None, {"step": torch.zeros((), dtype=torch.int32, device="cuda")},
                            torch.tensor(norm["ranks"], dtype=torch.float32, device="cuda"))
     mismatch = []
     for i, (p, g) in enumerate(zip(tree_leaves(params), like)):
-        master = p.to(torch.float32)
+        master = p.to(torch.float32, copy=True)           # updated in place below
         m, v = torch.zeros_like(master), torch.zeros_like(master)
         adamw.update_leaf(cfg, k, g.cuda().to(cfg.grad_dtype), m, v, master)
         for r, res in enumerate(ranks):
@@ -2702,41 +3105,64 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
             if _digest(master.to(p.dtype)[pb]) != res["params_digest"][0][i]:
                 mismatch.append((r, "params", names[i]))
         del master, m, v
+    del like
     torch.cuda.empty_cache()
-    # 3. one process on the first batch, routed by the ranks' choices
+    # 3. one process on the first batch (an MoE model routed by the ranks' choices)
     data_cfg = DataConfig(global_batch=spec["batch"], seq_len=spec["seq"], vocab_size=harness.cfg.vocab_size, seed=0)
     pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg)
     try:
-        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(pipeline).items() if k in ("tokens", "labels")}
+        batch = _batch(harness, spec, next(pipeline))
     finally:
         pipeline.close()
     forward = []
-    for layer in range(n):
-        whole_idx = None
-        for r, res in enumerate(ranks):
-            c = torch.load(f"{tmp}/routing0_r{r}.pt")[layer]
-            if whole_idx is None:
-                whole_idx = torch.zeros((spec["batch"], spec["seq"], c.shape[-1]), dtype=c.dtype)
-            whole_idx[tuple(slice(a, b) for a, b in res["input_block"])] = c
-        forward.append((whole_idx.cuda(), None))
+    if os.path.exists(f"{tmp}/{tag}routing0_r0.pt"):
+        for layer in range(n):
+            whole_idx = None
+            for r, res in enumerate(ranks):
+                c = torch.load(f"{tmp}/{tag}routing0_r{r}.pt")[layer]
+                if whole_idx is None:
+                    whole_idx = torch.zeros((spec["batch"], spec["seq"], c.shape[-1]), dtype=c.dtype)
+                whole_idx[tuple(slice(a, b) for a, b in res["input_block"])] = c
+            forward.append((whole_idx.cuda(), None))
     t0 = time.perf_counter()
-    with _routing(replay=forward + forward[::-1]):
+    with _routing(replay=(forward + forward[::-1]) or None):
         loss, grads = value_and_grad(harness.loss(Runtime()))(params, batch)
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
+    grads = tree_leaves(grads)
+    limits = [3e-2 * g.float().abs().max().item() for g in grads]
+    for i, name in enumerate(names):
+        if name.endswith("attn.bk"):
+            # a key bias adds one constant to a query's every score: its exact
+            # gradient is zero, so both sides are rounding noise; held against
+            # the same projection's weights' gradient instead
+            limits[i] = limits[names.index(name[:-2] + "wk")]
+    witness = None
+    if harness.family in RECURRENT and harness.cfg.dtype == torch.bfloat16:
+        # reported, in units of each leaf's limit: how far a recurrent
+        # model's one process moves its own gradient when 1 % of its
+        # embedded batch moves by one ulp (``_moved_prompt``), or when its
+        # layers run the plain path (other roundings in every layer, as the
+        # ranks' partial sums have)
+        with _moved_prompt(spec["seed"]):
+            _, moved = value_and_grad(harness.loss(Runtime()))(params, batch)
+        _, plain = value_and_grad(harness.loss(Runtime(use_kernels=False)))(params, batch)
+        witness = {what: [(a.float() - b.float()).abs().max().item() / lim
+                          for a, b, lim in zip(tree_leaves(t), grads, limits)]
+                   for what, t in (("one_ulp", moved), ("plain_path", plain))}
+        del moved, plain
     del params
+    synced = _assemble(harness, ranks, tmp, "grads", tag)
     # a rank's loss is its data share's, summed over the model ranks: the same on each of them
     shares = {r["coord"]["data"]: r["losses"][0] for r in ranks}
     mean_loss = sum(shares.values()) / len(shares)
-    of_limit = [(a.cuda().float() - b.float()).abs().max().item() / (3e-2 * b.float().abs().max().item())
-                for a, b in zip(like, tree_leaves(grads))]
+    of_limit = [(a.cuda().float() - b.float()).abs().max().item() / lim for a, b, lim in zip(synced, grads, limits)]
     worst = max(range(len(names)), key=lambda i: of_limit[i])
-    del grads, like
+    del grads, synced
     torch.cuda.empty_cache()
     out = {"arch": spec["arch"], "n_layers": n, "params": sum(_leaf_sizes(harness).values()),
            "mesh": dict(zip(spec["axes"], spec["mesh"])), "ranks": len(ranks), "global_batch": spec["batch"],
            "seq": spec["seq"], "steps": spec["steps"], "compression": spec["compression"],
-           "strategy": harness.moe_strategy,
            "transport": "gloo (torch.distributed), one process group a mesh axis; each CUDA tensor staged "
                         "through host memory; every sum in ccu_reduce on the card",
            "step_ms_by_rank": [r["step_ms"] for r in ranks],
@@ -2747,14 +3173,20 @@ def _check_moe_train(spec: dict, ranks: list[dict], tmp: str) -> dict:
            "single_process_loss": float(loss), "single_process_s": single_s,
            "loss_max_abs_err": abs(mean_loss - float(loss)), "loss_limit": 3e-2,
            "grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
-           "grad_limit": "3e-2 of the leaf's largest |g|", "clip_norm": norm,
+           "grad_limit": "3e-2 of the leaf's largest |g|", "grad_of_limit_by_leaf": dict(zip(names, of_limit)),
+           "grad_witness_of_limit_by_leaf": None if witness is None else {
+               what: dict(zip(names, w)) for what, w in witness.items()}, "clip_norm": norm,
            "payload_is_gradient": all(r["payload_is_gradient"] for r in ranks),
            "blocks_bit_identical_every_step": identical, "shards_and_params_equal_update_leaf": not mismatch,
            "mismatches": mismatch[:10], "launches_per_step_and_rank": ranks[0]["launches"][0],
            "expected_launches": expected, "launches_as_expected": launches_ok}
+    held = harness.family != "hybrid" or harness.cfg.dtype != torch.bfloat16
+    out["dtype"], out["whole_depth_gradients_held"] = str(harness.cfg.dtype).split(".")[-1], held
+    if not held:
+        out["layers"] = _check_rank_layers(spec, ranks, tmp, tag)
     if not (identical and not mismatch and launches_ok and out["loss_max_abs_err"] <= 3e-2
-            and of_limit[worst] <= 1.0 and out["payload_is_gradient"] and math.isfinite(mean_loss)):
-        raise SystemExit(f"dist MoE training: a check failed: {out}")
+            and (of_limit[worst] <= 1.0 or not held) and math.isfinite(mean_loss)):
+        raise SystemExit(f"dist training of {spec['arch']}: a check failed: {out}")
     return out
 
 
@@ -2828,16 +3260,17 @@ def _spawn(spec: dict) -> tuple[list[dict], float, str]:
     return ranks, spawn_s, tmp
 
 
-def _assemble(harness, ranks: list[dict], tmp: str, what: str) -> list[torch.Tensor]:
+def _assemble(harness, ranks: list[dict], tmp: str, what: str, tag: str = "") -> list[torch.Tensor]:
     """The first step's ``what`` (grads or payload) whole, from each block's
-    one saver (``_dist_rank``); the payload where it is the gradient."""
+    one saver (``_rank_train``; its files tagged ``tag``); the payload
+    where it is the gradient."""
     from repro_torch.models.param import tree_leaves
 
     if what == "grads" and ranks[0]["payload_is_gradient"]:
         what = "payload"
     full = [torch.zeros(s.shape, dtype=torch.bfloat16) for s in tree_leaves(harness.param_specs())]
     for r, res in enumerate(ranks):
-        for f, g, blk in zip(full, torch.load(f"{tmp}/{what}0_r{r}.pt"), res["param_blocks"]):
+        for f, g, blk in zip(full, torch.load(f"{tmp}/{tag}{what}0_r{r}.pt"), res["param_blocks"]):
             if g is not None:
                 f[tuple(slice(a, b) for a, b in blk)] = g
     return full
@@ -2989,13 +3422,18 @@ def _decode_bundle(spec: dict):
                                          rules=make_rules(sp=False, moe_strategy=harness.moe_strategy))
 
 
-def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
-    """The ZeRO-1 train step on four ranks of one card, on three meshes
-    (``DIST``: (pod, data, model) = (2, 2, 1); ``DIST_MODEL``: (data, model)
+RECURRENT = ("ssm", "hybrid")      # families whose bf16 requests are held within a one-ulp witness
+
+
+def phase_dist() -> tuple[dict[str, dict[str, int]], dict, dict]:
+    """The ZeRO-1 train step on four ranks of one card, on three meshes and
+    four spawns (``DIST``: (pod, data, model) = (2, 2, 1); ``DIST_MODEL``: (data, model)
     = (2, 2), the dense family's sequence-parallel model axis, then served
     requests on it; ``DIST_MOE``: the same mesh, the MoE family, its
-    experts' FSDP over "data", then its requests), the ranks spawned once
-    the kernels are built (``_dist_rank``), then held
+    experts' FSDP over "data", then its requests; ``DIST_FAMILIES``: the
+    same mesh, the SSM, hybrid and audio families, one spawn, each trained
+    and served, held by ``_check_train_leafwise`` and ``_check_serve``),
+    the ranks spawned once the kernels are built (``_dist_rank``), then held
     here (``_check_mesh``, ``_check_moe_train``): the params of every rank
     bit-identical where they hold the same block, after every step; each
     rank's ZeRO-1 shard of master / m / v after the first step equal to
@@ -3012,7 +3450,8 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     rows of the meshes and of decode's sums (``_ccu_dist_rows``).  The four
     ranks share the card, so their times measure the port's overhead and
     the kernels, not data-parallel scaling.  Returns each path's summed
-    launches and the ccu rows."""
+    launches, the ccu rows and each request's launches over the ranks, in
+    its prefill and in its decode steps (``_share_launches``)."""
     import shutil
 
     from repro_torch.configs import load
@@ -3024,9 +3463,21 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     harness = load(DIST["arch"]).clone(n_layers=DIST["n_layers"])
     names = list(_leaf_sizes(harness))
     torch.cuda.empty_cache()
-    runs = {}
-    for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL), ("dist_moe", DIST_MOE)):
-        runs[key] = _spawn(spec)
+    specs = {"dist": DIST, "dist_model": DIST_MODEL, "dist_moe": DIST_MOE, "dist_families": DIST_FAMILIES}
+    runs = {key: _spawn(spec) for key, spec in specs.items()}
+    by_path, ccu, served = {}, {}, {}
+
+    def serve_checks(spec: dict, ranks: list[dict], tmp: str) -> None:
+        for s in spec["serve"]:
+            res = _check_serve(s, ranks, tmp)
+            emit("dist_serve", **res)
+            mine = [r["serve"][_serve_key(s)] for r in ranks]
+            pre = {k: sum(m["launches"][0][k] for m in mine) for k in res["expected_prefill"]}
+            dec = {k: sum(c[k] for m in mine for c in m["launches"][1:]) for k in res["expected_prefill"]}
+            served[_serve_key(s)] = {"prefill": pre, "decode": dec}
+            by_path[f"{_serve_key(s)} served on the model axis (4 ranks, {s['n_layers']} layers, prefill + "
+                    f"{s['steps']} decode steps)"] = {k: pre[k] + dec[k] for k in pre}
+            torch.cuda.empty_cache()
 
     # one process, global batch 8, from the same weights
     args = train.build_parser().parse_args([
@@ -3042,18 +3493,6 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
     single = train.run(args, harness=harness, observe=keep)
     single["first_grads"] = first.pop("grads")
     torch.cuda.empty_cache()
-    by_path, ccu = {}, {}
-
-    def serve_checks(spec: dict, ranks: list[dict], tmp: str) -> None:
-        for s in spec["serve"]:
-            res = _check_serve(s, ranks, tmp)
-            emit("dist_serve", **res)
-            mine = [r["serve"][s["arch"]] for r in ranks]
-            by_path[f"{s['arch']} served on the model axis (4 ranks, {s['n_layers']} layers, prefill + "
-                    f"{s['steps']} decode steps)"] = {k: sum(c[k] for m in mine for c in m["launches"])
-                                                       for k in res["expected_prefill"]}
-            torch.cuda.empty_cache()
-
     for key, spec in (("dist", DIST), ("dist_model", DIST_MODEL)):
         ranks, spawn_s, tmp = runs[key]
         out = _check_mesh(spec, ranks, tmp, harness, single, names)
@@ -3081,6 +3520,25 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
         k: sum(c[k] for r in ranks for c in r["launches"]) for k in out["expected_launches"]}
     serve_checks(DIST_MOE, ranks, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    ranks, spawn_s, tmp = runs["dist_families"]
+    for run in DIST_FAMILIES["runs"]:
+        spec, key = {**DIST_FAMILIES, **run}, _serve_key(run)
+        mine = [r["runs"][key] for r in ranks]
+        fam = load(run["arch"]).clone(n_layers=run["n_layers"])
+        out = _check_train_leafwise(spec, mine, tmp,
+                                    _family_train_expected_launches(fam, len(_leaf_sizes(fam))), f"{key}_")
+        if key == "zamba2-1.2b":
+            out["dryrun"] = _check_dryrun("train", spec, _train_bundle(spec), mine[0]["wire_by_step"][-1],
+                                          mine[0]["peak_memory_gb"])
+        if key == "rwkv6-1.6b":
+            out["dryrun_decode"] = _check_dryrun("decode", spec, _decode_bundle(spec["serve"][0]),
+                                                 mine[0]["serve"][key]["wire"][-1], None)
+        out["spawn_to_exit_s_all_runs"] = spawn_s
+        emit("dist_family", **out)
+        by_path[f"{key} dist_family {out['mesh']} ({len(ranks)} ranks, {run['n_layers']} layers)"] = {
+            k: sum(c[k] for r in mine for c in r["launches"]) for k in out["expected_launches"]}
+        serve_checks(spec, mine, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
     ccu["p2_data"] = _ccu_dist_rows({k: (n // 2, 1) for k, n in _leaf_sizes(harness).items()},
                                     (torch.bfloat16, torch.float32),
                                     "P = 2 rows of N / 2 for each of the 12 leaves on the (2, 2, 1) mesh: bf16 "
@@ -3091,7 +3549,23 @@ def phase_dist() -> tuple[dict[str, dict[str, int]], dict]:
                                      "mesh, the backward's reduce-scatters (a layer's 7 weights, K and V, once a "
                                      "layer; the token table and the unembedding): 20 launches a step and rank")
     ccu["p2_decode"] = _decode_ccu_rows(DIST_MODEL["serve"][0])
-    return by_path, ccu
+    return by_path, ccu, served
+
+
+def _share_launches(rows: list[dict], served: dict) -> None:
+    """The kernels line's model-axis rows' launches, as counted in the dist
+    phase's requests over their 4 ranks: each scan's at the (2, 2) share in
+    its family's bf16 request's prefill (the only launches of that shape;
+    decode runs the recurrence), flash's in whisper's request, prefill and
+    decode (``request_launches``: the encoder's, self- and cross-attention's
+    together, as the counts are by kernel, not by call site)."""
+    for row in rows:
+        if row["name"] in ("rwkv6_scan", "ssd_scan"):
+            arch = "rwkv6-1.6b" if row["name"] == "rwkv6_scan" else "zamba2-1.2b"
+            row["model_axis_shares"]["dist_2x2"]["launches"] = served[arch]["prefill"][row["name"]]
+        if row["name"] == "flash_attention":
+            for part, sub in row["model_axis_whisper_cross"].items():
+                sub["request_launches"] = served["whisper-base"][part]["flash_attention"]
 
 
 def _decode_ccu_rows(spec: dict) -> dict:
@@ -3188,7 +3662,8 @@ PHASES = ["device", "build", "kernels", "slice", "serve", "train", "dist", "rest
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset, for debugging")
-    phases = ap.parse_args().phases.split(",")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -3204,8 +3679,9 @@ def main() -> int:
     if "train" in phases:
         by_path.update(phase_train())
     if "dist" in phases:
-        paths, ccu = phase_dist()
+        paths, ccu, served = phase_dist()
         by_path.update(paths)
+        _share_launches(kernel_rows, served)
         for row in kernel_rows:
             if row["name"] == "ccu_reduce":
                 row["dist_rows"], row["model_axis_rows"] = ccu["p2_data"], ccu["p2_model"]

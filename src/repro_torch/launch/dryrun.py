@@ -24,23 +24,29 @@ the reference's keys (``memory``, ``cost``, ``collectives`` with
 ``collectives.operand_bytes_by_axis`` (what the transports handed the
 process group) and ``path``.  The roofline's peaks are arguments
 (``--peak-flops``, ``--hbm-bw``, ``--link-bw``), an H100 SXM5's by default.
-Cells of the families whose step is not ported to the model axis yet (the
-SSM, hybrid and audio families: rwkv6-1.6b, zamba2-1.2b, whisper-base) are
-written as ``"status": "skipped"`` with a reason naming ROADMAP A13b; the
-reference's own ``skip_reason`` (``long_500k`` on full attention) is kept.
-A decode cell's step writes the cell's last position that its cache holds
-(``train_step.decode_position``): no tensor is read on ``meta``.
+Every family's cells are built; the only cells written as ``"status":
+"skipped"`` are those of the reference's own ``skip_reason``
+(``long_500k`` on full attention).  A decode cell's step writes the cell's
+last position that its cache holds (``train_step.decode_position``): no
+tensor is read on ``meta``.
 
-The reference's counters come from probes at 1 and 2 unrolled layers,
-extrapolated linearly (XLA's cost analysis counts a scanned loop's body
-once).  The eager trace counts every layer, so the same extrapolation is
-exact here: ``run_cell`` also traces the full depth and records whether
-the two agree (``extrapolation_exact``).
+The reference's counters come from probes (XLA's cost analysis counts a
+scanned loop's body once), extrapolated by family
+(``extrapolated_metrics``): linearly from 1 and 2 layers for the dense,
+MoE, VLM and audio families; for the SSM family also linearly in the
+sequence, from S0 and 2·S0; for the hybrid family from 6, 7 and 8 layers
+(the shared block's share) at S = 256, 512 and 1024, its Mamba2 layers'
+and the rest's costs fitted linearly in S and the shared block's
+quadratically.  The eager trace counts every layer, so ``run_cell`` also
+traces the full depth and records whether the two agree
+(``extrapolation_exact``) and, per counter, the fit's relative distance
+from the trace (``extrapolation_rel_err``; 0 where exact).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -50,7 +56,7 @@ import traceback
 from ..configs import ARCH_IDS, load
 from ..models.api import SHAPES
 from ..models.param import param_count
-from ..train.train_step import MODEL_AXIS_FAMILIES, build_bundle, lower_bundle
+from ..train.train_step import build_bundle, lower_bundle
 from .hlo_stats import Roofline, collective_stats
 from .mesh import fake_mesh, production_shape
 
@@ -58,8 +64,6 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / "dryrun_torc
 # an H100 SXM5 (NVIDIA's data sheet): dense bf16, HBM3, NVLink 4 (900 GB/s
 # both ways, 450 GB/s each way)
 PEAK_FLOPS, HBM_BW, LINK_BW = 989e12, 3.35e12, 450e9
-NOT_PORTED = ("the {what} on the 'model' axis is not ported yet (ROADMAP A13b: the model axis of the SSM, "
-              "hybrid and audio families)")
 
 
 def analytic_model_flops(harness, cell) -> float:
@@ -83,13 +87,6 @@ def analytic_model_flops(harness, cell) -> float:
     return 2.0 * active * cell.global_batch       # decode: one token per sequence
 
 
-def not_ported(harness, cell) -> str | None:
-    """Why the port cannot build this cell on the production mesh yet."""
-    if harness.family not in MODEL_AXIS_FAMILIES:
-        return NOT_PORTED.format(what=f"{harness.family} family")
-    return None
-
-
 def _probe_metrics(harness, cell, mesh, multi_pod) -> dict:
     """One trace of the cell's step (``lower_bundle``) and its per-device
     counters."""
@@ -109,21 +106,84 @@ def _probe_metrics(harness, cell, mesh, multi_pod) -> dict:
     }
 
 
-def extrapolated_metrics(harness, cell, mesh, multi_pod) -> dict:
-    """Per-device (flops, hbm bytes, wire bytes) at the FULL depth from
-    probes at 1 and 2 layers, ``f1 + (L - 1)(f2 - f1)``: the reference's
-    branch for the dense, MoE and VLM families (the others wait for ROADMAP
-    A13b)."""
-    if harness.family not in MODEL_AXIS_FAMILIES:
-        raise ValueError(NOT_PORTED.format(what=f"{harness.family} family"))
-    keys = ("flops", "hbm", "wire")
-    L_full = harness.cfg.n_layers
-    f1, f2 = (_probe_metrics(harness.clone(n_layers=n), cell, mesh, multi_pod) for n in (1, 2))
-    out = {k: f1[k] + (L_full - 1) * (f2[k] - f1[k]) for k in keys}
-    for part in ("by_kind", "by_axis", "operand_bytes_by_axis"):
-        out[part] = {kk: f1[part].get(kk, 0.0) + (L_full - 1) * (f2[part].get(kk, 0.0) - f1[part].get(kk, 0.0))
-                     for kk in set(f1[part]) | set(f2[part])}
+_PARTS = ("by_kind", "by_axis", "operand_bytes_by_axis")
+KEYS = ("flops", "hbm", "wire")
+
+
+def _combine(points: list[tuple[float, dict]]) -> dict:
+    """``sum(c * metrics)`` over the points (coefficient, probe metrics), for
+    the counters and each entry of the by-kind and by-axis tables."""
+    out = {k: sum(c * f[k] for c, f in points) for k in KEYS}
+    for part in _PARTS:
+        names = set().union(*(f[part] for _, f in points))
+        out[part] = {n: sum(c * f[part].get(n, 0.0) for c, f in points) for n in names}
     return out
+
+
+def _probe_cell(cell, seq_len: int):
+    return dataclasses.replace(cell, seq_len=seq_len)
+
+
+def extrapolated_metrics(harness, cell, mesh, multi_pod) -> dict:
+    """Per-device counters at the FULL (L, S) from probes at reduced depth
+    (and, for the recurrent families, length), by family as the reference's
+    ``extrapolated_metrics`` (``repro/launch/dryrun.py:123-188``):
+
+    * dense, MoE, VLM, audio, and the SSM family's decode: ``f1 + (L -
+      1)(f2 - f1)`` from 1 and 2 layers;
+    * SSM (train, prefill): probes at L in {1, 2} and S in {S0, 2·S0} (S0 =
+      min(256, S)); the per-layer cost and the rest each linear in S;
+    * hybrid: ``F(L) = E + n_mamba(L)·M + n_shared(L)·A`` from L in {6, 7,
+      8}; in decode at the cell's S, else solved at S in {256, 512, 1024}
+      (those not above S) with E and M fitted linearly in S and A
+      quadratically (``numpy.polyfit``), evaluated at S."""
+    fam = harness.family
+
+    def probe(L, S=None):
+        return _probe_metrics(harness.clone(n_layers=L), cell if S is None else _probe_cell(cell, S), mesh,
+                              multi_pod)
+
+    L = harness.cfg.n_layers
+    if fam in ("dense", "moe", "vlm", "audio") or (fam == "ssm" and cell.kind == "decode"):
+        return _combine([(2 - L, probe(1)), (L - 1, probe(2))])      # f1 + (L - 1)(f2 - f1)
+
+    if fam == "ssm":
+        S = cell.seq_len
+        S0 = min(256, S)
+        at_s0 = _combine([(2 - L, probe(1, S0)), (L - 1, probe(2, S0))])
+        at_2s0 = _combine([(2 - L, probe(1, 2 * S0)), (L - 1, probe(2, 2 * S0))])
+        t = (S - S0) / S0                  # linear in S through S0 and 2·S0
+        return _combine([(1 - t, at_s0), (t, at_2s0)])
+
+    if fam == "hybrid":
+        import numpy as np
+
+        S = cell.seq_len
+        n_shared = sum(1 for d in range(1, L) if d % harness.cfg.share_every == 0)
+
+        def solve(S_=None) -> tuple[list, list, list]:
+            """E = F6 - 6M, M = F8 - F7, A = F7 - F6 - M, each as a list of
+            (coefficient, probe) of the probes at 6, 7 and 8 layers."""
+            f6, f7, f8 = probe(6, S_), probe(7, S_), probe(8, S_)
+            return [(1, f6), (6, f7), (-6, f8)], [(-1, f7), (1, f8)], [(-1, f6), (2, f7), (-1, f8)]
+
+        weights = (1, L, n_shared)          # F = E + L·M + n_shared·A
+        if cell.kind == "decode":
+            return _combine([(w * c, f) for w, part in zip(weights, solve()) for c, f in part])
+        Ss = [s for s in (256, 512, 1024) if s <= S] or [S]
+        parts = {s: solve(s) for s in Ss}
+        points: list[tuple[float, dict]] = []
+        for j, (deg, w) in enumerate(zip((1, 1, 2), weights)):
+            deg = min(deg, len(Ss) - 1)
+            # the fit's value at S is linear in the samples: its weights are the
+            # polyfit of the unit vectors, evaluated at S
+            basis = [float(np.polyval(np.polyfit(np.array(Ss, dtype=float), np.eye(len(Ss))[i], deg), S))
+                     for i in range(len(Ss))]
+            for i, s in enumerate(Ss):
+                points += [(w * basis[i] * c, f) for c, f in parts[s][j]]
+        return _combine(points)
+
+    raise ValueError(f"unknown family {fam}")
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, probes: bool = True, *, peak_flops: float = PEAK_FLOPS,
@@ -132,7 +192,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, probes: bool = True, *, pea
     cell = SHAPES[shape]
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "kind": cell.kind, "status": "ok", "path": "plain"}
-    skip = harness.skip_reason(shape) or not_ported(harness, cell)
+    skip = harness.skip_reason(shape)
     if skip:
         rec.update(status="skipped", reason=skip)
         return rec
@@ -156,7 +216,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, probes: bool = True, *, pea
         t1 = time.time()
         if probes:
             metrics = extrapolated_metrics(harness, cell, mesh, multi_pod)
-            rec["extrapolation_exact"] = all(metrics[k] == full[k] for k in ("flops", "hbm", "wire"))
+            rec["extrapolation_exact"] = all(metrics[k] == full[k] for k in KEYS)
+            rec["extrapolation_rel_err"] = {k: abs(metrics[k] - full[k]) / max(abs(full[k]), 1.0) for k in KEYS}
         else:
             metrics = full
             rec["counters"] = "full-depth eager trace (every layer counted)"

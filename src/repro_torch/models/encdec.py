@@ -23,10 +23,22 @@ the reference's 65536-row table.  Cross-attention recomputes its keys and
 values from ``enc_out`` at every decode step, as the reference's
 ``_dec_block`` does.  On the kernel path every attention goes through the
 flash-attention kernel: the encoder's and the cross-attention's with no mask.
+
+On the model axis, in training and prefill, the rank holds its frames and
+its positions of the decoder's sequence (the rules' ``sp``): each block
+gathers its cut weights whole (``layers.whole``), the encoder's attention
+gathers its keys and values over the axis, and its output is gathered
+along the frames, so every decoder row's cross-attention sees every frame
+and prefill stores ``enc_out`` whole in every rank's cache (its spec is
+replicated on "model"); ``loss_fn`` is the rank's share of the mean.
+``decode_step`` runs the axis tensor-parallel (``rt.tp``): the
+self-attention as the dense family's, the cross-attention over the rank's
+columns of every frame (``layers._cross_attention_tp``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -120,13 +132,28 @@ def model_specs(cfg: EncDecConfig) -> dict:
     }
 
 
+def _rows(rt: L.Runtime, n: int, dim: int, device) -> torch.Tensor:
+    """The sinusoid's rows of this rank's ``n`` positions: ``[0, n)``, or on
+    the model axis in training and prefill ``[r·n, (r+1)·n)`` (by the same
+    float32 operations as the whole table's, so the same bits)."""
+    first = rt.seq_offset(n)
+    return _sinusoid_at(torch.arange(first, first + n, dtype=torch.float32, device=device), dim)
+
+
 def encode(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
-    """The bidirectional encoder over frames (B, T, D); params in the compute type."""
-    x = frames.to(cfg.dtype) + sinusoid(frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)
+    """The bidirectional encoder over frames (B, T, D); params in the compute
+    type.  On the model axis (training and prefill) the rank holds its
+    frames ``[r·T/m, (r+1)·T/m)`` (the rules' ``sp``), its block's weights
+    are gathered whole and its attention's keys and values over the axis,
+    and the output is gathered along the frames: every rank returns all
+    ``T`` rows, which every decoder row attends to."""
+    x = frames.to(cfg.dtype) + _rows(rt, frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)
     x = rt.shard(x, "batch", "sp", None)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
+    specs = enc_block_specs(cfg)
 
     def body(h, lp):
+        lp = L.whole(rt, lp, specs)
         a, _ = L.attention(rt, lp["attn"], L.layernorm(lp["ln1"], h), cfg.attn(False), positions)
         h = h + a
         h = h + L.gelu_mlp(rt, lp["mlp"], L.layernorm(lp["ln2"], h))
@@ -135,10 +162,12 @@ def encode(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor)
     block = remat(cfg.remat_policy, body)
     for lp in unbind_layers(params["enc_blocks"], cfg.n_layers):
         x = block(x, lp)
-    return L.layernorm(params["enc_norm"], x)
+    x = L.layernorm(params["enc_norm"], x)
+    return x if rt.model is None else rt.model.gather(x, 1)
 
 
 def _dec_block(rt, cfg: EncDecConfig, lp, h, enc_out, positions, cache=None, cache_pos=None):
+    lp = L.whole(rt, lp, dec_block_specs(cfg))
     a, new_cache = L.attention(
         rt, lp["self_attn"], L.layernorm(lp["ln1"], h), cfg.attn(True),
         positions, cache, cache_pos,
@@ -153,9 +182,15 @@ def _dec_block(rt, cfg: EncDecConfig, lp, h, enc_out, positions, cache=None, cac
     return rt.shard(h, "batch", "sp", None), new_cache
 
 
+def _table(rt, cfg: EncDecConfig, params, key: str) -> dict:
+    """``params["embed"][key]``, gathered whole where the rank holds its
+    positions (``layers.whole``)."""
+    return L.whole(rt, {key: params["embed"][key]}, L.embed_specs(cfg.vocab_padded, cfg.d_model))
+
+
 def _embed(rt, cfg: EncDecConfig, params, tokens) -> torch.Tensor:
-    y = L.embed(rt, params["embed"], tokens).to(cfg.dtype)
-    return y + sinusoid(y.shape[1], cfg.d_model, y.device).to(cfg.dtype)
+    y = L.embed(rt, _table(rt, cfg, params, "tok"), tokens).to(cfg.dtype)
+    return y + _rows(rt, y.shape[1], cfg.d_model, y.device).to(cfg.dtype)
 
 
 def forward(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor,
@@ -164,7 +199,7 @@ def forward(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor
     params = cast_floats(params, cfg.dtype)
     enc_out = encode(rt, cfg, params, frames)
     y = _embed(rt, cfg, params, tokens)
-    positions = torch.arange(y.shape[1], device=y.device)
+    positions = rt.seq_offset(y.shape[1]) + torch.arange(y.shape[1], device=y.device)
 
     def body(h, lp):
         return _dec_block(rt, cfg, lp, h, enc_out, positions)[0]
@@ -173,12 +208,15 @@ def forward(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor
     for lp in unbind_layers(params["dec_blocks"], cfg.n_layers):
         y = block(y, lp)
     y = L.layernorm(params["dec_norm"], y)
-    return L.unembed(rt, params["embed"], y)
+    return L.unembed(rt, _table(rt, cfg, params, "unembed"), y)
 
 
 def loss_fn(rt: L.Runtime, cfg: EncDecConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The mean NLL; on the model axis this rank's share of it (its
+    positions are ``1/m`` of each sequence)."""
     logits = forward(rt, cfg, params, batch["frames"], batch["tokens"])
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return ce if rt.model is None else ce / rt.model.size
 
 
 def cache_specs(cfg: EncDecConfig, batch: int, max_len: int) -> dict:
@@ -199,7 +237,7 @@ def prefill(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor
     params = cast_floats(params, cfg.dtype)
     enc_out = encode(rt, cfg, params, frames)
     y = _embed(rt, cfg, params, tokens)
-    positions = torch.arange(y.shape[1], device=y.device)
+    positions = rt.seq_offset(y.shape[1]) + torch.arange(y.shape[1], device=y.device)
     for i, lp in enumerate(unbind_layers(params["dec_blocks"], cfg.n_layers)):
         y, _ = _dec_block(rt, cfg, lp, y, enc_out, positions,
                           cache=(cache["k"][i], cache["v"][i]), cache_pos=0)
@@ -208,13 +246,16 @@ def prefill(rt: L.Runtime, cfg: EncDecConfig, params: dict, frames: torch.Tensor
         cache["enc_out"].copy_(enc_out)
     else:
         cache["enc_out"] = enc_out
-    return L.unembed(rt, params["embed"], y[:, -1:]), cache
+    logits = L.unembed(rt, _table(rt, cfg, params, "unembed"), y[:, -1:])
+    return (logits if rt.model is None else rt.model.last(logits)), cache
 
 
 def decode_step(rt: L.Runtime, cfg: EncDecConfig, params: dict, tokens: torch.Tensor,
                 cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
     """One step of the decoder at position ``pos``: its self-attention over
     the cache, its cross-attention over ``cache["enc_out"]``."""
+    if rt.model is not None:
+        rt = dataclasses.replace(rt, tp=True)
     params = cast_floats(params, cfg.dtype)
     pos = int(pos)
     enc_out = cache["enc_out"].to(cfg.dtype)

@@ -26,10 +26,20 @@ cache are written where they lie.  The conv tail is promoted with the
 activations as the reference's concatenation promotes it (a bfloat16 state
 of a float32 model becomes float32), so the state returned may hold a new
 ``conv`` tensor.
+
+On the model axis the rank holds its positions of each sequence between
+blocks (the rules' ``sp``) in training and prefill: the token table and
+the unembedding are gathered whole, as the shared block's cut weights are
+(``layers.whole``), the shared block's attention gathers its keys and
+values, the Mamba2 layers gather x along the sequence and run on the
+rank's heads (``models/mamba2.py``); ``loss_fn`` is the rank's share of
+the mean and ``prefill`` returns the last model rank's logits on every
+rank.  ``decode_step`` runs the axis tensor-parallel (``rt.tp``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -95,17 +105,22 @@ def lm_specs(cfg: HybridConfig) -> dict:
             {"norm": L.rmsnorm_spec(cfg.d_model), "mamba": mamba2_specs(cfg.mamba)},
             cfg.n_layers,
         ),
-        "shared": {
-            "ln1": L.rmsnorm_spec(cfg.d_model),
-            "attn": L.attn_specs(cfg.attn),
-            "ln2": L.rmsnorm_spec(cfg.d_model),
-            "mlp": L.swiglu_specs(cfg.d_model, cfg.d_ff),
-        },
+        "shared": _shared_specs(cfg),
         "final_norm": L.rmsnorm_spec(cfg.d_model),
     }
 
 
+def _shared_specs(cfg: HybridConfig) -> dict:
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attn_specs(cfg.attn),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "mlp": L.swiglu_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
 def _shared_block(rt, cfg, p, x, positions, cache=None, cache_pos=None):
+    p = L.whole(rt, p, _shared_specs(cfg))
     h = L.rmsnorm(p["ln1"], x)
     a, new_cache = L.attention(rt, p["attn"], h, cfg.attn, positions, cache, cache_pos)
     x = x + a
@@ -124,8 +139,8 @@ def _run(rt, cfg: HybridConfig, params, tokens, state, pos: int, step: bool):
     cache c at ``pos``.  Returns the final-norm hidden states, the
     parameters in the compute type and the new state."""
     params = cast_floats(params, cfg.dtype)
-    x = L.embed(rt, params["embed"], tokens).to(cfg.dtype)
-    positions = pos + torch.arange(x.shape[1], device=x.device)
+    x = L.embed(rt, _embedding(rt, cfg, params, "tok"), tokens).to(cfg.dtype)
+    positions = pos + rt.seq_offset(x.shape[1]) + torch.arange(x.shape[1], device=x.device)
     ssm = None
     if state is not None:
         conv = state["ssm"]["conv"]
@@ -137,7 +152,8 @@ def _run(rt, cfg: HybridConfig, params, tokens, state, pos: int, step: bool):
 
     def mamba_body(h, lp, i):
         prev = {"h": ssm["h"][i], "conv": ssm["conv"][i]} if step else None
-        y, new = mamba2_apply(rt, lp["mamba"], L.rmsnorm(lp["norm"], h), cfg.mamba, state=prev)
+        y, new = mamba2_apply(rt, lp["mamba"], L.rmsnorm(lp["norm"], h), cfg.mamba, state=prev,
+                              keep=ssm is not None)
         if ssm is not None:
             ssm["h"][i].copy_(new["h"])
             ssm["conv"][i].copy_(new["conv"])
@@ -163,15 +179,25 @@ def _run(rt, cfg: HybridConfig, params, tokens, state, pos: int, step: bool):
     return x, params, (None if state is None else {"ssm": ssm, "kv": kv})
 
 
+def _embedding(rt, cfg: HybridConfig, params, key: str) -> dict:
+    """``params["embed"][key]`` as the lookup (``tok``) or the logits
+    (``unembed``) use it: gathered whole where the rank holds its positions
+    (``layers.whole``)."""
+    return L.whole(rt, {key: params["embed"][key]}, L.embed_specs(cfg.vocab_padded, cfg.d_model))
+
+
 def forward(rt, cfg: HybridConfig, params, tokens):
     """Scoring forward over a whole sequence.  Returns the logits."""
     x, params, _ = _run(rt, cfg, params, tokens, None, 0, step=False)
-    return L.unembed(rt, params["embed"], x)
+    return L.unembed(rt, _embedding(rt, cfg, params, "unembed"), x)
 
 
 def loss_fn(rt, cfg: HybridConfig, params, batch) -> torch.Tensor:
+    """The mean NLL; on the model axis this rank's share of it: the mean
+    over its positions weighed by their share of the sequence."""
     logits = forward(rt, cfg, params, batch["tokens"])
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return ce if rt.model is None else ce / rt.model.size
 
 
 def state_specs(cfg: HybridConfig, batch: int, max_attn_len: int) -> dict:
@@ -187,10 +213,15 @@ def prefill(rt, cfg: HybridConfig, params, tokens, state):
     """The prompt (B, S) in one pass from the zero state; returns the last
     token's logits (B, 1, V) and the state the prompt leaves."""
     x, params, state = _run(rt, cfg, params, tokens, state, 0, step=False)
-    return L.unembed(rt, params["embed"], x[:, -1:]), state
+    logits = L.unembed(rt, _embedding(rt, cfg, params, "unembed"), x[:, -1:])
+    return (logits if rt.model is None else rt.model.last(logits)), state
 
 
 def decode_step(rt, cfg: HybridConfig, params, tokens, state, pos):
-    """One autoregressive step (tokens (B, 1) at ``pos``) from ``state``."""
+    """One autoregressive step (tokens (B, 1) at ``pos``) from ``state``;
+    on the model axis tensor-parallel (``rt.tp``), every rank returning the
+    same logits."""
+    if rt.model is not None:
+        rt = dataclasses.replace(rt, tp=True)
     x, params, state = _run(rt, cfg, params, tokens, state, int(pos), step=True)
     return L.unembed(rt, params["embed"], x), state

@@ -19,8 +19,10 @@ values that falls in its block of the cache (the rules' ``cache_seq``:
 positions ``[r·L/m, (r+1)·L/m)`` of a cache of length L), so a prompt
 shorter than the cache fills the first blocks.
 
-In decode on the model axis (``rt.tp``, set by ``transformer.decode_step``)
-the axis is tensor-parallel, as the rules' layout makes it with ``sp`` off:
+In decode on the model axis (``rt.tp``, set by each family's
+``decode_step``, and by the SSM family everywhere: the rules never cut its
+sequence) the axis is tensor-parallel, as the rules' layout makes it with
+``sp`` off:
 every rank holds the whole batch's token and its shard of each weight.
 ``attention`` projects the rank's columns of q, k and v, gathers them (a
 few KB), writes the new key and value into the block that owns the
@@ -35,7 +37,11 @@ projection; the projection's and the MLP's down
 projection's partial sums are summed over the axis in ``ccu_reduce``.
 ``embed`` looks up the rank's columns of the table and gathers them,
 ``unembed`` computes the rank's vocabulary shard and gathers the logits.
-No weight is gathered: the traffic is activations only.
+The encoder-decoder's cross-attention is ``_cross_attention_tp``.  No
+weight is gathered: the traffic is activations only.  ``rmsnorm`` with a
+``group`` normalises a dim the axis cuts (RWKV-6's ``ln_out`` and Mamba2's
+``out_norm`` on a rank's heads), ``whole`` gathers a block's cut weights
+in training and prefill.
 
 Ported: ``Runtime``, ``rmsnorm``, ``layernorm``, ``rope``, ``AttnConfig``,
 ``attn_specs``, ``_mask_bias``, ``sdpa``, ``attention`` (with
@@ -125,10 +131,18 @@ def rmsnorm_spec(dim: int) -> ParamSpec:
     return ParamSpec((dim,), (None,), init="ones")
 
 
-def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6, group=None) -> torch.Tensor:
+    """With ``group`` (an ``AxisGroup``) ``x`` holds this rank's block of
+    the normed dim, the ranks' blocks in rank order: the mean of squares
+    is over the whole dim, each rank's sum of squares summed over the
+    group (``all_reduce``, whose backward is a sum), and ``w`` is the
+    rank's block of the weight."""
     dt = x.dtype
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if group is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        var = group.all_reduce(torch.sum(x32 * x32, dim=-1, keepdim=True)) / (x.shape[-1] * group.size)
     # the weight multiplies AFTER the cast back to the working type
     return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
 
@@ -297,7 +311,9 @@ def attention(
     B, S, D = x.shape
     N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = N // K
-    if rt.tp and kv_override is None:
+    if rt.tp:
+        if kv_override is not None:
+            return _cross_attention_tp(rt, p, x, cfg, kv_override), kv_cache
         return _attention_tp(rt, p, x, cfg, int(cache_pos), kv_cache), kv_cache
 
     kv_src = kv_override if kv_override is not None else x
@@ -400,6 +416,48 @@ def _attention_tp(rt: Runtime, p: dict, x: torch.Tensor, cfg: AttnConfig, pos: i
     return y
 
 
+def _cross_attention_tp(rt: Runtime, p: dict, x: torch.Tensor, cfg: AttnConfig,
+                        enc: torch.Tensor) -> torch.Tensor:
+    """One decode step's cross-attention on the model axis: ``x (B, 1, D)``
+    the same on every model rank, ``enc (B, T, D)`` the encoder's output,
+    whole on every rank (the cache holds it so), ``p`` the rank's shards.
+    Each rank projects its columns of q, and of k and v over every frame.
+    Where the rank's columns are whole heads (``K % m == 0``) it attends
+    with them as one process does (flash with no mask, or ``sdpa``); where a
+    head's columns lie on ``m / N`` consecutive ranks (whisper-base's 8
+    heads on 16), each rank's partial scores ``(B, 1, T)`` fp32 over its
+    columns are summed over that run of ranks (``AxisGroup.within``: one
+    ``ccu_reduce``), and the softmax's probabilities multiply the rank's
+    value columns.  Either way the rank holds its columns of the heads'
+    output, the rows of ``wo`` it holds: the row-parallel partial sums are
+    summed over the axis.  No weight is gathered."""
+    B, S, D = x.shape
+    N, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    model, T = rt.model, enc.shape[1]
+    q, k, v = x @ p["wq"], enc @ p["wk"], enc @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if K % model.size == 0:                         # whole heads on every rank
+        n, kh = N // model.size, K // model.size
+        q, k, v = q.reshape(B, S, n, Dh), k.reshape(B, T, kh, Dh), v.reshape(B, T, kh, Dh)
+        if rt.use_kernels:
+            o = ops.flash_attention_bsnd(q, k, v, causal=False, window=None, prefix_len=0, q_start=0)
+        else:
+            o = sdpa(q.reshape(B, S, kh, n // kh, Dh), k, v, None)
+        o = o.reshape(B, S, n * Dh)
+    else:
+        if N != K or model.size % N:
+            raise ValueError(f"cross-attention of {N} query and {K} key heads on {model.size} model ranks: a "
+                             f"head's columns must lie on a run of whole ranks")
+        scores = torch.einsum("bqc,btc->bqt", q.float(), k.float()) / math.sqrt(Dh)
+        scores = model.within(model.size // N).sum(scores)
+        o = torch.einsum("bqt,btc->bqc", torch.softmax(scores, dim=-1).to(v.dtype), v)
+    y = model.sum(o @ p["wo"]).to(x.dtype)
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
 def _attend_block(rt: Runtime, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cfg: AttnConfig,
                   pos: int, lo: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Every query head of ``q (B, 1, N, Dh)`` at position ``pos`` over the
@@ -451,6 +509,17 @@ def _combine(model, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     mine = weight.flatten(-2).unflatten(-1, (P, -1))[..., model.rank, :]         # (P, B, 1, N * Dh / P)
     scaled = got.float() * mine
     return model.reduce(scaled.reshape(P, -1)).view(B, S, -1).to(o.dtype)
+
+
+def whole(rt: Runtime, p: dict, specs: dict) -> dict:
+    """``p`` with each leaf that the rules cut over the model axis (by its
+    spec in ``specs``, a tree of ``p``'s keys) gathered whole: in training
+    and prefill, where the rank holds its positions of each sequence (the
+    reference's GSPMD gathers of sp-sharded weights).  In decode
+    (``rt.tp``) and without a model axis, ``p`` as it is."""
+    if rt.model is None or rt.tp:
+        return p
+    return rt.model.gather_tree(p, {k: specs[k] for k in p})
 
 
 def init_kv_cache(

@@ -13,6 +13,17 @@ Ported: ``Mamba2Config``, ``mamba2_specs``, ``_causal_conv``,
 on purpose: ``mamba2_apply`` without a state returns the state the sequence
 leaves (the final scan state and the conv tail), which the reference
 computes and drops; serving's prefill hands it to decode.
+
+On the model axis (``rt.model``) a rank runs its heads ``[r·H/m,
+(r+1)·H/m)`` (the rules' ``ssm_heads``) and takes their columns of the
+fused ``in_proj`` (``_sequence_parallel_columns`` in training and prefill:
+x gathered along the sequence, ``in_proj`` whole; in decode the token's
+product with the rank's block gathered), ``A_log``/``dt_bias``/``D`` and
+``out_norm`` are sliced to them, ``out_norm``'s mean of squares is summed
+over the axis, and ``out_proj``'s partial output is reduce-scattered back
+to the rank's positions (training, prefill) or summed (decode).  The
+state's ``h`` is the rank's block of heads, its conv tail whole and the
+same bits on every rank.
 """
 
 from __future__ import annotations
@@ -128,24 +139,41 @@ def mamba2_apply(
     x: torch.Tensor,            # (B, S, D)
     cfg: Mamba2Config,
     state: dict | None = None,  # decode: {"h": (B,H,P,N), "conv": (B,K-1,C)}
+    keep: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """Returns (out, state after the sequence): without ``state`` the
     chunked scan over the whole sequence from a zero state, with one the
-    token-by-token recurrence from it."""
+    token-by-token recurrence from it.  ``keep`` False where the caller
+    drops the state (training): on the model axis its conv tail is then
+    not computed (``None``)."""
+    DI, N, P = cfg.d_inner, cfg.d_state, cfg.head_dim
+    model = rt.model
+    heads = chans = slice(None)
+    if model is not None:       # this rank's heads and their channels of d_inner
+        m, r = model.size, model.rank
+        heads = slice(r * cfg.n_heads // m, (r + 1) * cfg.n_heads // m)
+        chans = slice(r * DI // m, (r + 1) * DI // m)
+    if model is None or rt.tp:
+        zxbcdt = x @ p["in_proj"]
+        if model is not None:
+            # decode: the token's product with the rank's block of in_proj
+            # gathered (a few KB; no weight is), every rank the whole row
+            zxbcdt = model.rows(zxbcdt).movedim(0, -2).flatten(-2)
+        z, xc, Bm, Cm, dt = torch.split(zxbcdt, [DI, DI, N, N, cfg.n_heads], dim=-1)
+        conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+        conv_out, conv_state = _causal_conv(
+            conv_in, p["conv_w"], p["conv_b"], None if state is None else state["conv"]
+        )
+        conv_out = _silu(conv_out)
+        xc, Bm, Cm = torch.split(conv_out, [DI, N, N], dim=-1)
+        z, xc, dt = z[..., chans], xc[..., chans], dt[..., heads]
+    else:
+        x, z, xc, Bm, Cm, dt, conv_state = _sequence_parallel_columns(model, p, x, cfg, heads, chans, keep)
     B, S, D = x.shape
-    DI, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    H = cfg.n_heads if model is None else cfg.n_heads // model.size
 
-    zxbcdt = x @ p["in_proj"]
-    z, xc, Bm, Cm, dt = torch.split(zxbcdt, [DI, DI, N, N, H], dim=-1)
-    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
-    conv_out, conv_state = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"], None if state is None else state["conv"]
-    )
-    conv_out = _silu(conv_out)
-    xc, Bm, Cm = torch.split(conv_out, [DI, N, N], dim=-1)
-
-    a = -torch.exp(p["A_log"].float())                           # (H,)
-    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
+    a = -torch.exp(p["A_log"][heads].float())                    # (H,)
+    dt = F.softplus(dt.float() + p["dt_bias"][heads])             # (B,S,H)
     log_l = dt * a                                                # (B,S,H) <=0
     xh = xc.reshape(B, S, H, P)
     xh = rt.shard(xh, "batch", None, "ssm_heads", None)
@@ -169,11 +197,46 @@ def mamba2_apply(
         h_final = h
     new_state = {"h": h_final, "conv": conv_state}
 
-    y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(B, S, DI)
-    y = rmsnorm(p["out_norm"], y) * _silu(z)
+    y = y + xh * p["D"][heads][None, None, :, None].to(xh.dtype)
+    y = y.reshape(B, S, H * P)
+    y = rmsnorm(p["out_norm"][chans], y, group=model) * _silu(z)
     out = y @ p["out_proj"]
+    if model is not None:               # out_proj's rows of this rank's heads: a partial sum
+        # back to the rank's positions in training and prefill; whole in decode
+        out = model.all_reduce(out) if rt.tp else model.reduce_scatter(out, 1)
     return rt.shard(out, "batch", None, None), new_state
+
+
+def _sequence_parallel_columns(model, p: dict, x: torch.Tensor, cfg: Mamba2Config, heads: slice, chans: slice,
+                                tail: bool):
+    """A Mamba2 layer's inputs in training and prefill on the model axis,
+    where the rank holds its positions: x gathered along the sequence (the
+    scan needs all of it) and ``in_proj`` gathered whole, as the sp-sharded
+    weights are (each gather's backward a reduce-scatter): its columns
+    ``[z | x | B | C | dt]`` are cut into m equal blocks that do not line
+    up with the heads.  The rank's heads' ``z``, ``x`` and ``dt`` columns
+    and ``B``/``C`` whole are picked from it, the conv runs on the rank's
+    channels and ``B``/``C``, and (with ``tail``) the conv tail the state
+    keeps is every channel's, from the last ``K - 1`` positions' product
+    with the conv's columns: the same bits on every rank.  Returns (the
+    gathered x, z, x, B, C, dt, the conv tail or None)."""
+    DI, N, K = cfg.d_inner, cfg.d_state, cfg.d_conv
+    x = model.gather(x, 1)
+    w = model.gather(p["in_proj"], 1)
+    x_cols = slice(DI + chans.start, DI + chans.stop)
+    bc = slice(2 * DI, 2 * DI + 2 * N)
+    dt_cols = slice(2 * DI + 2 * N + heads.start, 2 * DI + 2 * N + heads.stop)
+    z, xc, Bm, Cm, dt = torch.split(x @ torch.cat([w[:, chans], w[:, x_cols], w[:, bc], w[:, dt_cols]], dim=1),
+                                    [DI // model.size, DI // model.size, N, N, heads.stop - heads.start], dim=-1)
+    conv_w = torch.cat([p["conv_w"][:, chans], p["conv_w"][:, DI:]], dim=1)
+    conv_b = torch.cat([p["conv_b"][chans], p["conv_b"][DI:]])
+    conv_out, _ = _causal_conv(torch.cat([xc, Bm, Cm], dim=-1), conv_w, conv_b)
+    xc, Bm, Cm = torch.split(_silu(conv_out), [DI // model.size, N, N], dim=-1)
+    if not tail:
+        return x, z, xc, Bm, Cm, dt, None
+    last = x[:, -(K - 1):] @ w[:, DI:2 * DI + 2 * N]                  # pre-conv, as one process's conv keeps it
+    pad = last.new_zeros((last.shape[0], K - 1, last.shape[2]))
+    return x, z, xc, Bm, Cm, dt, torch.cat([pad, last], dim=1)[:, -(K - 1):]
 
 
 def mamba2_state_specs(cfg: Mamba2Config, batch: int, n_layers: int) -> dict:

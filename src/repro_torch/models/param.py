@@ -67,15 +67,17 @@ def tree_leaves(tree: PyTree) -> list:
 def value_and_grad(fn: Callable) -> Callable:
     """``fn(params, *args) -> scalar`` becomes ``(params, *args) -> (value,
     grads)``, ``grads`` a tree like ``params`` of the gradients by
-    ``torch.autograd`` (each in its leaf's type).  The leaves are made to
-    require grad on a detached alias; the caller's tensors are not touched."""
+    ``torch.autograd`` (each in its leaf's type; zeros for a leaf the value
+    does not use, as ``jax.value_and_grad`` gives, e.g. the hybrid's shared
+    block at a depth that never calls it).  The leaves are made to require
+    grad on a detached alias; the caller's tensors are not touched."""
 
     def run(params, *args):
         params = tree_map(lambda t: t.detach().requires_grad_(), params)
         leaves = tree_leaves(params)
         with torch.enable_grad():
             value = fn(params, *args)
-        grads = iter(torch.autograd.grad(value, leaves))
+        grads = iter(torch.autograd.grad(value, leaves, allow_unused=True, materialize_grads=True))
         by_id = {id(t): next(grads) for t in leaves}
         return value.detach(), tree_map(lambda t: by_id[id(t)], params)
 

@@ -19,6 +19,18 @@ to the compute type.  One difference on purpose: without a state both
 ``timemix_apply`` and ``channelmix_apply`` return the state the sequence
 leaves (the scan's final state and the token shift's last input), which the
 reference computes and drops; serving's prefill hands it to decode.
+
+On the model axis (``rt.tp``: ``rwkv_lm`` runs the family tensor-parallel
+everywhere) a rank holds heads ``[r·H/m, (r+1)·H/m)``: the time mix's
+``wr``/``wk``/``wv``/``wg`` and ``w_lora_b`` give its columns, ``w0``,
+``bonus_u`` and ``ln_out``'s weight are sliced to its channels (``mu`` and
+``w_lora_a`` act on the whole input), the scan runs on its heads (its
+state ``s`` the rank's block), ``ln_out``'s mean of squares is summed over
+the axis and ``wo``'s partial output summed (``all_reduce``); the channel
+mix reduce-scatters its partial ``vv`` over D, multiplies the rank's
+block of ``rr`` and gathers the product (one reduce-scatter and one gather
+of a (B, S, D) tensor, where summing ``vv`` whole and gathering ``rr``
+would take an all-reduce of it besides).
 """
 
 from __future__ import annotations
@@ -157,7 +169,11 @@ def timemix_apply(
     chunked scan over the whole sequence from a zero state, with one the
     token-by-token recurrence from it."""
     B, S, D = x.shape
-    H, N = cfg.n_heads, cfg.head_dim
+    N = cfg.head_dim
+    model = rt.model if rt.tp else None
+    # on the model axis this rank's channels: heads [r·H/m, (r+1)·H/m)
+    mine = slice(None) if model is None else slice(model.rank * D // model.size, (model.rank + 1) * D // model.size)
+    H = cfg.n_heads if model is None else cfg.n_heads // model.size
     xprev = _token_shift(x, None if state is None else state["shift"])
     mu = p["mu"]
     r = _lerp(x, xprev, mu[0]) @ p["wr"]
@@ -166,12 +182,12 @@ def timemix_apply(
     g = _lerp(x, xprev, mu[3]) @ p["wg"]
     xw = _lerp(x, xprev, mu[4])
     # the reference's order of the three-operand einsum, each product rounded
-    wlog = p["w0"][None, None] + (xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    wlog = p["w0"][mine][None, None] + (xw @ p["w_lora_a"]) @ p["w_lora_b"]
     w = torch.exp(-torch.exp(wlog.float()))                   # (0,1) decay
 
     r4, k4, v4, w4 = (t.reshape(B, S, H, N) for t in (r, k, v, w))
     r4 = rt.shard(r4, "batch", None, "ssm_heads", None)
-    u = p["bonus_u"].reshape(H, N)
+    u = p["bonus_u"][mine].reshape(H, N)
 
     if state is None:
         if rt.use_kernels:
@@ -190,9 +206,11 @@ def timemix_apply(
         s_final = s
     new_state = {"s": s_final, "shift": x[:, -1:]}
 
-    y = y.reshape(B, S, D)
-    y = rmsnorm(p["ln_out"], y) * _silu(g)
+    y = y.reshape(B, S, H * N)
+    y = rmsnorm(p["ln_out"][mine], y, group=model) * _silu(g)
     out = y @ p["wo"]
+    if model is not None:               # wo's rows of this rank's heads: a partial sum
+        out = model.all_reduce(out)
     return rt.shard(out, "batch", None, None), new_state
 
 
@@ -209,6 +227,10 @@ def channelmix_apply(
     k = rt.shard(k, "batch", None, "ff_act")
     vv = k @ p["wv"]
     rr = _sigmoid(_lerp(x, xprev, p["mu"][1]) @ p["wr"])
+    if rt.tp:
+        # vv is a partial sum over the rank's ff units, rr the rank's block of
+        # D: vv reduce-scattered over D, the product gathered
+        return rt.model.gather(rr * rt.model.reduce_scatter(vv, vv.ndim - 1), vv.ndim - 1), {"shift": x[:, -1:]}
     out = rr * vv
     return rt.shard(out, "batch", None, None), {"shift": x[:, -1:]}
 

@@ -25,10 +25,20 @@ them (its scan stacks the layers' float32 shifts, so a bfloat16 buffer of a
 float32 model comes back float32), so the state returned may hold new
 ``tm_shift`` and ``cm_shift`` tensors; a float32 shift is never rounded into
 a bfloat16 buffer.
+
+On the model axis every entry point runs tensor-parallel (``rt.tp``; the
+rules never cut this family's sequence): the embedding looks up the rank's
+columns and gathers them, the blocks run on the rank's heads
+(``models/rwkv6.py``), the logits are the rank's vocabulary shard, gathered,
+so every rank holds the whole logits; ``loss_fn`` takes the cross-entropy
+of the rank's ``1/m`` of the positions, weighed by their share, so that the
+ranks' losses (and the replicated leaves' gradients) sum to one process's
+rather than m times it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -127,15 +137,33 @@ def _run(rt, cfg: RWKVLMConfig, params, tokens, state, step: bool):
     return x, params, state
 
 
+def _tensor_parallel(rt):
+    """On the model axis the family runs tensor-parallel everywhere (the
+    rules never cut its sequence): ``rt.tp``."""
+    return rt if rt.model is None else dataclasses.replace(rt, tp=True)
+
+
 def forward(rt, cfg: RWKVLMConfig, params, tokens):
     """Scoring forward over a whole sequence.  Returns the logits."""
+    rt = _tensor_parallel(rt)
     x, params, _ = _run(rt, cfg, params, tokens, None, step=False)
     return L.unembed(rt, params["embed"], x)
 
 
 def loss_fn(rt, cfg: RWKVLMConfig, params, batch) -> torch.Tensor:
+    """The mean NLL.  On the model axis every rank holds the whole
+    sequences and the whole logits, so a rank's loss is its disjoint share:
+    the mean over its positions ``[r·S/m, (r+1)·S/m)`` weighed by their
+    share of the sequence, and the ranks' losses sum to the mean."""
     logits = forward(rt, cfg, params, batch["tokens"])
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    labels = batch["labels"]
+    if rt.model is None:
+        return L.cross_entropy(logits, labels, cfg.vocab_size)
+    S, m, r = labels.shape[1], rt.model.size, rt.model.rank
+    lo, hi = r * S // m, (r + 1) * S // m
+    if hi == lo:
+        return logits.sum() * 0.0
+    return L.cross_entropy(logits[:, lo:hi], labels[:, lo:hi], cfg.vocab_size) * ((hi - lo) / S)
 
 
 def state_specs(cfg: RWKVLMConfig, batch: int) -> dict:
@@ -145,11 +173,13 @@ def state_specs(cfg: RWKVLMConfig, batch: int) -> dict:
 def prefill(rt, cfg: RWKVLMConfig, params, tokens, state):
     """The prompt (B, S) in one pass from the zero state; returns the last
     token's logits (B, 1, V) and the state the prompt leaves."""
+    rt = _tensor_parallel(rt)
     x, params, state = _run(rt, cfg, params, tokens, state, step=False)
     return L.unembed(rt, params["embed"], x[:, -1:]), state
 
 
 def decode_step(rt, cfg: RWKVLMConfig, params, tokens, state, pos=None):
     """One token through the recurrent form.  tokens: (B, 1)."""
+    rt = _tensor_parallel(rt)
     x, params, state = _run(rt, cfg, params, tokens, state, step=True)
     return L.unembed(rt, params["embed"], x), state

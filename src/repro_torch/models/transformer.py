@@ -153,10 +153,8 @@ def _whole(rt: L.Runtime, p: dict, specs_of, cfg: LMConfig) -> dict:
     """``p`` with each leaf that the rules shard on the model axis gathered
     whole, by the specs ``specs_of(cfg)`` (only the keys of ``p`` are read);
     in decode (``rt.tp``) and for the MoE experts, ``p`` as it is."""
-    if rt.model is None or rt.tp:
-        return p
     cut = {k: v for k, v in p.items() if k != "moe"}
-    return {**rt.model.gather_tree(cut, specs_of(cfg)), **({"moe": p["moe"]} if "moe" in p else {})}
+    return {**L.whole(rt, cut, specs_of(cfg)), **({"moe": p["moe"]} if "moe" in p else {})}
 
 
 def _block(

@@ -63,8 +63,10 @@ back the operand bytes by axis from the records alone.
 
 An axis group (``AxisGroup``; ``ModelAxis`` is the "model" axis's, the
 sequence-parallel scheme of the sharding rules in training and prefill and
-the tensor-parallel one in decode; the MoE experts' FSDP gathers take the
-"data" axis's): ``gather`` is an all-gather along one tensor dim whose
+the tensor-parallel one in decode and in the SSM family; the MoE experts'
+FSDP gathers take the "data" axis's; ``Transport`` and ``AxisGroup`` also
+take a ``block``, the run of consecutive ranks of the axes whose group a
+rank joins): ``gather`` is an all-gather along one tensor dim whose
 backward is a reduce-scatter (an exchange of chunks, then one
 ``ccu_reduce`` of the ``(P, chunk)`` rows), so the gradient a rank gets for
 its shard is summed over every rank's use of the gathered tensor;
@@ -93,17 +95,19 @@ from ..kernels import ops
 from ..models.param import tree_map
 
 
-def axis_group(mesh, axes: tuple[str, ...]):
+def axis_group(mesh, axes: tuple[str, ...], block: int | None = None):
     """The process group of this rank's peers along ``axes`` (the ranks that
     share its coordinates on every other mesh axis), ranks ascending: the
-    first axis in the mesh's order is the major one.  A group of several
-    axes is made here, by every rank of the mesh together."""
+    first axis in the mesh's order is the major one.  With ``block`` only
+    the peers of this rank's run of ``block`` consecutive ones.  A group of
+    several axes, or of a block, is made here, by every rank of the mesh
+    together."""
     names = tuple(mesh.mesh_dim_names)
-    if len(axes) == 1:
+    if len(axes) == 1 and block is None:
         return mesh.get_group(axes[0])
     dims = sorted(names.index(a) for a in axes)
     rest = [i for i in range(len(names)) if i not in dims]
-    ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(mesh.size(i) for i in dims))
+    ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, block or math.prod(mesh.size(i) for i in dims))
     group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
     return group
 
@@ -140,9 +144,9 @@ class Transport:
     """Moves bytes among the peers of one group of mesh axes; never sums.
     gloo groups stage CUDA tensors through host memory (module docstring)."""
 
-    def __init__(self, mesh, axes: tuple[str, ...], wire_bytes: dict[str, int]):
+    def __init__(self, mesh, axes: tuple[str, ...], wire_bytes: dict[str, int], block: int | None = None):
         self.axes = tuple(axes)
-        self.group = axis_group(mesh, self.axes)
+        self.group = axis_group(mesh, self.axes, block)
         self.size = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.ranks = dist.get_process_group_ranks(self.group)
@@ -404,16 +408,34 @@ class AxisGroup:
     order.  ``gather_tree`` gathers each leaf of a tree that the rules cut
     over these axes whole: the model axis's gathers of the sp-sharded
     weights, and the FSDP gathers of the MoE experts over "data"
-    (``moe_fsdp``)."""
+    (``moe_fsdp``).  ``within(k)`` is the group of this rank's run of ``k``
+    consecutive ranks of the same axes (a process group of each run, made
+    by every rank together the first time it is asked for), counted in the
+    same ``wire``: whisper's decode sums a head's partial scores over the
+    ranks that hold its columns."""
 
     def __init__(self, mesh, rules, axes: tuple[str, ...], *, reduce: Callable = ops.ccu_reduce,
-                 wire: dict | None = None):
+                 wire: dict | None = None, block: int | None = None):
         self.axes = tuple(axes)
         self.name = "+".join(self.axes)
         self.rules = rules
         self.reduce = reduce
-        self.transport = Transport(mesh, self.axes, {} if wire is None else wire)
+        self.wire = {} if wire is None else wire
+        self.transport = Transport(mesh, self.axes, self.wire, block)
         self.rank, self.size = self.transport.rank, self.transport.size
+        self._mesh, self._blocks = mesh, {}
+
+    def within(self, block: int) -> "AxisGroup":
+        """The group of this rank's run of ``block`` consecutive ranks of
+        these axes (the ranks that hold one whisper head's columns in
+        decode), counted in the same ``wire``; made once, the first time
+        every rank asks for it."""
+        if block == self.size:
+            return self
+        if block not in self._blocks:
+            self._blocks[block] = AxisGroup(self._mesh, self.rules, self.axes, reduce=self.reduce, wire=self.wire,
+                                            block=block)
+        return self._blocks[block]
 
     def gather_dim(self, logical: tuple) -> int | None:
         """The tensor dim that the rules put on these axes, or None."""

@@ -18,19 +18,26 @@ plain path, ``use_kernels=False``), in the reference's order
 (``train_step``, ``:81-86``):
 
 1. the loss and the gradients on the rank's share of the batch.  Where the
-   mesh's "model" axis has more than one rank (the dense, MoE and VLM
-   families; the SSM, hybrid and audio families wait for ROADMAP A13b) the
-   rank holds the positions ``[r·S/m, (r+1)·S/m)`` of its sequences and the
-   model shard of each weight the rules shard on "model" (``sp``, ``qkv``,
-   ``kv``, ``ff``, ``table_embed``, ``vocab``, ``experts``): the layers
-   gather each weight but the MoE experts and the keys and values over
-   "model" before use (``parallel.collectives.ModelAxis``,
-   ``models/transformer.py``; the MoE layer keeps its experts cut,
-   ``models/moe.py``), and each gather's backward is a reduce-scatter, so a
-   sharded leaf's gradient comes out summed over the model ranks.  The
-   gradients of the leaves replicated on "model" (the norms, ``bo``,
-   ``b_out``, the router) and the ranks' losses are summed over "model"
-   here, in one ``ccu_reduce``.  A leaf the rules cut over "data" (the MoE
+   mesh's "model" axis has more than one rank the rank holds the model
+   shard of each weight the rules shard on "model" (``sp``, ``qkv``,
+   ``kv``, ``ff``, ``table_embed``, ``vocab``, ``experts``, ``rkv``,
+   ``ssm_proj``, ``ssm_inner``) and, where the rules cut the sequence
+   (``sp``: every family but the SSM one), the positions ``[r·S/m,
+   (r+1)·S/m)`` of its sequences: the layers gather each weight but the
+   MoE experts and the keys and values over "model" before use
+   (``parallel.collectives.ModelAxis``, ``models/transformer.py``,
+   ``encdec.py``, ``hybrid.py``; the MoE layer keeps its experts cut,
+   ``models/moe.py``; a Mamba2 layer gathers x along the sequence and runs
+   its scan on the rank's heads, ``models/mamba2.py``); the SSM family,
+   whose sequence the rules never cut, runs the axis tensor-parallel over
+   its heads (``models/rwkv6.py``), its loss the rank's disjoint share of
+   the positions.  Each gather's backward is a reduce-scatter, so a sharded
+   leaf's gradient comes out summed over the model ranks.  The gradients
+   of the leaves replicated on "model" (the norms, ``bo``, ``b_out``, the
+   router, RWKV-6's ``mu``/``w0``/``bonus_u``, Mamba2's per-head leaves)
+   and the ranks' losses are summed over "model" here, in one
+   ``ccu_reduce``: each rank's are its part (a rank uses only its slice of
+   a replicated leaf sliced to its heads).  A leaf the rules cut over "data" (the MoE
    experts' ``moe_fsdp``) is gathered over it before use
    (``Runtime.fsdp``), so its gradient comes out reduce-scattered over
    "data" already; an MoE model's auxiliary loss takes its means over every
@@ -72,9 +79,14 @@ and ``train.gather``.
 ``build_serve_step`` runs prefill on the model axis the same way (each rank
 writes the gathered keys and values of the positions its block of the cache
 holds, the rules' ``cache_seq``: a prompt shorter than the cache fills the
-first blocks) and decode tensor-parallel (``models/layers.py``: every rank
-attends over its block of the cache, the blocks' outputs combined by their
-log-sum-exps; no weight gathered over "model").
+first blocks; a recurrent layer keeps the state block of its heads, its
+replicated tails the same bits on every rank; whisper's encoder output is
+gathered whole into every rank's cache) and decode tensor-parallel
+(``models/layers.py``: every rank attends over its block of the cache, the
+blocks' outputs combined by their log-sum-exps; whisper's cross-attention
+over the rank's columns of every frame, split heads' partial scores summed
+over their run of ranks; a Mamba2 layer's ``in_proj`` product gathered;
+no weight gathered over "model").
 
 ``lower_bundle`` is the dry-run's entry point (the reference's
 ``jit(...).lower``): it runs ``fn`` once, as this rank, on its blocks of
@@ -166,24 +178,14 @@ def _axes(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-# the families whose harness (``TransformerHarness``) runs on a model axis
-MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm")
-
-
 def _size(mesh, axis: str) -> int:
     names = tuple(mesh.mesh_dim_names)
     return mesh.size(names.index(axis)) if axis in names else 1
 
 
-def _model_axis(harness: Harness, mesh, rules: ShardingRules, what: str, **kw) -> ModelAxis | None:
+def _model_axis(mesh, rules: ShardingRules, **kw) -> ModelAxis | None:
     """The mesh's "model" axis where it has more than one rank, else None."""
-    if _size(mesh, MODEL_AXIS) == 1:
-        return None
-    if harness.family not in MODEL_AXIS_FAMILIES:
-        raise ValueError(f"{what} on a {MODEL_AXIS!r} axis of more than one rank is ported for the "
-                         f"{', '.join(MODEL_AXIS_FAMILIES)} families; the {harness.family!r} family waits for "
-                         f"ROADMAP A13b")
-    return ModelAxis(mesh, rules, **kw)
+    return ModelAxis(mesh, rules, **kw) if _size(mesh, MODEL_AXIS) > 1 else None
 
 
 def _fsdp_axis(mesh, rules: ShardingRules, param_ps, **kw) -> AxisGroup | None:
@@ -234,7 +236,7 @@ def build_train_step(
     dp = math.prod(mesh.size(names.index(a)) for a in dp_axes)
     reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
     wire: dict[str, int] = {}
-    model = _model_axis(harness, mesh, rules, "the train step", reduce=reduce, wire=wire)
+    model = _model_axis(mesh, rules, reduce=reduce, wire=wire)
     fsdp = _fsdp_axis(mesh, rules, param_ps, reduce=reduce, wire=wire)
     # the MoE auxiliary loss's means span every rank that holds other tokens
     spread = tuple(a for a in names if a in dp_axes + (MODEL_AXIS,) and _size(mesh, a) > 1)
@@ -400,16 +402,16 @@ def build_serve_step(
 ) -> StepBundle:
     """Prefill (cell.kind == 'prefill') or decode step bundle.  ``fn`` runs
     the harness's serving call on the rank's own params, state and inputs;
-    on a "model" axis of more than one rank (the dense, MoE and VLM
-    families) every rank returns the same logits: prefill the last model
-    rank's, decode the logits gathered over the axis.  A decode step's
+    on a "model" axis of more than one rank every rank returns the same
+    logits: prefill the last model rank's (the SSM family's, tensor-parallel,
+    gathered over the axis), decode the logits gathered over the axis.  A decode step's
     ``inputs["pos"]`` is read from its tensor; on ``meta`` (the dry-run,
     ``lower_bundle``), where no tensor can be read, the step writes the
     cell's last position that the cache holds (``decode_position``)."""
     rules = rules or rules_for_cell(harness, cell, multi_pod=multi_pod)
     wire: dict[str, int] = {}
     reduce = ops.ccu_reduce if use_kernels else ccu_reduce_plain
-    model = _model_axis(harness, mesh, rules, "serving", wire=wire, reduce=reduce)
+    model = _model_axis(mesh, rules, wire=wire, reduce=reduce)
 
     param_specs = harness.param_specs()
     state_specs = harness.serve_state_specs(cell)

@@ -163,9 +163,8 @@ def train_step(rank: int, world: int, shape: tuple, axes: tuple, batch: dict, st
     single process: the first step's synchronised gradient and AdamW
     payload, the shards after it and their blocks, the params after the
     first and the last step, the losses.  The 2-rank mesh also checks
-    ``build_serve_step``'s ``fn`` against the harness, returns its
-    ``abstract_args`` as (shape, type), and whether the SSM family's step
-    refuses a model axis of two ranks."""
+    ``build_serve_step``'s ``fn`` against the harness and returns its
+    ``abstract_args`` as (shape, type)."""
     from repro_torch.configs import load
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import ShapeCell
@@ -204,13 +203,6 @@ def train_step(rank: int, world: int, shape: tuple, axes: tuple, batch: dict, st
                     blocks=[tuple((s.start, s.stop) for s in b) for b in blocks])
         out[mode] = kept
     if not multi_pod:
-        # the model axis is ported for the dense, MoE and VLM families; the SSM family's waits for ROADMAP A13b
-        try:
-            build_train_step(load("rwkv6-1.6b", smoke=True), cell,
-                             make_mesh((1, 2), ("data", "model"), device_type="cpu"), rules=rules)
-            out["model_axis_refused"] = False
-        except ValueError as e:
-            out["model_axis_refused"] = "A13b" in str(e)
         out["serve"] = _serve_check(harness, mesh, rules)
         out["abstract"] = [[(tuple(t.shape), str(t.dtype), t.device.type) for t in tree_leaves(tree)]
                            for tree in bundle.abstract_args]

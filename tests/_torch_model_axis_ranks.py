@@ -1,7 +1,6 @@
 """Rank targets of ``tests/test_torch_model_axis*.py`` and
 ``tests/test_torch_dryrun.py`` (spawned by ``_torch_dist.spawn``): the train
-step, prefill and decode of the dense, MoE and VLM families on a mesh with a
-"model" axis, one attention layer on the rank's rows, and the MoE routing of
+step, prefill and decode of every family on a mesh with a "model" axis, one attention layer on the rank's rows, and the MoE routing of
 the rank's shard of a sequence.  Each arch's rules name its MoE strategy, as
 ``rules_for_cell`` does.  Imports torch and the port only."""
 
@@ -186,8 +185,8 @@ def records(rank: int, world: int, shape: tuple, axes: tuple, arch: str, B: int,
 
 def serve(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
     """For each case of the inputs at ``path`` ({name: dict(arch, weights,
-    prompt, prefix (or None), cache, steps, window (or None))}, numpy,
-    fp32): a served request on this rank's share of the batch, as
+    prompt, prefix (or None), cache, steps, window (or None), and an
+    encoder-decoder's frames)}, numpy, fp32): a served request on this rank's share of the batch, as
     ``build_serve_step`` runs it on the model axis: prefill of the prompt
     (after the prefix) into a cache of ``cache`` positions, each rank's
     block of the cache under the rules' ``cache_seq``, then ``steps`` greedy
@@ -220,6 +219,8 @@ def serve(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
         inp = {"tokens": torch.from_numpy(case["prompt"])}
         if P:
             inp["prefix_embeds"] = torch.from_numpy(case["prefix"])
+        if case.get("frames") is not None:
+            inp["frames"] = torch.from_numpy(case["frames"])
         inp = _local(inp, tree_pspecs(harness.serve_input_specs(pre), rules), mesh)
         logits, cache = build_serve_step(harness, pre, mesh, rules=rules).fn(params, cache, inp)
         step = build_serve_step(harness, dec, mesh, rules=drules)
@@ -263,3 +264,45 @@ def train_and_serve(rank: int, world: int, shape: tuple, axes: tuple, train_path
     """``train`` on the cases at ``train_path``, then ``serve`` on those at
     ``serve_path``, on the same ranks."""
     return {"train": train(rank, world, shape, axes, train_path), "serve": serve(rank, world, shape, axes, serve_path)}
+
+
+def family_layers(rank: int, world: int, shape: tuple, axes: tuple, path: str) -> dict:
+    """For each case of the inputs at ``path`` ({name: (arch, weights, x)},
+    numpy, fp32), one piece of a family on the model axis, on this rank's
+    blocks of its weights (the rules' specs): ``"timemix"`` an RWKV-6 time
+    mix on the whole ``x`` (B, S, D), every rank's output whole;
+    ``"mamba"`` a Mamba2 layer on the rank's positions of ``x``, its output
+    on them; ``"encode"`` whisper's encoder on the rank's frames ``x``, its
+    output gathered whole.  Each with the rank's positions."""
+    import dataclasses
+
+    from repro_torch.configs import load
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import encdec, mamba2, rwkv6
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import from_reference, tree_pspecs
+    from repro_torch.parallel.collectives import ModelAxis
+    from repro_torch.parallel.sharding import make_rules, shard_slices
+
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    rules = make_rules()
+    model = ModelAxis(mesh, rules)
+    out: dict = {}
+    for name, (arch, weights, x) in inputs(path).items():
+        cfg = load(arch, smoke=True).clone(dtype=torch.float32).cfg
+        p = from_reference(weights, torch.float32, "cpu")
+        rt = Runtime(use_kernels=False, model=model)
+        rows = shard_slices(("data", "model"), x.shape, mesh)
+        if name == "timemix":
+            p = _local(p, tree_pspecs(rwkv6.timemix_specs(cfg.inner), rules), mesh)
+            rows = (rows[0], slice(None), slice(None))
+            y, _ = rwkv6.timemix_apply(dataclasses.replace(rt, tp=True), p, torch.from_numpy(x)[rows], cfg.inner)
+        elif name == "mamba":
+            p = _local(p, tree_pspecs(mamba2.mamba2_specs(cfg.mamba), rules), mesh)
+            y, _ = mamba2.mamba2_apply(rt, p, torch.from_numpy(x)[rows], cfg.mamba)
+        else:
+            p = _local(p, tree_pspecs(encdec.model_specs(cfg), rules), mesh)
+            y = encdec.encode(rt, cfg, p, torch.from_numpy(x)[rows])
+            rows = (rows[0], slice(None), slice(None))
+        out[name] = {"rows": [(s.start, s.stop) for s in rows], "y": y.detach().numpy()}
+    return out

@@ -609,3 +609,58 @@ def test_moe_dispatch_at_a_ranks_token_share(cuda, B, T, ranks, E, K, D, dtype):
     o = moe_dispatch(disp, x)
     torch.cuda.synchronize()
     assert torch.equal(o, moe_dispatch_plain(disp, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,m", [(2, 512, 64, 64, 64, 2), (2, 2048, 64, 64, 64, 16), (2, 256, 4, 64, 16, 2)])
+def test_ssd_scan_at_a_model_ranks_heads(cuda, B, S, H, P, N, m, dtype):
+    """A Mamba2 layer's scan on a model rank (``mamba2._sequence_parallel_columns``):
+    its H/m heads, x of its d_inner channels, and B/C whole, each a slice
+    of the conv output ``(B, S, H·P/m + 2N)`` as the split leaves them (the
+    innermost stride 1, rows H·P/m + 2N apart).  Limits as
+    ``test_ssd_scan_kernel_matches_plain``'s"""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    Hr = H // m
+    conv = (torch.randn((B, S, Hr * P + 2 * N), generator=gen, device=cuda) * 0.5).to(dtype)
+    xc, Bm, Cm = torch.split(conv, [Hr * P, N, N], dim=-1)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, Hr), generator=gen, device=cuda))
+    log_l = -dt * 0.5
+    xh = xc.reshape(B, S, Hr, P) * dt[..., None].to(dtype)
+    before = ssd_scan.launches
+    y, h = ssd_scan(xh, log_l, Bm, Cm, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, hr = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128)
+    y, yr = y.float(), yr.float()
+    limit = torch.full_like(yr, 5e-5) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + 1e-5
+    assert ((y - yr).abs() <= limit).all()
+    assert ((h - hr).abs() <= 5e-5).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N,m", [(2, 512, 32, 64, 2), (2, 2048, 32, 64, 16), (2, 256, 4, 32, 2)])
+def test_rwkv6_scan_at_a_model_ranks_heads(cuda, B, S, H, N, m, dtype):
+    """An RWKV-6 time mix's scan on a model rank (``rwkv6.timemix_apply``
+    with ``rt.tp``): r/k/v of its H/m heads as the column-parallel products
+    give them, the decay in fp32, ``bonus_u`` sliced to its channels.
+    Limits as ``test_rwkv6_scan_kernel_matches_plain``'s"""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    Hr, r0 = H // m, (m - 1) * (H // m) * N                  # the last rank's heads
+    x = torch.randn((B, S, 64), generator=gen, device=cuda).to(dtype)
+    r, k, v = ((x @ (torch.randn((64, Hr * N), generator=gen, device=cuda) / 16).to(dtype)).reshape(B, S, Hr, N)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, Hr, N), generator=gen, device=cuda)) * 0.98 + 0.01
+    u = (torch.randn((H * N,), generator=gen, device=cuda) * 0.3).to(dtype)[r0:r0 + Hr * N].reshape(Hr, N)
+    before = rwkv6_scan.launches
+    y, s = rwkv6_scan(r, k, v, w, u, chunk=128)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    yr, sr = rwkv6_scan_plain(r, k, v, w, u, chunk=128)
+    y, yr = y.float(), yr.float()
+    limit = torch.full_like(yr, 5e-5) if dtype == torch.float32 else 2.0 ** -7 * yr.abs() + 5e-5
+    assert torch.isfinite(y).all() and ((y - yr).abs() <= limit).all()
+    assert ((s - sr).abs() <= 5e-5).all()

@@ -304,7 +304,7 @@ def test_group_loop_of_the_full_config(monkeypatch):
     assert (h.cfg.n_layers, h.cfg.n_shared_calls) == (38, 6)
     order = []
 
-    def mamba(rt, p, x, cfg, state=None):
+    def mamba(rt, p, x, cfg, state=None, keep=True):
         order.append("m")
         return torch.zeros_like(x), {"h": torch.zeros(()), "conv": torch.zeros(())}
 

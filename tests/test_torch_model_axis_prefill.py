@@ -14,8 +14,9 @@ cache block against the matching slice of the reference's cache at 2e-5 of
 its largest value; one attention layer on a rank's rows, against the keys
 and values gathered over "model", on both paths, against the matching rows
 of the reference's attention over the whole sequence at 2e-5 of the largest
-|output|.  And the families that wait for ROADMAP A13b refuse with a
-``ValueError`` naming it."""
+|output|.  And the SSM, hybrid and audio families' train, prefill and
+decode steps build on (1, 2) and trace on a fake process group (their
+parity: ``tests/test_torch_model_axis_{rwkv,hybrid,audio}.py``)."""
 
 import pickle
 
@@ -115,16 +116,21 @@ def test_attention_rows_match_full_attention(runs, reference, mesh, arch):
 
 
 def test_model_axis_waits_for_a13_elsewhere():
-    """the SSM, hybrid and audio families' steps on a model axis are
-    refused with a ValueError naming ROADMAP A13b (the dense, MoE and VLM
-    families' are ported)"""
+    """the SSM, hybrid and audio families' steps build on a (1, 2) mesh, as
+    the dense, MoE and VLM families' do, and each traces on ``meta`` over a
+    fake process group with collectives on "model" (no family is refused a
+    model axis any more)"""
+    from repro_torch.train.train_step import lower_bundle
+
     with fake_mesh((1, 2), ("data", "model")) as mesh:
-        with pytest.raises(ValueError, match="A13b"):
-            build_train_step(load("rwkv6-1.6b", smoke=True), ShapeCell("s", "train", 16, 2), mesh,
-                             rules=make_rules())
-        with pytest.raises(ValueError, match="A13b"):
-            build_serve_step(load("zamba2-1.2b", smoke=True), ShapeCell("d", "decode", 16, 2), mesh,
-                             rules=make_rules(sp=False))
-        with pytest.raises(ValueError, match="A13b"):
-            build_serve_step(load("whisper-base", smoke=True), ShapeCell("p", "prefill", 16, 2), mesh,
-                             rules=make_rules())
+        for arch in ("rwkv6-1.6b", "zamba2-1.2b", "whisper-base"):
+            harness = load(arch, smoke=True)
+            for cell in (ShapeCell("t", "train", 16, 2), ShapeCell("p", "prefill", 16, 2),
+                         ShapeCell("d", "decode", 16, 2)):
+                if cell.kind == "train":
+                    bundle = build_train_step(harness, cell, mesh, rules=make_rules(), use_kernels=False)
+                else:
+                    bundle = build_serve_step(harness, cell, mesh, rules=make_rules(sp=cell.kind != "decode"),
+                                              use_kernels=False)
+                low = lower_bundle(bundle, mesh)
+                assert low["operand_bytes_by_axis"]["model"] > 0, (arch, cell.kind)

@@ -160,8 +160,17 @@ def test_abstract_args_match_tree_abstract(runs):
     assert "Shard" in "".join(runs[2][0]["in_shardings"])
 
 
-def test_step_needs_a_data_parallel_mesh(runs):
-    """a mesh whose model axis has more than one rank is refused for the SSM
-    family (the dense, MoE and VLM families' model axis is ported,
-    ``tests/test_torch_model_axis*.py``; the others wait for ROADMAP A13b)"""
-    assert runs[2][0]["model_axis_refused"]
+def test_step_needs_a_data_parallel_mesh():
+    """a mesh without a "data" axis, or with an axis other than "pod",
+    "data" and "model" of more than one rank, is refused (every family runs
+    on a "model" axis of more than one rank: ``tests/test_torch_model_axis*.py``)"""
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.train_step import build_train_step
+
+    cell = ShapeCell("s", "train", 16, 2)
+    for shape, axes in (((2,), ("model",)), ((2, 2), ("data", "stage"))):
+        with fake_mesh(shape, axes) as mesh:
+            with pytest.raises(ValueError, match="needs a 'data' axis"):
+                build_train_step(load("rwkv6-1.6b", smoke=True), cell, mesh, rules=make_rules())
