@@ -106,6 +106,12 @@ training shapes.  Phases, one JSON line each:
 8. ``restart``  granite-3-2b smoke through the kernel path, int8, 10 steps,
                 a save, a new run from fresh trees that resumes it for 10
                 more, held against 20 straight (``_restart_check``)
+9. ``netsim``   the port's network layers (``repro_torch.core``,
+                ``repro_torch.netsim``; numpy on the host, no kernel): the
+                golden figures of ``tests/test_golden_numbers.py`` within its
+                2 % band (``NETSIM_GOLDEN``), Table 6's availability gap, the
+                two max-min solvers within 1e-6 on one scenario, and the
+                phase's wall seconds (``phase_netsim``)
 
 The serve phase also runs rwkv6-1.6b and zamba2-1.2b at full depth in fp32,
 kernel path against plain path, forward only (``_fp32_full_depth``).
@@ -121,6 +127,7 @@ import contextlib
 import json
 import math
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -3656,7 +3663,131 @@ def _fp32_full_depth(spec: dict) -> dict[str, int]:
     return counts
 
 
-PHASES = ["device", "build", "kernels", "slice", "serve", "train", "dist", "restart"]
+# The network layers' golden figures (``tests/test_golden_numbers.py``'s pins,
+# restated: this script imports no test), each held within that file's 2 %
+# band: the model-axis multi-ring AllReduce on the DETOUR-routed 1024-chip pod
+# at 512 MB and 64 MB, its All-to-All at 64 MB, the rack-coarsened 4-pod
+# SuperPod's "pod" axis at 64 MB, and the 8 x 4 plane's hierarchical fallback
+# (GB/s a chip).  Table 6's availability in the closed form (MTBF / (MTBF +
+# MTTR) of the paper's AFRs at its 75-minute MTTR) against the paper's
+# analytic figures, and its gap within 0.02 of the paper's "about 7.2 %" and
+# of the Monte-Carlo campaign's 0.0722 (the golden file's bars).
+NETSIM_GOLDEN = dict(model_allreduce_512mb_gbs=163.1, model_allreduce_64mb_gbs=141.8,
+                     model_a2a_64mb_gbs=46.8, coarse_pod_64mb_gbs=24.8, rect_8x4_fallback_gbs=89.9,
+                     ub_availability=0.98747, clos_availability=0.91718)
+NETSIM_REL = 0.02
+TABLE6_GAP, CAMPAIGN_GAP, GAP_BAND = 0.072, 0.0722, 0.02
+SOLVER_REL = 1e-6
+
+
+def _host_cpu() -> str:
+    """The host's CPU as ``lscpu`` gives it: vendor, model name, family and
+    model number (a virtual machine may report its model name as
+    "unknown"), and the core count."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        out = ""
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    desc = ", ".join(f"{k} {fields[k].strip()}" for k in ("Vendor ID", "Model name", "CPU family", "Model")
+                     if k in fields)
+    return f"{desc or platform.machine()}, {os.cpu_count()} cores"
+
+
+def _solvers_agree() -> dict:
+    """The reference and vectorized max-min solvers on one scenario: 40
+    seeded flows of 1-3 hops on the 64-chip rack under an rx cap, each
+    flow's first rate and the drained run's end time."""
+    from repro_torch.core.topology import ub_mesh_rack
+    from repro_torch.netsim import FluidNetwork
+
+    topo = ub_mesh_rack()
+    gen = torch.Generator().manual_seed(0)
+    walks = []
+    for _ in range(40):
+        node = int(torch.randint(topo.num_nodes, (1,), generator=gen))
+        path = [node]
+        for _ in range(1 + int(torch.randint(3, (1,), generator=gen))):
+            c = list(topo.coords(path[-1]))
+            d = int(torch.randint(topo.ndim, (1,), generator=gen))
+            c[d] = (c[d] + 1 + int(torch.randint(topo.shape[d] - 1, (1,), generator=gen))) % topo.shape[d]
+            if topo.node_id(c) not in path:
+                path.append(topo.node_id(c))
+        if len(path) > 1:
+            walks.append((tuple(path), 1e6 + 1e9 * float(torch.rand(1, generator=gen))))
+    rates, ends = {}, {}
+    for solver in ("reference", "vectorized"):
+        net = FluidNetwork(topo, rx_gbs=30.0, solver=solver)
+        for path, size in walks:
+            net.add_flow(path, size)
+        net._recompute()
+        rates[solver] = {fid: f.rate for fid, f in net.flows.items()}
+        ends[solver] = net.run()
+    ref, vec = rates["reference"], rates["vectorized"]
+    if ref.keys() != vec.keys():
+        raise SystemExit("netsim: the two solvers hold different flows")
+    worst = max(abs(ref[k] - vec[k]) / max(abs(ref[k]), abs(vec[k]), 1e-30) for k in ref)
+    end_rel = abs(ends["reference"] - ends["vectorized"]) / ends["reference"]
+    return dict(flows=len(ref), max_rate_rel=worst, end_rel=end_rel, end_s=ends["vectorized"])
+
+
+def phase_netsim() -> None:
+    """The port's network layers (``repro_torch.core``, ``repro_torch.netsim``:
+    numpy on the host) reproduce the golden figures, and the two solvers
+    agree within 1e-6 on one scenario."""
+    from repro_torch.core import availability as av
+    from repro_torch.core.cost_model import Routing, build_comm_model
+    from repro_torch.core.topology import PASSIVE_ELECTRICAL, DimSpec, NDFullMesh, SuperPod, ub_mesh_pod
+    from repro_torch.netsim import NetSim
+    from repro_torch.netsim.coarsen import coarse_calibrated_profile, coarsen_superpod
+
+    t0 = time.perf_counter()
+    got, secs = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        got[name] = fn()
+        secs[name] = time.perf_counter() - t
+
+    pod = NetSim(ub_mesh_pod(), routing=Routing.DETOUR)
+    comm = build_comm_model(multi_pod=False, routing=Routing.DETOUR)
+    timed("model_allreduce_512mb_gbs", lambda: pod.calibrated_axis_gbs(512e6, comm=comm)["model"])
+    timed("model_64mb", lambda: pod.calibrated_profile(64e6, comm=comm, axes=("model",),
+                                                       shapes=("allreduce", "all_to_all")))
+    prof = got.pop("model_64mb")
+    got["model_allreduce_64mb_gbs"] = prof.get("model", "allreduce")
+    got["model_a2a_64mb_gbs"] = prof.get("model", "all_to_all")
+    timed("coarse_pod_64mb_gbs", lambda: coarse_calibrated_profile(
+        coarsen_superpod(SuperPod(pod=ub_mesh_pod(), n_pods=4)), 64e6, axis_sizes={"pod": 4},
+        axes=("pod",), shapes=("allreduce",)).get("pod", "allreduce"))
+    rect = NDFullMesh(dims=(DimSpec("X", 8, PASSIVE_ELECTRICAL, 4), DimSpec("Y", 4, PASSIVE_ELECTRICAL, 4)))
+    timed("rect_8x4_fallback_gbs", lambda: NetSim(rect, routing=Routing.DETOUR).calibrated_axis_gbs(
+        64e6, axis_sizes={"model": 32})["model"])
+    got["ub_availability"] = av.PAPER_UB_MESH.availability(av.PAPER_MTTR_HOURS)
+    got["clos_availability"] = av.PAPER_CLOS.availability(av.PAPER_MTTR_HOURS)
+    gap = got["ub_availability"] - got["clos_availability"]
+    pod_analytic = build_comm_model(multi_pod=True, routing=Routing.DETOUR).axes["pod"].gbs_per_chip
+    timed("solvers", _solvers_agree)
+
+    misses = [f"{k} {got[k]} vs {v}" for k, v in NETSIM_GOLDEN.items() if abs(got[k] - v) > NETSIM_REL * v]
+    if not 2.5 <= got["model_allreduce_64mb_gbs"] / got["model_a2a_64mb_gbs"] <= 3.5:
+        misses.append("AllReduce / All-to-All at 64 MB outside 2.5-3.5")
+    if abs(got["coarse_pod_64mb_gbs"] - pod_analytic) > NETSIM_REL * pod_analytic:
+        misses.append(f"coarse pod axis {got['coarse_pod_64mb_gbs']} vs analytic {pod_analytic}")
+    if abs(gap - TABLE6_GAP) > GAP_BAND or abs(gap - CAMPAIGN_GAP) > GAP_BAND:
+        misses.append(f"Table-6 gap {gap}")
+    solvers = got.pop("solvers")
+    if solvers["max_rate_rel"] > SOLVER_REL or solvers["end_rel"] > SOLVER_REL:
+        misses.append(f"solvers {solvers}")
+    wall = time.perf_counter() - t0
+    emit("netsim", **got, availability_gap=gap, pod_analytic_gbs=pod_analytic, solvers=solvers,
+         golden=NETSIM_GOLDEN, rel=NETSIM_REL, seconds=secs, wall_s=wall, host_cpu=_host_cpu(),
+         ok=not misses)
+    if misses:
+        raise SystemExit("netsim: " + "; ".join(misses))
+
+
+PHASES = ["device", "build", "kernels", "slice", "serve", "train", "dist", "restart", "netsim"]
 
 
 def main() -> int:
@@ -3688,6 +3819,8 @@ def main() -> int:
                 row["model_axis_decode_rows"] = ccu["p2_decode"]
     if "restart" in phases:
         emit("restart", **_restart_check())
+    if "netsim" in phases:
+        phase_netsim()
     for row in kernel_rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

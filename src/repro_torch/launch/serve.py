@@ -13,8 +13,11 @@ with zero frames ``(batch, n_frames, d_model)`` and paligemma with no prefix;
 Same flags as the reference plus ``--device`` (default ``cuda``).  With
 ``--device cuda`` and no card it raises; it never carries on on the CPU.
 ``run(args)`` is the whole loop and returns its results; ``main`` prints them.
-The decode-serving simulator that shares the reference's module depends on
-``core/`` and ``netsim/`` and comes with their slice.
+The decode-serving simulator that shares the reference's module
+(``decode_step_s``, ``simulate_decode_serving``, ``plan_decode``,
+``rack_perf_model``) needs ``core/perf_model.py`` and ``core/planner.py``,
+which are not ported yet (ROADMAP A12c); the port's ``core/`` and
+``netsim/`` copies it also uses are in place.
 """
 
 from __future__ import annotations

@@ -123,7 +123,8 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             "pass --device cpu to run the plain versions on the CPU"
         )
     if args.auto_parallel:
-        raise NotImplementedError("--auto-parallel: the planner is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("--auto-parallel: the planner (core/planner.py, core/perf_model.py) "
+                                  "is not ported yet (ROADMAP A12c)")
     say = log if log is not None else (lambda line: None)
     harness = harness if harness is not None else load(args.arch, smoke=args.smoke)
     if harness.family == "audio":

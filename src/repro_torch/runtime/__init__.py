@@ -1,1 +1,2 @@
-"""Runtime supervision — port of the part of ``repro/runtime/`` that training uses."""
+"""Runtime supervision — the port's own copies of ``repro/runtime/``
+(``fault_tolerance``, ``elastic``; ``campaign`` is still to come, ROADMAP A12d)."""
