@@ -20,9 +20,15 @@ the type of the target tree's leaf; every other type is stored as it is.
 updates its tensors in place) and writes the files on a background thread.
 An error on that thread is raised by the next ``wait`` (or ``save``).  A
 directory without ``meta.json`` is a save that did not finish and is not
-listed.  ``keep`` saves are kept, the oldest removed first.  The reference's
-``restore`` also takes ``shardings``, which belong to the distribution slice;
-here each leaf goes to one ``device``, or to its target leaf's.
+listed.  ``keep`` saves are kept, the oldest removed first.
+
+``restore(..., shardings=)`` re-shards a save onto another mesh, the
+elastic-restart path (``runtime/elastic.rescale``): ``shardings`` is a tree
+shaped like the target whose leaves are ``parallel.sharding.Placement``s
+(a mesh and a pspec tuple, the port's form of the reference's
+``NamedSharding``), and each such leaf comes back as the block this rank
+holds under it, on the mesh's device, as the reference's ``jax.device_put``
+of the leaf onto its ``NamedSharding`` holds it on the rank's device.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import shard_slices
 
 
 def flatten(tree, prefix: str = "") -> dict[str, Any]:
@@ -122,23 +130,33 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, tree_like: Any, device=None) -> Any:
+    def restore(self, step: int, tree_like: Any, device=None, shardings: Any = None) -> Any:
         """A tree like ``tree_like`` read from the save at ``step``.  Its
         leaves are tensors or anything else with a ``shape`` and a ``dtype``
-        (a ``ParamSpec``): each leaf is read in its target's type, onto
-        ``device`` or else its target tensor's.  Only the target's keys are
-        read: a missing one raises ``KeyError``, a shape other than the
-        target's ``ValueError``."""
+        (a ``ParamSpec``): each leaf is read in its target's type.  A leaf
+        with a ``Placement`` in ``shardings`` (a tree like ``tree_like``)
+        comes back as this rank's block under it, onto ``device`` or else
+        the placement mesh's device; any other leaf whole, onto ``device``
+        or else its target tensor's.  Only the target's keys are read: a
+        missing one raises ``KeyError``, a shape other than the target's
+        ``ValueError``."""
         src = self.dir / f"step_{step:08d}"
         meta = json.loads((src / "meta.json").read_text())
         flat_like = flatten(tree_like)
         missing = set(flat_like) - set(meta["keys"])
         if missing:
             raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
+        flat_sh = flatten(shardings) if shardings is not None else {}
         loaded = {}
         for k, like in flat_like.items():
             arr = np.load(src / (k.replace("/", "__") + ".npy"))
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"checkpoint leaf {k} of shape {arr.shape}, expected {tuple(like.shape)}")
-            loaded[k] = torch.from_numpy(arr).to(device if device is not None else like.device, like.dtype)
+            place = flat_sh.get(k)
+            if place is None:
+                where = device if device is not None else like.device
+            else:
+                arr = np.array(arr[shard_slices(place.pspec, arr.shape, place.mesh)])
+                where = device if device is not None else place.mesh.device_type
+            loaded[k] = torch.from_numpy(arr).to(where, like.dtype)
         return _unflatten_like(tree_like, loaded)

@@ -13,11 +13,16 @@ with zero frames ``(batch, n_frames, d_model)`` and paligemma with no prefix;
 Same flags as the reference plus ``--device`` (default ``cuda``).  With
 ``--device cuda`` and no card it raises; it never carries on on the CPU.
 ``run(args)`` is the whole loop and returns its results; ``main`` prints them.
-The decode-serving simulator that shares the reference's module
-(``decode_step_s``, ``simulate_decode_serving``, ``plan_decode``,
-``rack_perf_model``) needs ``core/perf_model.py`` and ``core/planner.py``,
-which are not ported yet (ROADMAP A12c); the port's ``core/`` and
-``netsim/`` copies it also uses are in place.
+
+The module also holds the reference's **decode-serving simulator**, as the
+reference's module does, numpy on the host over the port's copies of
+``core/`` and ``netsim/``: ``decode_comm_bytes``, ``decode_step_s`` (one
+continuous-batching decode step on a UB-Mesh rack, priced by bandwidth or
+by the message-level latency profile), ``simulate_decode_serving``
+(Poisson arrivals through a continuous-batching server), ``plan_decode``
+(the bandwidth-optimal sharding and the one that meets a p99 token-latency
+SLO) and ``rack_perf_model``; their lines are the reference's
+(``tests/test_torch_serve_sim_parity.py`` holds their outputs equal).
 """
 
 from __future__ import annotations
@@ -33,6 +38,280 @@ from ..kernels import launch_counts
 from ..models.api import ShapeCell
 from ..models.layers import Runtime
 from ..models.param import tree_init
+
+
+# effective HBM streaming bandwidth during decode (GB/s per chip): decode
+# is weight-streaming-bound, so the per-step compute floor is
+# local_param_bytes / (DECODE_HBM_GBS * 1e9)
+DECODE_HBM_GBS = 1600.0
+
+# payload the latency profile is calibrated at: one decode step's
+# per-layer TP AllReduce moves O(batch x hidden) activation bytes — tens
+# of KB, squarely in the latency-dominated regime
+DECODE_MSG_BYTES = 64e3
+
+
+# ---------------------------------------------------------------------------
+# Decode step pricing
+# ---------------------------------------------------------------------------
+
+
+def decode_comm_bytes(w, batch: int) -> float:
+    """Per-layer TP AllReduce payload of one decode step: the batch's
+    activation row (batch x hidden, bf16)."""
+    return float(batch) * w.hidden * w.bytes_per_elem
+
+
+def decode_step_s(
+    w,
+    p,
+    perf,
+    *,
+    batch: int = 8,
+    pricing: str = "bandwidth",
+    msg_bytes: float = DECODE_MSG_BYTES,
+) -> float:
+    """One continuous-batching decode step (seconds) for workload ``w``
+    sharded as ``p`` — HBM weight streaming plus per-layer TP collectives.
+
+    ``pricing`` selects the communication backend:
+
+    * ``"bandwidth"`` — ``perf.comm_model(p)``'s closed-form AllReduce
+      cost at the decode payload.  The analytic latency term rides the
+      CommModel's pinned axis width, so it is (nearly) spec-invariant.
+    * ``"latency"`` — the measured message-level profile
+      (``perf.latency_profile(p)``): each collective costs its measured
+      makespan ``total_s`` at the calibrated decode payload, which scales
+      with the spec's REAL group width.  Requires a backend exposing
+      ``latency_profile`` (``core.perf_model.NetsimPerfModel``).
+    """
+    shard = max(1, p.tp * p.sp * p.pp)
+    params_bytes = w.params_total * w.bytes_per_elem
+    t_hbm = (params_bytes / shard) / (DECODE_HBM_GBS * 1e9)
+
+    group_w = p.tp * p.sp
+    if group_w <= 1:
+        return t_hbm
+    n_coll = 2 * w.n_layers          # attention out-proj + MLP down-proj
+    if pricing == "latency":
+        if not hasattr(perf, "latency_profile"):
+            raise TypeError(
+                f"pricing='latency' needs a latency-calibrated backend "
+                f"(got {type(perf).__name__})"
+            )
+        prof = perf.latency_profile(p, size_bytes=msg_bytes)
+        st = prof.get("model", "allreduce")
+        if st is None:
+            raise ValueError("latency profile has no model-axis allreduce")
+        t_coll = st.total_s
+    elif pricing == "bandwidth":
+        comm = perf.comm_model(p)
+        t_coll = comm.allreduce("model", decode_comm_bytes(w, batch))
+    else:
+        raise ValueError(f"unknown pricing {pricing!r}")
+    return t_hbm + n_coll * t_coll
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching serving simulator
+# ---------------------------------------------------------------------------
+
+
+def simulate_decode_serving(
+    step_s: float,
+    *,
+    qps: float,
+    slots: int,
+    gen_tokens: int = 64,
+    duration_s: float = 20.0,
+    seed: int = 0,
+    slo_s: float | None = None,
+) -> dict:
+    """Poisson request arrivals through a continuous-batching decode
+    server: ``slots`` concurrent sequences (batch x DP replicas), one
+    token per occupied slot per ``step_s``.
+
+    Token latency is the inter-token gap for steady-state tokens and
+    (admission wait + one step) for a request's first token — so queueing
+    under load shows up where it hurts, in the p99.  Deterministic for a
+    given ``seed``.  Returns p50/p99/mean token latency, aggregate
+    tokens/s, slot utilization and (when ``slo_s`` is given) SLO
+    attainment.
+    """
+    if step_s <= 0 or qps <= 0 or slots <= 0:
+        raise ValueError("step_s, qps and slots must be positive")
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / qps, size=max(16, int(qps * duration_s * 2)))
+    arrivals = np.cumsum(gaps)
+    arrivals = arrivals[arrivals < duration_s]
+
+    lat: list[float] = []            # first-token latencies (wait + 1 step)
+    queue: list[float] = []          # arrival times, FIFO
+    active: list[int] = []           # remaining tokens per occupied slot
+    nxt = 0                          # next arrival index
+    t = 0.0
+    busy_slot_steps = 0
+    total_steps = 0
+    while nxt < len(arrivals) or queue or active:
+        if not queue and not active:
+            # idle: jump to the next arrival's step boundary
+            t = max(t, float(arrivals[nxt]))
+        while nxt < len(arrivals) and arrivals[nxt] <= t:
+            queue.append(float(arrivals[nxt]))
+            nxt += 1
+        t_end = t + step_s
+        # admit waiting requests into free slots; their first token lands
+        # at the end of this step and carries the admission wait
+        while queue and len(active) < slots:
+            arr = queue.pop(0)
+            active.append(gen_tokens)
+            lat.append(t_end - arr)
+        busy_slot_steps += len(active)
+        total_steps += 1
+        active = [r - 1 for r in active if r > 1]
+        t = t_end
+        if total_steps > 10_000_000:
+            raise RuntimeError("serving simulation runaway")
+
+    # steady-state tokens: each admitted request emits gen_tokens total,
+    # the first is in ``lat`` already, the rest cost exactly step_s each
+    n_requests = len(lat)
+    n_steady_tokens = n_requests * (gen_tokens - 1)
+    samples = np.concatenate([
+        np.asarray(lat, dtype=float),
+        np.full(n_steady_tokens, step_s, dtype=float),
+    ]) if n_steady_tokens else np.asarray(lat, dtype=float)
+    total_tokens = len(samples)
+    out = {
+        "step_s": step_s,
+        "qps": qps,
+        "slots": slots,
+        "requests": n_requests,
+        "tokens": int(total_tokens),
+        "makespan_s": t,
+        "tokens_per_s": float(total_tokens / t) if t else 0.0,
+        "utilization": (
+            busy_slot_steps / (total_steps * slots) if total_steps else 0.0
+        ),
+        "p50_s": float(np.percentile(samples, 50)) if total_tokens else 0.0,
+        "p99_s": float(np.percentile(samples, 99)) if total_tokens else 0.0,
+        "mean_s": float(samples.mean()) if total_tokens else 0.0,
+    }
+    if slo_s is not None:
+        out["slo_s"] = slo_s
+        out["attainment"] = (
+            float((samples <= slo_s).mean()) if total_tokens else 1.0
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SLO-driven decode planning
+# ---------------------------------------------------------------------------
+
+
+def plan_decode(
+    w,
+    chips: int,
+    perf,
+    *,
+    qps: float,
+    slo_s: float,
+    batch: int = 8,
+    gen_tokens: int = 64,
+    duration_s: float = 20.0,
+    seed: int = 0,
+    max_tp: int = 64,
+    msg_bytes: float = DECODE_MSG_BYTES,
+) -> dict:
+    """Search decode shardings of ``chips`` for workload ``w`` against a
+    p99 token-latency SLO at a target request rate.
+
+    Every candidate from ``enumerate_decode_specs`` is priced twice —
+    ``pricing="bandwidth"`` (the classic throughput objective) and
+    ``pricing="latency"`` (the measured message-level profile) — and the
+    latency-priced step time drives a serving simulation at ``qps``.
+
+    Returns ``{"candidates": [...], "bandwidth_choice": spec-dict,
+    "slo_choice": spec-dict, "diverged": bool}``: ``bandwidth_choice``
+    minimizes the bandwidth-priced step time; ``slo_choice`` maximizes
+    simulated throughput among specs whose simulated p99 meets ``slo_s``
+    (falling back to the lowest-p99 spec when none do).
+    """
+    from ..core.planner import enumerate_decode_specs
+
+    specs = enumerate_decode_specs(w, chips, max_tp=max_tp)
+    if not specs:
+        raise ValueError(
+            f"no feasible decode sharding of {chips} chips for {w.name}"
+        )
+    candidates = []
+    for p in specs:
+        step_bw = decode_step_s(
+            w, p, perf, batch=batch, pricing="bandwidth", msg_bytes=msg_bytes
+        )
+        step_lat = decode_step_s(
+            w, p, perf, batch=batch, pricing="latency", msg_bytes=msg_bytes
+        )
+        serving = simulate_decode_serving(
+            step_lat,
+            qps=qps,
+            slots=batch * p.dp,
+            gen_tokens=gen_tokens,
+            duration_s=duration_s,
+            seed=seed,
+            slo_s=slo_s,
+        )
+        candidates.append({
+            "tp": p.tp,
+            "dp": p.dp,
+            "step_bandwidth_s": step_bw,
+            "step_latency_s": step_lat,
+            "p50_s": serving["p50_s"],
+            "p99_s": serving["p99_s"],
+            "tokens_per_s": serving["tokens_per_s"],
+            "attainment": serving["attainment"],
+            "meets_slo": serving["p99_s"] <= slo_s,
+        })
+
+    bw_choice = min(candidates, key=lambda c: c["step_bandwidth_s"])
+    meeting = [c for c in candidates if c["meets_slo"]]
+    if meeting:
+        slo_choice = max(meeting, key=lambda c: c["tokens_per_s"])
+    else:
+        slo_choice = min(candidates, key=lambda c: c["p99_s"])
+    return {
+        "workload": w.name,
+        "chips": chips,
+        "qps": qps,
+        "slo_s": slo_s,
+        "batch": batch,
+        "candidates": candidates,
+        "bandwidth_choice": bw_choice,
+        "slo_choice": slo_choice,
+        "diverged": (bw_choice["tp"], bw_choice["dp"])
+        != (slo_choice["tp"], slo_choice["dp"]),
+    }
+
+
+def rack_perf_model(cache_dir: "str | None" = "auto"):
+    """The serving-default latency-calibrated backend: the production
+    CommModel measured on one UB-Mesh rack (the 8x8 plane decode TP
+    groups live in)."""
+    from ..core.cost_model import build_comm_model
+    from ..core.perf_model import NetsimPerfModel
+    from ..core.topology import ub_mesh_rack
+
+    return NetsimPerfModel(
+        base=build_comm_model(),
+        topo=ub_mesh_rack(),
+        cache_dir=cache_dir,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Real-model serving driver
+# ---------------------------------------------------------------------------
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -11,8 +11,12 @@ The reference's flags, plus ``--smoke/--no-smoke`` (the reference's
 on the CPU), ``--n-layers`` (the config at that depth, widths unchanged: at 8
 of its 36 layers granite-8b's training state of 20 bytes a parameter, 42.95
 GB, fits one 80 GB card) and ``--seed`` (the weights' draw; the data's seed
-is 0, as the reference's).  ``--auto-parallel`` raises: the planner comes
-with its slice.  The transformers (dense, MoE, and paligemma text-only as the
+is 0, as the reference's).  ``--auto-parallel`` runs the reference's
+topology-aware search first (``plan_parallelism``: the run's workload on
+512 chips of two UB-Mesh pods, BORROW routing, the port's copy of
+``core/planner.py``) and logs its three best specs in the reference's
+``[planner] ...`` lines; the run itself stays on its one device, as the
+reference's does.  The transformers (dense, MoE, and paligemma text-only as the
 reference's train script trains it), rwkv6 and zamba2 train.  whisper-base
 raises: the reference's train script feeds tokens and labels only, and its
 encoder-decoder loss reads frames (ROADMAP C5).
@@ -80,6 +84,44 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def workload_spec(harness, args: argparse.Namespace):
+    """The run's ``WorkloadSpec`` as the reference's ``--auto-parallel``
+    builds it (``repro/launch/train.py`` ``main``): the config's depth and
+    widths, ``--seq``, a global batch of at least 256, and the parameters
+    counted from the harness's ``ParamSpec`` tree."""
+    from ..core.traffic import WorkloadSpec
+
+    cfg = harness.cfg
+    return WorkloadSpec(
+        name=args.arch,
+        n_layers=cfg.n_layers,
+        hidden=cfg.d_model,
+        n_heads=getattr(cfg, "n_heads", cfg.d_model // 64),
+        head_dim=getattr(cfg, "head_dim", 64),
+        seq_len=args.seq,
+        global_batch=max(args.batch, 256),
+        params_total=float(param_count(harness.param_specs())),
+    )
+
+
+def plan_parallelism(harness, args: argparse.Namespace):
+    """The reference's ``--auto-parallel`` search: the run's workload
+    (``workload_spec``) planned on 512 chips over the two-pod ``CommModel``
+    with BORROW routing; the top three, a ``PlanReport``."""
+    from ..core.cost_model import Routing, build_comm_model
+    from ..core.planner import plan
+
+    return plan(workload_spec(harness, args), 512, build_comm_model(multi_pod=True, routing=Routing.BORROW),
+                top_k=3)
+
+
+def planner_line(result) -> str:
+    """One planned spec as the reference's ``--auto-parallel`` prints it."""
+    s = result.spec
+    return (f"[planner] tp={s.tp} sp={s.sp} pp={s.pp} dp={s.dp} ep={s.ep} "
+            f"m={s.microbatches} iter={result.iteration_s:.3f}s")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -112,7 +154,8 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     ran), the kernels' launch counts over the loop, the update count the run
     started from (``start_step``), the label of the save it resumed from
     (``resumed_from``, else None) and whether that save held the residual
-    (``residual_restored``).  The three parts of a step are marked for
+    (``residual_restored``), and with ``--auto-parallel`` the planner's
+    ``PlanReport`` (``plans``, else None).  The three parts of a step are marked for
     ``torch.profiler`` as ``train.grad``, ``train.compress`` and
     ``train.adamw`` (``launch/profile_train.py`` reads them).
     """
@@ -122,9 +165,6 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             "--device cuda asked for, but torch.cuda.is_available() is False; "
             "pass --device cpu to run the plain versions on the CPU"
         )
-    if args.auto_parallel:
-        raise NotImplementedError("--auto-parallel: the planner (core/planner.py, core/perf_model.py) "
-                                  "is not ported yet (ROADMAP A12c)")
     say = log if log is not None else (lambda line: None)
     harness = harness if harness is not None else load(args.arch, smoke=args.smoke)
     if harness.family == "audio":
@@ -134,6 +174,9 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             "way with a KeyError (ROADMAP C5)")
     if args.n_layers is not None:
         harness = harness.clone(n_layers=args.n_layers)
+    plans = plan_parallelism(harness, args) if args.auto_parallel else None
+    for r in plans or ():
+        say(planner_line(r))
     cfg = harness.cfg
     rt = rt if rt is not None else Runtime(rules=None)
     if device.type == "cuda":
@@ -229,6 +272,7 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     out["start_step"] = start
     out["resumed_from"] = label
     out["residual_restored"] = residual_restored
+    out["plans"] = plans
     return out
 
 
@@ -245,7 +289,8 @@ def main(argv: list[str] | None = None) -> None:
           f"kernel launches={res['launches']}")
     print(f"[train] done. first loss={losses[0]:.4f} last loss={losses[-1]:.4f} "
           f"({res['tokens_per_s']:.0f} tok/s after the first step)")
-    assert losses[-1] < losses[0], "loss did not improve"
+    # one step has nothing to improve on (the reference's check fails there)
+    assert len(losses) < 2 or losses[-1] < losses[0], "loss did not improve"
 
 
 if __name__ == "__main__":

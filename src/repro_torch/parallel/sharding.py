@@ -15,12 +15,15 @@ so one rule set adapts between train and decode.
 sizes (16, 32 with pods): a smaller mesh passes its rules explicitly and
 the specs stay those of production.  New here: ``shard_slices``, the rank's
 local block of a tensor under a spec, cut with the mesh's actual sizes (the
-ZeRO-1 shard of a leaf).
+ZeRO-1 shard of a leaf), and ``Placement``, a mesh and a pspec: the port's
+form of the reference's ``NamedSharding`` (``CheckpointManager.restore``'s
+``shardings``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 from ..models.param import ParamSpec, ShardingRules, tree_map
 
@@ -156,3 +159,10 @@ def shard_slices(pspec: tuple, shape: tuple[int, ...], mesh) -> tuple[slice, ...
     sizes = {a: mesh.size(i) for i, a in enumerate(names)}
     coord = dict(zip(names, mesh.get_coordinate()))
     return local_slices(pspec, shape, sizes, coord)
+
+
+class Placement(NamedTuple):
+    """A ``DeviceMesh`` and a pspec tuple: the port's form of the reference's
+    ``NamedSharding(mesh, PartitionSpec(*pspec))``."""
+    mesh: Any
+    pspec: tuple

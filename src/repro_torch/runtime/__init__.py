@@ -1,2 +1,2 @@
 """Runtime supervision — the port's own copies of ``repro/runtime/``
-(``fault_tolerance``, ``elastic``; ``campaign`` is still to come, ROADMAP A12d)."""
+(``fault_tolerance``, ``elastic``, ``campaign``)."""

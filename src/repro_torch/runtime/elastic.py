@@ -1,9 +1,8 @@
 """The port's own copy of ``repro/runtime/elastic.py``, held to the original by
 ``tests/test_torch_runtime_ft.py``; it imports nothing of the package.
 ``rescale`` is the reference's: it hands ``shardings=`` to the manager's
-``restore``, as the reference's ``CheckpointManager`` takes it; the port's
-``CheckpointManager.restore`` takes ``device=`` instead, and nothing in the
-port calls ``rescale``.
+``restore``, which the port's ``CheckpointManager`` takes as a tree of
+``parallel.sharding.Placement``s (``tests/test_torch_checkpoint_reshard.py``).
 
 Elastic scaling: resume a job on a different DP width.
 

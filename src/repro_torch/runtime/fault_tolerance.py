@@ -1,8 +1,5 @@
 """The port's own copy of ``repro/runtime/fault_tolerance.py``, held to the original by
 ``tests/test_torch_runtime_ft.py``; only its imports of the package differ.
-With ``runtime/elastic.py`` beside it, the port's ``runtime/`` lacks only the
-copy of ``runtime/campaign.py``, which needs ``core/codesign.py`` (ROADMAP
-A12c, A12d).
 
 Self-healing runtime (paper P3): 64+1 backup NPUs, link recovery,
 heartbeats and straggler mitigation.

@@ -244,3 +244,35 @@ def _serve_check(harness, mesh, rules) -> dict:
     out["decode"] = float((a2 - b2).abs().max())
     out["shapes"] = (tuple(a.shape), tuple(a2.shape))
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoint re-sharding
+# ---------------------------------------------------------------------------
+
+
+def reshard_restore(rank: int, world: int, shape: tuple, directory: str, step: int,
+                    specs: dict, pspecs: dict) -> dict:
+    """This rank's blocks of the save at ``step`` restored onto a
+    ("data", "model") mesh of ``shape``, through ``restore(...,
+    shardings=)`` and through ``elastic.rescale`` with the same manager:
+    ``{"restore": {key: (dtype, device type, block)}, "rescale": ...,
+    "new_dp": ...}``, ``specs`` a flat ``{key: (shape, dtype name)}`` and
+    ``pspecs`` a flat ``{key: pspec}``."""
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.parallel.sharding import Placement
+
+    mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+    like = {k: torch.empty(s, dtype=getattr(torch, t), device="meta") for k, (s, t) in specs.items()}
+    shardings = {k: Placement(mesh, ps) for k, ps in pspecs.items()}
+    manager = CheckpointManager(directory)
+
+    def blocks(tree):
+        return {k: (str(t.dtype), t.device.type, _np(t)) for k, t in flatten(tree).items()}
+
+    plan = elastic.ElasticPlan(old_dp=2, new_dp=shape[0], old_global_batch=8)
+    state, back = elastic.rescale(manager, step, like, shardings, plan)
+    return {"restore": blocks(manager.restore(step, like, shardings=shardings)),
+            "rescale": blocks(state), "new_dp": back.new_dp}

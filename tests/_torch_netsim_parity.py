@@ -72,3 +72,64 @@ def both(modules: str, fn):
     assert ref[0] == "ok", ref
     assert ref == port
     return ref[1]
+
+
+# ---------------------------------------------------------------------------
+# the calibrated layers: perf_model, planner, simulator, codesign, campaign
+# ---------------------------------------------------------------------------
+
+# what a ``PlanReport``'s ``calibration`` and ``precalibrate``'s statistics
+# count (wall seconds are left out: they are the host's, not the model's)
+COUNTS = ("hits", "misses", "disk_hits", "sessions", "session_keys", "keys", "measured",
+          "unique_measured", "deduped", "models")
+
+
+def counts(stats: dict) -> dict:
+    """The counts of a calibration-statistics dict, and which keys were
+    measured (``per_key_s``'s keys, not their seconds)."""
+    out = {k: stats[k] for k in COUNTS if k in stats}
+    if "per_key_s" in stats:
+        out["per_key"] = sorted(map(str, stats["per_key_s"]))
+    return out
+
+
+def plan_fields(report) -> dict:
+    """A ``PlanReport`` but its wall seconds: its ranked results, its
+    bookkeeping and its calibration counts."""
+    return {"results": report.results, "n_enumerated": report.n_enumerated,
+            "n_infeasible": report.n_infeasible, "skipped": report.skipped,
+            "n_prefiltered": report.n_prefiltered, "calibration": counts(report.calibration)}
+
+
+def fresh_calibration(root: str) -> None:
+    """Drop package ``root``'s in-process calibration memos and zero its
+    counters, as a new process starts."""
+    pm = importlib.import_module(f"{root}.core.perf_model")
+    for memo in (pm._CALIBRATION_CACHE, pm._LATENCY_CACHE, pm._DISK_CACHES):
+        memo.clear()
+    pm.reset_calibration_stats()
+
+
+def calibrated(modules: str, fn, tmp_path, monkeypatch):
+    """``both``, with each side calibrating from nothing: its own cache
+    directory (``$CALIB_CACHE_DIR`` under ``tmp_path``, named after the
+    package) and its memos dropped before it runs.  The two packages share
+    the store's key and file layout, so a shared directory would let the
+    second side read the first side's measurements and never measure.
+    Returns the value and the port's ``calibration_stats()`` after its run."""
+    results, stats = [], None
+    for root in ("repro", "repro_torch"):
+        monkeypatch.setenv("CALIB_CACHE_DIR", str(tmp_path / root))
+        fresh_calibration(root)
+        results.append(outcome(fn, *(importlib.import_module(f"{root}.{m}") for m in modules.split())))
+        stats = importlib.import_module(f"{root}.core.perf_model").calibration_stats()
+    ref, port = results
+    assert ref[0] == "ok", ref
+    assert ref == port
+    return ref[1], stats
+
+
+def measured(stats: dict) -> bool:
+    """The port's side ran its own measurements: netsim time spent, and
+    nothing read back from a store."""
+    return stats["measure_s"] > 0 and stats["disk_hits"] == 0 and stats["misses"] > 0

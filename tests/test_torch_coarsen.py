@@ -1,8 +1,5 @@
 """The reference's ``tests/test_coarsen.py`` restated against the port's
-``repro_torch.netsim.coarsen``.  ``TestSuperpodPerfModel``,
-``TestMixedPerfModel`` and the ``NetsimPerfModel`` check of
-``test_detail_racks_validation`` need ``core.perf_model`` (and
-``core.planner``): they wait for their copies, ROADMAP A12c.
+``repro_torch.netsim.coarsen`` and ``core.perf_model``.
 
 Rack-coarsened SuperPod calibration (netsim/coarsen.py).
 
@@ -18,9 +15,13 @@ Contracts:
   4096-chip ``plan()`` stays fast.
 """
 
+import time
+from dataclasses import replace
+
 import pytest
 
 from repro_torch.core.cost_model import Routing, build_comm_model
+from repro_torch.core.perf_model import NetsimPerfModel
 from repro_torch.core.topology import SuperPod, ub_mesh_pod
 from repro_torch.netsim import NetSim
 from repro_torch.netsim.coarsen import (
@@ -133,6 +134,45 @@ class TestCoarseAccuracy:
         assert total == pytest.approx(uplink, rel=1e-6)
 
 
+class TestSuperpodPerfModel:
+    def test_pod_axis_priced_on_coarse_measurement(self, superpod4):
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        base = base.override_axis("pod", replace(base.axes["pod"], size=4))
+        perf = NetsimPerfModel(
+            base, topo=ub_mesh_pod(), size_bytes=64e6, superpod=superpod4
+        )
+        cm = perf.comm_model(None)
+        pod = cm.axes["pod"]
+        assert pod.has_shape("allreduce")
+        # measured, clamped at the analytic bound, and within the 20% bar
+        assert pod.gbs_per_chip <= base.axes["pod"].gbs_per_chip + 1e-9
+        assert pod.gbs_per_chip >= 0.80 * base.axes["pod"].gbs_per_chip
+
+    def test_without_superpod_pod_axis_stays_analytic(self):
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        perf = NetsimPerfModel(base, topo=ub_mesh_pod(), size_bytes=64e6)
+        cm = perf.comm_model(None)
+        assert cm.axes["pod"].gbs_per_chip == base.axes["pod"].gbs_per_chip
+        assert not cm.axes["pod"].has_shape("allreduce")
+
+    def test_4096_chip_plan_under_budget(self, superpod4):
+        from repro_torch.core.planner import plan
+        from repro_torch.core.traffic import moe_2t_workload
+
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        base = base.override_axis("pod", replace(base.axes["pod"], size=4))
+        perf = NetsimPerfModel(
+            base, topo=ub_mesh_pod(), size_bytes=64e6, superpod=superpod4
+        )
+        w, _ = moe_2t_workload()
+        t0 = time.perf_counter()
+        rep = plan(w, 4096, perf)
+        wall = time.perf_counter() - t0
+        assert len(rep) > 0
+        assert rep[0].spec.chips == 4096
+        assert wall < 60.0
+
+
 class TestMixedMeshGeometry:
     def test_empty_detail_racks_is_pure_coarse(self, superpod4):
         # the coarse-only path must stay byte-for-byte the first
@@ -197,6 +237,11 @@ class TestMixedMeshGeometry:
             coarsen_superpod(superpod4, level="pod", detail_racks=(0,))
         with pytest.raises(ValueError):
             coarsen_superpod(superpod4, detail_racks=(999,))
+        # detail_racks without a SuperPod to embed them in must not
+        # silently fall back to the isolated chip-level calibration
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        with pytest.raises(ValueError):
+            NetsimPerfModel(base, topo=ub_mesh_pod(), detail_racks=(0,))
         # background on a single-pod SuperPod has no HRS tier to cross —
         # measuring "with background" would silently return idle numbers
         single = coarsen_superpod(
@@ -381,3 +426,57 @@ class TestMixedFailureReroute:
         # utilization stays below the clean run's on that link
         net = sim.last_network
         assert (c, z_peer) in net.failed
+
+
+class TestMixedPerfModel:
+    def test_detail_racks_degrade_planner_model_axis(self, superpod4):
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        base = base.override_axis(
+            "pod", replace(base.axes["pod"], size=4)
+        )
+        iso = NetsimPerfModel(
+            base, topo=ub_mesh_pod(), size_bytes=64e6, superpod=superpod4
+        )
+        mix = NetsimPerfModel(
+            base, topo=ub_mesh_pod(), size_bytes=64e6, superpod=superpod4,
+            detail_racks=(0,),
+        )
+        cm_iso = iso.comm_model(None)
+        cm_mix = mix.comm_model(None)
+        # model axis priced lower under DCN interference; memo keys are
+        # distinct so the isolated number is not clobbered
+        ar_iso = cm_iso.axes["model"].bw_for("allreduce")
+        ar_mix = cm_mix.axes["model"].bw_for("allreduce")
+        assert ar_mix < ar_iso
+        assert 1 - ar_mix / ar_iso > 0.05
+        # pod axis still priced on the (cached) coarse measurement
+        assert cm_mix.axes["pod"].gbs_per_chip == pytest.approx(
+            cm_iso.axes["pod"].gbs_per_chip
+        )
+        # re-resolving the isolated backend returns the isolated number
+        assert iso.comm_model(None).axes["model"].bw_for(
+            "allreduce"
+        ) == pytest.approx(ar_iso)
+
+    def test_spec_narrowed_mixed_calibration(self, superpod4):
+        # partial-width TP*SP groups ride the hierarchical schedule
+        # inside the embedded rack too (same conventions as chip level),
+        # still with the DCN background applied
+        from repro_torch.core.traffic import ParallelSpec
+
+        base = build_comm_model(multi_pod=True, routing=Routing.DETOUR)
+        base = base.override_axis(
+            "pod", replace(base.axes["pod"], size=4)
+        )
+        mix = NetsimPerfModel(
+            base, topo=ub_mesh_pod(), size_bytes=64e6, superpod=superpod4,
+            detail_racks=(0,),
+        )
+        spec = ParallelSpec(tp=8, sp=2, pp=2, dp=16, ep=2)
+        cm = mix.comm_model(spec)
+        full = mix.comm_model(None)
+        narrow = cm.axes["model"].bw_for("allreduce")
+        wide = full.axes["model"].bw_for("allreduce")
+        assert narrow > 0
+        # a 16-chip group cannot beat the full-plane grid rings
+        assert narrow <= wide * (1 + 1e-6)

@@ -31,6 +31,38 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert out.returncode == 0, out.stderr
 
 
+def test_planner_layers_run_without_jax_or_repro(tmp_path):
+    """The planner layers import much inside their functions: run each
+    (the netsim-backed planner, the simulator, co-design, the campaign and
+    its trace, the decode-serving planner, ``--auto-parallel``) and hold
+    the loaded modules to the same rule."""
+    code = (
+        "import sys\n"
+        "from repro_torch.core import codesign, cost_model as cm, perf_model, planner, simulator, topology, traffic\n"
+        "from repro_torch.launch import serve, train\n"
+        "from repro_torch.runtime import campaign\n"
+        "w = traffic.backend_comparison_workloads()[1]\n"
+        "comm = cm.build_comm_model(multi_pod=False, routing=cm.Routing.DETOUR)\n"
+        "perf = perf_model.NetsimPerfModel(comm, topo=topology.ub_mesh_pod(), size_bytes=4e6, cache_dir=None)\n"
+        "r = planner.plan(w, 256, perf, top_k=1)\n"
+        "simulator.linearity_curve(w, 512, [1, 2])\n"
+        "codesign.prefilter_geometries(w, codesign.enumerate_geometries(uplinks=(64,)), 1024)\n"
+        "h = campaign.head_to_head(chips=1024, seeds=(0,), netsim_reprice=False)\n"
+        "campaign.campaign_trace(h['ub'].runs[0])\n"
+        "sw = traffic.WorkloadSpec('s', 4, 1024, 8, 128, 8, seq_len=512, global_batch=8, params_total=1e9)\n"
+        "serve.plan_decode(sw, 16, serve.rack_perf_model(cache_dir=None), qps=10.0, slo_s=0.01, duration_s=1.0)\n"
+        "train.plan_parallelism(train.load('granite-8b', smoke=True), "
+        "train.build_parser().parse_args(['--auto-parallel']))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "CALIB_CACHE_DIR": str(tmp_path)},
+    )
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_no_repro(path):
     src = path.read_text()

@@ -27,8 +27,10 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, rand, rwkv_emulated,
-                           ssd_emulated, to_np)
+from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, one_thread,  # noqa: F401
+                           rand, rwkv_emulated, ssd_emulated, to_np)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

@@ -1,6 +1,5 @@
 """The reference's ``tests/test_netsim.py`` restated against the port's
-``repro_torch.netsim`` (the one case that needs ``core.perf_model`` and
-``core.simulator`` waits for their copies: ROADMAP A12c).
+``repro_torch.netsim``.
 
 repro_torch.netsim: event engine, fluid fair sharing, APR routing, collectives.
 
@@ -442,6 +441,24 @@ class TestWorkloadRun:
         touched = {n for t in dag.tasks for n in t.endpoints()}
         assert len(touched) == 16
         assert all(topo.coords(n)[1] < 2 for n in touched)
+
+    def test_calibration_feeds_simulator_via_perf_model(self):
+        from repro_torch.core.cost_model import build_comm_model
+        from repro_torch.core.perf_model import AnalyticPerfModel
+        from repro_torch.core.simulator import simulate
+        from repro_torch.core.traffic import moe_2t_workload
+
+        topo = ub_mesh_rack()
+        sim = NetSim(topo, routing=Routing.DETOUR)
+        cal = sim.calibrated_axis_gbs(4e6)
+        assert "model" in cal and cal["model"] > 0
+        w, p = moe_2t_workload()
+        comm = build_comm_model(multi_pod=False, routing=Routing.DETOUR)
+        base = simulate(w, p, comm)
+        over = simulate(w, p, AnalyticPerfModel(comm, axis_gbs=cal))
+        # calibrated bandwidth <= idealized analytic => no faster iteration
+        assert over.iteration_s >= base.iteration_s * 0.999
+
 
 class TestScenarios:
     def test_trunk_congestion_geometry(self):

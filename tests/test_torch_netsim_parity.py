@@ -300,7 +300,8 @@ COPIES = ["core/topology.py", "core/ub.py", "core/traffic.py", "core/apr.py", "c
           "netsim/__init__.py", "netsim/events.py", "netsim/solver.py", "netsim/flows.py",
           "netsim/telemetry.py", "netsim/collectives.py", "netsim/routing.py", "netsim/messages.py",
           "netsim/scenarios.py", "netsim/api.py", "netsim/coarsen.py", "runtime/elastic.py",
-          "runtime/fault_tolerance.py"]
+          "runtime/fault_tolerance.py", "core/calib_cache.py", "core/perf_model.py",
+          "core/simulator.py", "core/planner.py", "core/codesign.py", "runtime/campaign.py"]
 
 
 # The port's wording of the reference's comment lines that name the change
@@ -309,6 +310,7 @@ REWORDED = {
     "netsim/coarsen.py": ["is byte-for-byte the first pure-coarse construction (regression-pinned)."],
     "netsim/collectives.py": ["    propagating diagonally as the earlier per-position deps did — a slightly"],
     "netsim/solver.py": ['    """Pure-Python progressive filling (the first implementation).'],
+    "core/perf_model.py": ["    earlier AllReduce-proxy backend, where every collective is priced on"],
 }
 
 
