@@ -20,9 +20,13 @@ gradients (attention and its recompute through the flash kernel, every
 gradient leaf's int8 payload through the ccu-reduce kernel), rwkv6-1.6b and
 zamba2-1.2b at full width and depth with int8 (every layer's scan through
 its kernel, in the forward and in the remat's recompute; zamba2's shared
-attention through the flash kernel) and mixtral-8x22b at full width and 1
+attention through the flash kernel), mixtral-8x22b at full width and 1
 of its 56 layers without compression (attention and dispatch through their
-kernels, forward and recompute); the ZeRO-1 data-parallel train step of
+kernels, forward and recompute), and paligemma-3b at full width and depth
+and whisper-base (6 + 6 layers) with int8, fed their stub inputs (256
+prefix embeddings, 1536 frames) drawn each step through
+``train.run(..., inputs=...)`` (every attention through the flash kernel,
+forward and recompute); the ZeRO-1 data-parallel train step of
 granite-8b on four ranks, every gradient sum through the ccu-reduce kernel
 at P = 2, on (pod, data, model) = (2, 2, 1) and on the dense family's
 sequence-parallel (data, model) = (2, 2); on that mesh served requests of
@@ -69,7 +73,11 @@ training shapes.  Phases, one JSON line each:
                 batch 8, seq 256, int8, a few steps through the kernel path
                 (launches counted from 0) and the same steps from the same
                 drawn weights through the plain path; then rwkv6-1.6b,
-                zamba2-1.2b and mixtral-8x22b the same way (``TRAIN_FAMILIES``)
+                zamba2-1.2b, mixtral-8x22b, paligemma-3b and whisper-base
+                the same way (``TRAIN_FAMILIES``; the last two with their
+                drawn prefix embeddings and frames on both paths, held end
+                to end and every attention sub-layer on the same input,
+                ``_train_layers``)
 7. ``dist``     the ZeRO-1 data-parallel train step (``train.train_step``)
                 of granite-8b at full width and 2 layers on four ranks of a
                 (pod, data, model) = (2, 2, 1) mesh on the one card (spawned
@@ -174,10 +182,17 @@ TRAIN = dict(arch="granite-8b", n_layers=8, batch=8, seq=256, steps=4, seed=0, c
 # mixtral-8x22b at full width and 1 of its 56 layers (2.9 B parameters: a
 # layer's experts alone are 8 x 3 x 6144 x 16384) without compression, 16
 # bytes a parameter, 46.5 GB (int8's 20 would be 58 GB before activations,
-# and granite's training peak ran 33 % above its state).
+# and granite's training peak ran 33 % above its state); paligemma-3b
+# (2,432,055,296 parameters, 48.6 GB) at full width and depth with int8 and
+# its 256 prefix embeddings drawn a step (512 positions), and whisper-base
+# (6 + 6 layers, 97,355,776) with its 1536 frames drawn a step, int8, both
+# through ``train.run(..., inputs=train.drawn_inputs(...))``, the inputs
+# drawn from ``seed + INPUTS_SEED`` plus the step
 TRAIN_FAMILY = dict(batch=8, seq=256, steps=4, seed=0)
 TRAIN_FAMILIES = [dict(arch="rwkv6-1.6b", compression="int8"), dict(arch="zamba2-1.2b", compression="int8"),
-                  dict(arch="mixtral-8x22b", n_layers=1, compression="none")]
+                  dict(arch="mixtral-8x22b", n_layers=1, compression="none"),
+                  dict(arch="paligemma-3b", compression="int8"), dict(arch="whisper-base", compression="int8")]
+INPUTS_SEED = 100
 # ``--auto-parallel``: the planner's search for the run's workload on 512
 # chips of two pods (the reference's), then 2 steps of granite-8b smoke
 # through the kernels, the smoke training's batch, sequence and int8
@@ -768,6 +783,16 @@ def _flash_row(gen) -> dict:
     kw = dict(causal=True, prefix_len=P, q_start=0)
     rows["paligemma_train"] = _flash_main_shape(q, k, v, kw, "paligemma train")
     rows["paligemma_train"]["gradients"] = _flash_gradients(gen, q, k, v, kw)
+    # whisper-base's training shapes, batch 8, no mask, under autograd: the
+    # encoder's self-attention over its 1536 frames, and the decoder's 256
+    # rows' cross-attention over the encoder's output
+    Bt, St = TRAIN_FAMILY["batch"], TRAIN_FAMILY["seq"]
+    q, k, v = _qkv(gen, (Bt, T, 8, 64), (Bt, T, 8, 64), dt)
+    rows["whisper_encoder_train"] = _flash_main_shape(q, k, v, no_mask, "whisper encoder train")
+    rows["whisper_encoder_train"]["gradients"] = _flash_gradients(gen, q, k, v, no_mask)
+    q = _rand(gen, (Bt, St, 8, 64), dt, 2.0)
+    rows["whisper_cross_train"] = _flash_main_shape(q, k, v, no_mask, "whisper cross-attention train")
+    rows["whisper_cross_train"]["gradients"] = _flash_gradients(gen, q, k, v, no_mask)
     # the dense family's sequence-parallel shapes: the dist phase's (data,
     # model) = (2, 2) train step (4 sequences a data rank, 128 rows a model
     # rank against 256 keys, both ranks), and a model rank's share of
@@ -823,6 +848,8 @@ def _flash_row(gen) -> dict:
         "whisper_cross_decode": rows["whisper_cross_decode"],
         "train": rows["train"],
         "paligemma_train": rows["paligemma_train"],
+        "whisper_encoder_train": rows["whisper_encoder_train"],
+        "whisper_cross_train": rows["whisper_cross_train"],
         "sequence_parallel": sp,
         "model_axis_decode": blocks,
         "model_axis_whisper_cross": cross,
@@ -974,6 +1001,13 @@ def _moe_row(gen) -> dict:
     rows["train"] = _under_autograd("moe_dispatch", ops.moe_dispatch, moe_dispatch_plain, [disp, x], [1],
                                     nbytes, 2 * int((disp != 0).sum()) * D, dt,
                                     lambda o, p: {"vs_plain": _bit_equal(o, p)})
+
+    def train_library():
+        return torch.einsum("bsec,bsd->ebcd", disp, x)
+
+    if not torch.equal(ops.moe_dispatch(disp, x), train_library()):
+        raise SystemExit("moe_dispatch at the training shape is not bit-equal to the library call")
+    rows["train"]["library_ms"] = time_ms(train_library)[0]
     return {
         "name": "moe_dispatch",
         "route": "cuda",
@@ -2019,8 +2053,10 @@ def _train_expected_launches(harness, steps: int, n_leaves: int, compression: st
     references checkpoint their blocks whatever it says) every layer's
     attention, dispatch or scan runs twice a step, in the forward and in the
     backward's recompute; a hybrid's shared attention block is not
-    rematerialised and runs once a call.  In int8 every gradient leaf's
-    payload is reduced once a step."""
+    rematerialised and runs once a call; an encoder-decoder's layer count is
+    a stack's, an encoder layer attends once and a decoder layer twice (its
+    self- and cross-attention), so 3 attentions a layer, twice.  In int8
+    every gradient leaf's payload is reduced once a step."""
     cfg = harness.cfg
     twice = 2 * cfg.n_layers * steps
     counts = {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
@@ -2030,6 +2066,8 @@ def _train_expected_launches(harness, steps: int, n_leaves: int, compression: st
     elif harness.family == "hybrid":
         counts["ssd_scan"] = twice
         counts["flash_attention"] = cfg.n_shared_calls * steps
+    elif harness.family == "audio":
+        counts["flash_attention"] = 3 * twice
     else:
         counts["flash_attention"] = twice
         if harness.family == "moe":
@@ -2037,20 +2075,26 @@ def _train_expected_launches(harness, steps: int, n_leaves: int, compression: st
     return counts
 
 
-def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[dict, dict[str, int], dict]:
+def _train_kernel_vs_plain(args, harness, dt, where: str, params=None,
+                           inputs=None) -> tuple[dict, dict[str, int], dict]:
     """``args.steps`` steps through the kernel path, every launch count set to
     0 just before and read just after, then the same steps from the same
     weights through the plain path (``use_kernels=False``: sdpa + mask bias
     for attention, the dispatch einsum, the scans' twins, ``ccu_reduce_plain``
     for the compression's reduce; it launches no kernel).  The weights are
     drawn anew from ``args.seed`` for each run unless ``params`` is given
-    (then a copy serves each run), so that one training state is held at a
-    time.  The first step's gradients (before compression) and int8 values
+    (then a copy on the card serves each run: ``params`` may be kept on the
+    host), so that one training state is held at a time.  ``inputs`` (the
+    VLM's prefix, the audio family's frames: ``train.run``'s) gives both
+    paths the same drawn inputs.  The first step's gradients (before
+    compression) and int8 values
     are kept on the host and compared leaf by leaf.  float32: losses within
     1e-4, gradients within 2e-5.  bfloat16: losses within 3e-2, each leaf's
     gradients within 3e-2 of its largest |g| (bf16 gradients are sums of
     rounded products, and the kernel path keeps its attention probabilities
-    in fp32 where sdpa rounds them).  The share of int8 values that differ is
+    in fp32 where sdpa rounds them); a key bias's, whose exact value is zero
+    (it adds one constant to a query's every score), of its projection's
+    weights'.  The share of int8 values that differ is
     reported, not held: a rounding apart may move a value across a
     quantisation step.
 
@@ -2066,7 +2110,10 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
     ulp (``_moved_prompt``), and ``meets_granite_limit``.  What holds them is
     ``_train_layers``: every layer on the same input on both paths, its
     output and its gradients at 3e-2 of their largest value; it needs
-    ``params``."""
+    ``params``.  The VLM and the audio family are held both ways: end to end
+    at those limits where they meet them, and every attention sub-layer by
+    ``_train_layers``; where the full depth breaks the end-to-end limit, the
+    witness is run and reported beside it, as for the recurrent ones."""
     from repro_torch import kernels
     from repro_torch.launch import train
     from repro_torch.models.layers import Runtime
@@ -2074,6 +2121,7 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
 
     names = list(_leaf_sizes(harness))
     recurrent = harness.family in ("ssm", "hybrid")
+    by_layers = recurrent or harness.family in ("vlm", "audio")
 
     def keeper(into: dict):
         def keep(step, loss, grads, payload, wire):
@@ -2083,15 +2131,24 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
         return keep
 
     def weights():
-        return None if params is None else tree_map(torch.clone, params)
+        return None if params is None else tree_map(lambda t: t.to("cuda", copy=True), params)
 
     def run(rt=None, into=None):
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
-        res = train.run(args, harness=harness, params=weights(), rt=rt, observe=keeper(into))
+        res = train.run(args, harness=harness, params=weights(), rt=rt, observe=keeper(into), inputs=inputs)
         return res, kernels.launch_counts()
 
-    kern, plain_kept, moved_kept = {}, {}, {}
+    def witnessed() -> tuple[dict, dict]:
+        kept = {}
+        with contextlib.ExitStack() as stack:
+            if recurrent:
+                stack.enter_context(_scan_without_roundings())
+            stack.enter_context(_moved_prompt(args.seed))
+            moved, _ = run(Runtime(use_kernels=False), kept)
+        return moved, kept
+
+    kern, plain_kept = {}, {}
     with _routing() as kern_calls:
         res, counts = run(into=kern)
     expected = _train_expected_launches(harness, args.steps, len(kern["grads"]), args.compression)
@@ -2102,29 +2159,30 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
             stack.enter_context(_scan_without_roundings())
         plain_calls = stack.enter_context(_routing(replay=kern_calls if harness.family == "moe" else None))
         ref, plain_counts = run(Runtime(use_kernels=False), plain_kept)
-        if recurrent:
-            with _moved_prompt(args.seed):
-                moved, _ = run(Runtime(use_kernels=False), moved_kept)
 
     def leaf_errs(a: list, b: list) -> list[float]:
         return [(x.float() - y.float()).abs().max().item() for x, y in zip(a, b)]
 
     errs = leaf_errs(kern["grads"], plain_kept["grads"])
     scales = [g.float().abs().max().item() for g in plain_kept["grads"]]
+    for i, name in enumerate(names):
+        if name.endswith("attn.bk"):
+            scales[i] = scales[names.index(name[:-2] + "wk")]
     limits = [2e-5 if dt == torch.float32 else 3e-2 * sc for sc in scales]
     loss_err = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
     loss_limit = 1e-4 if dt == torch.float32 else 3e-2
     out = {"loss_max_abs_err": loss_err, "loss_limit": loss_limit, "granite_loss_limit": loss_limit}
-    if recurrent:
-        witness = leaf_errs(moved_kept["grads"], plain_kept["grads"])
-        out["witness"] = {"loss_max_abs_err": max(abs(a - b) for a, b in zip(moved["losses"], ref["losses"])),
-                          "grad_worst_of_granite_limit": max(w / max(3e-2 * sc, 1e-30)
-                                                             for w, sc in zip(witness, scales))}
     of_limit = [e / max(lim, 1e-30) for e, lim in zip(errs, limits)]
     worst = max(range(len(names)), key=lambda i: of_limit[i])
     out.update({"grad_worst_of_limit": of_limit[worst], "grad_worst_leaf": names[worst],
                 "grad_max_abs_err": max(errs)})
     out["meets_granite_limit"] = loss_err <= loss_limit and of_limit[worst] <= 1.0
+    if recurrent or (by_layers and not out["meets_granite_limit"]):
+        moved, moved_kept = witnessed()
+        witness = leaf_errs(moved_kept["grads"], plain_kept["grads"])
+        out["witness"] = {"loss_max_abs_err": max(abs(a - b) for a, b in zip(moved["losses"], ref["losses"])),
+                          "grad_worst_of_granite_limit": max(w / max(3e-2 * sc, 1e-30)
+                                                             for w, sc in zip(witness, scales))}
     if kern["q"]:
         differ = sum(int((q != qk).sum()) for q, qk in zip(plain_kept["q"], kern["q"]))
         values = sum(q.numel() for q in kern["q"])
@@ -2139,32 +2197,40 @@ def _train_kernel_vs_plain(args, harness, dt, where: str, params=None) -> tuple[
                 "plain_launches": plain_counts})
     if any(plain_counts.values()) or not all(map(math.isfinite, res["losses"] + ref["losses"])):
         raise SystemExit(f"{where}: plain path launched {plain_counts} or a loss is not finite: {out}")
-    if recurrent:
-        out["layers"] = _train_layers(args, harness, params, where)
+    if by_layers:
+        out["layers"] = _train_layers(args, harness, params, where, inputs)
     elif not out["meets_granite_limit"]:
         raise SystemExit(f"{where}: kernel path vs plain path: {out}")
     return res, counts, out
 
 
-def _train_layers(args, harness, params, where: str) -> dict:
-    """A recurrent model's first training step layer by layer, at the first
-    training batch and the initial weights.  Every sub-layer that runs a
-    kernel — an RWKV-6 block's time mix (its layer norm, projections and
-    scan), a hybrid's Mamba2 layer (norm and mixer) and each shared call's
-    attention (norm and attention) — is given the SAME input on both paths
+def _train_layers(args, harness, params, where: str, inputs=None) -> dict:
+    """A model's first training step layer by layer, at the first training
+    batch (and ``inputs(0)``, the VLM's prefix or the audio family's
+    frames) and the initial weights.  Every sub-layer that runs a kernel —
+    an RWKV-6 block's time mix (its layer norm, projections and scan), a
+    hybrid's Mamba2 layer (norm and mixer) and each shared call's attention
+    (norm and attention), a VLM block's attention over the prefix and the
+    tokens (norm and attention, the prefix bidirectional), an encoder
+    layer's self-attention, a decoder layer's causal self-attention and its
+    cross-attention (norm and attention, the keys and values projected from
+    the encoder's output, which is differentiated as one of its weights) —
+    is given the SAME input on both paths
     (the plain path's hidden state entering it) under autograd, with the
     scans of the plain path through the kernels' plain versions
     (``_scan_without_roundings``), and a random projection of what it adds
     to the residual stream is differentiated with respect to its input and
     every one of its weights.  Held to 3e-2 of the plain path's largest
-    |value|: that increment, and each of those gradients.  The scans'
-    backward is their plain version on both paths, so a gradient differs
-    only where the kernel's forward values enter it (the products after the
-    scan): a kernel that computed a wrong y would move the increment and the
-    weights' gradients alike.  The hidden state then goes on through the
-    whole layer on the plain path."""
+    |value|: that increment, and each of those gradients (a key bias's,
+    whose exact value is zero, of its projection's weights').  The scans'
+    and flash's backward is their plain version on both paths, so a
+    gradient differs only where the kernel's forward values enter it (the
+    products after it): a kernel that computed a wrong output would move
+    the increment and the weights' gradients alike.  The hidden state then
+    goes on through the whole layer on the plain path.  ``params`` may be
+    kept on the host."""
     from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticSource
-    from repro_torch.models import hybrid, rwkv_lm
+    from repro_torch.models import encdec, hybrid, rwkv_lm, transformer
     from repro_torch.models import layers as L
     from repro_torch.models.layers import Runtime
     from repro_torch.models.mamba2 import mamba2_apply
@@ -2172,7 +2238,7 @@ def _train_layers(args, harness, params, where: str) -> dict:
     from repro_torch.models.rwkv6 import timemix_apply
 
     cfg = harness.cfg
-    p = cast_floats(params, cfg.dtype)
+    p = cast_floats(tree_map(lambda t: t.to("cuda"), params), cfg.dtype)
     device = p["embed"]["tok"].device
     kern, plain = Runtime(use_kernels=True), Runtime(use_kernels=False)
     data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq, vocab_size=cfg.vocab_size, seed=0)
@@ -2181,19 +2247,27 @@ def _train_layers(args, harness, params, where: str) -> dict:
         tokens = torch.from_numpy(next(pipeline)["tokens"]).to(device)
     finally:
         pipeline.close()
+    extra = inputs(0) if inputs is not None else {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
     positions = torch.arange(args.seq, device=device)
     worst: dict[str, float] = {"increment": 0.0, "input_grad": 0.0, "weight_grad": 0.0}
     worst_at = {}
+    units = [0]
 
-    def of_limit(a, b) -> float:
+    def of_limit(a, b, scale=None) -> float:
         d = (a.float() - b.float()).abs().max().item()
-        return 0.0 if d == 0 else d / (3e-2 * b.float().abs().max().item())
+        scale = b.float().abs().max().item() if scale is None else scale
+        return 0.0 if d == 0 else d / (3e-2 * scale)
+
+    def named(tree, prefix=""):
+        return [kv for k in sorted(tree) for kv in (named(tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
+                                                    else [(prefix + k, tree[k])])]
 
     def unit(fn, x, tree, label) -> None:
         """fn(rt, h, tree) -> what the sub-layer adds, on both paths."""
         x_in = x.detach().requires_grad_()
         weights = tree_map(lambda t: t.detach().requires_grad_(), tree)
+        leaf_names = [n for n, _ in named(weights)]
         leaves = tree_leaves(weights)
         runs = []
         for rt in (kern, plain):
@@ -2202,10 +2276,16 @@ def _train_layers(args, harness, params, where: str) -> dict:
                 go = _rand(gen, y.shape, y.dtype, 1.0) if not runs else runs[0][2]
                 runs.append((y.detach(), torch.autograd.grad(y, [x_in] + leaves, go), go))
         (yk, gk, _), (yp, gp, _) = runs
+        scale = {n: b.float().abs().max().item() for n, b in zip(leaf_names, gp[1:])}
+        for n in leaf_names:
+            if n.endswith("bk"):
+                scale[n] = scale[n[:-2] + "wk"]
+        weight = max(of_limit(a, b, scale[n]) for n, a, b in zip(leaf_names, gk[1:], gp[1:]))
         for key, r in (("increment", of_limit(yk, yp)), ("input_grad", of_limit(gk[0], gp[0])),
-                       ("weight_grad", max(of_limit(a, b) for a, b in zip(gk[1:], gp[1:])))):
+                       ("weight_grad", weight)):
             if r > worst[key]:
                 worst[key], worst_at[key] = r, label
+        units[0] += 1
 
     with _scan_without_roundings(), torch.no_grad():
         if harness.family == "ssm":
@@ -2215,7 +2295,7 @@ def _train_layers(args, harness, params, where: str) -> dict:
                 unit(lambda rt, h, w: timemix_apply(rt, w["tm"], L.layernorm(w["ln1"], h), cfg.inner)[0], x,
                      {"tm": lp["tm"], "ln1": lp["ln1"]}, f"block {i}")
                 x = rwkv_lm._block(plain, cfg, lp, x)[0]
-        else:
+        elif harness.family == "hybrid":
             x = L.embed(plain, p["embed"], tokens).to(cfg.dtype)
             sp = p["shared"]
             for i in range(cfg.n_layers):
@@ -2228,10 +2308,43 @@ def _train_layers(args, harness, params, where: str) -> dict:
                                                       positions)[0],
                          x, {"attn": sp["attn"], "ln1": sp["ln1"]}, f"shared attention after {i}")
                     x = hybrid._shared_block(plain, cfg, sp, x, positions)[0]
+        elif harness.family == "audio":
+            frames = extra["frames"]
+            x = frames.to(cfg.dtype) + encdec.sinusoid(frames.shape[1], cfg.d_model, device).to(cfg.dtype)
+            at = torch.arange(frames.shape[1], device=device)
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], p["enc_blocks"])
+                unit(lambda rt, h, w: L.attention(rt, w["attn"], L.layernorm(w["ln1"], h), cfg.attn(False),
+                                                  at)[0],
+                     x, {"attn": lp["attn"], "ln1": lp["ln1"]}, f"encoder {i}")
+                x = x + L.attention(plain, lp["attn"], L.layernorm(lp["ln1"], x), cfg.attn(False), at)[0]
+                x = x + L.gelu_mlp(plain, lp["mlp"], L.layernorm(lp["ln2"], x))
+            enc_out = L.layernorm(p["enc_norm"], x)
+            y = encdec._embed(plain, cfg, p, tokens)
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], p["dec_blocks"])
+                unit(lambda rt, h, w: L.attention(rt, w["self_attn"], L.layernorm(w["ln1"], h), cfg.attn(True),
+                                                  positions)[0],
+                     y, {"self_attn": lp["self_attn"], "ln1": lp["ln1"]}, f"decoder {i} self-attention")
+                h = y + L.attention(plain, lp["self_attn"], L.layernorm(lp["ln1"], y), cfg.attn(True), positions)[0]
+                unit(lambda rt, h, w: L.attention(rt, w["cross_attn"], L.layernorm(w["ln_x"], h), cfg.attn(False),
+                                                  positions, kv_override=w["enc_out"])[0],
+                     h, {"cross_attn": lp["cross_attn"], "ln_x": lp["ln_x"], "enc_out": enc_out},
+                     f"decoder {i} cross-attention")
+                y = encdec._dec_block(plain, cfg, lp, y, enc_out, positions)[0]
+        else:
+            x, prefix, _ = transformer._embed(plain, cfg, p, tokens, extra.get("prefix_embeds"))
+            at = torch.arange(x.shape[1], device=device)
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], p["blocks"])
+                unit(lambda rt, h, w: L.attention(rt, w["attn"], transformer._apply_norm(cfg, w["ln1"], h),
+                                                  cfg.attn(prefix), at)[0],
+                     x, {"attn": lp["attn"], "ln1": lp["ln1"]}, f"block {i}")
+                x = transformer._block(plain, cfg, lp, x, at, prefix=prefix)[0]
     if not max(worst.values()) <= 1.0:
         raise SystemExit(f"{where}: a layer's kernel path vs plain path on the same input under autograd "
                          f"exceeds 3e-2 of the largest value: {worst} of it, at {worst_at}")
-    return {"max_err_of_limit": worst, "at": worst_at, "layers": cfg.n_layers}
+    return {"max_err_of_limit": worst, "at": worst_at, "layers": cfg.n_layers, "sub_layers": units[0]}
 
 
 def _restart_check() -> dict:
@@ -2344,6 +2457,45 @@ def _auto_parallel_train() -> dict[str, int]:
     return counts
 
 
+def _train_family(spec: dict) -> dict[str, dict[str, int]]:
+    """One of ``TRAIN_FAMILIES`` (merged into ``TRAIN_FAMILY``) at full width:
+    kernel path against plain path (``_train_kernel_vs_plain``), the weights
+    drawn on the card and kept on the host for the layer-by-layer check, a
+    VLM's or audio model's stub inputs drawn each step
+    (``train.drawn_inputs``); one ``train`` line.  Returns the kernel path's
+    launch counts by path."""
+    from repro_torch.configs import load
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_init, tree_map
+
+    harness = load(spec["arch"])
+    argv = ["--arch", spec["arch"], "--no-smoke", "--steps", str(spec["steps"]), "--batch", str(spec["batch"]),
+            "--seq", str(spec["seq"]), "--compression", spec["compression"], "--seed", str(spec["seed"]),
+            "--log-every", "1"]
+    if "n_layers" in spec:
+        harness = harness.clone(n_layers=spec["n_layers"])
+        argv += ["--n-layers", str(spec["n_layers"])]
+    params, inputs = None, None
+    if harness.family != "moe":     # kept on the host for the layer-by-layer check
+        params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                           torch.bfloat16, "cuda")
+        # the reference's zero mixes, decay bias and bonus, drawn
+        _draw_time_mix(harness, params, spec["seed"] + 1)
+        params = tree_map(lambda t: t.cpu(), params)
+    if harness.family in ("vlm", "audio"):
+        inputs = train.drawn_inputs(harness, spec["batch"], spec["seed"] + INPUTS_SEED, "cuda")
+    args = train.build_parser().parse_args(argv)
+    res, counts, vs_plain = _train_kernel_vs_plain(args, harness, torch.bfloat16, f"train {spec['arch']}",
+                                                   params=params, inputs=inputs)
+    drawn = {k: list(t.shape) for k, t in inputs(0).items()} if inputs is not None else {}
+    emit("train", arch=spec["arch"], n_layers=harness.cfg.n_layers, d_model=harness.cfg.d_model,
+         params=res["params"], batch=args.batch, seq=args.seq, compression=args.compression,
+         inputs=drawn, steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
+         step_ms=res["step_ms"], tokens_per_s_after_the_first_step=res["tokens_per_s"],
+         peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
+    return {f"{spec['arch']} train ({harness.cfg.n_layers} layers)": counts}
+
+
 def phase_train() -> dict[str, dict[str, int]]:
     """granite-8b training: the smoke config's kernel and plain paths in fp32
     and bf16 and its loss falling over 40 steps, then the main path at full
@@ -2395,30 +2547,7 @@ def phase_train() -> dict[str, dict[str, int]]:
     del res
 
     for spec in TRAIN_FAMILIES:
-        spec = {**TRAIN_FAMILY, **spec}
-        harness = load(spec["arch"])
-        argv = ["--arch", spec["arch"], "--no-smoke", "--steps", str(spec["steps"]), "--batch", str(spec["batch"]),
-                "--seq", str(spec["seq"]), "--compression", spec["compression"], "--seed", str(spec["seed"]),
-                "--log-every", "1"]
-        if "n_layers" in spec:
-            harness = harness.clone(n_layers=spec["n_layers"])
-            argv += ["--n-layers", str(spec["n_layers"])]
-        params = None
-        if harness.family in ("ssm", "hybrid"):     # kept for the layer-by-layer check
-            params = tree_init(harness.param_specs(), torch.Generator(device="cuda").manual_seed(spec["seed"]),
-                               torch.bfloat16, "cuda")
-            # the reference's zero mixes, decay bias and bonus, drawn
-            _draw_time_mix(harness, params, spec["seed"] + 1)
-        args = train.build_parser().parse_args(argv)
-        res, counts, vs_plain = _train_kernel_vs_plain(args, harness, torch.bfloat16, f"train {spec['arch']}",
-                                                       params=params)
-        emit("train", arch=spec["arch"], n_layers=harness.cfg.n_layers, d_model=harness.cfg.d_model,
-             params=res["params"], batch=args.batch, seq=args.seq, compression=args.compression,
-             steps=args.steps, losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
-             step_ms=res["step_ms"], tokens_per_s_after_the_first_step=res["tokens_per_s"],
-             peak_memory_gb=res["peak_memory_gb"], launches=counts, vs_plain_path=vs_plain)
-        by_path[f"{spec['arch']} train ({harness.cfg.n_layers} layers)"] = counts
-        del params, res
+        by_path.update(_train_family({**TRAIN_FAMILY, **spec}))
     return by_path
 
 

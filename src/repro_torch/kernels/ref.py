@@ -37,18 +37,29 @@ def attention_ref(
     Sq, D = q.shape[3], q.shape[4]
     Sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    q64, k64, v64 = q.double(), k.double(), v.double()
+    # contiguous keys and values: a row's einsum then reads a view of them,
+    # where a strided layout would have it copy (and autograd keep) all of
+    # them for every row
+    q64, k64, v64 = q.double(), k.double().contiguous(), v.double().contiguous()
     rows = []
     for i in range(Sq):
         pos = q_start + i
         hi = min(pos + 1, Sk) if causal else Sk             # keys [lo, hi) ...
         lo = max(pos - window + 1, 0) if window is not None else 0
-        keys = list(range(min(prefix_len, Sk)))             # ... and the prefix
-        keys += range(max(lo, len(keys)), hi)
-        idx = torch.tensor(keys, dtype=torch.long, device=q.device)
-        s = torch.einsum("bkgd,bksd->bkgs", q64[:, :, :, i], k64[:, :, idx]) * scale
+        n_prefix = min(prefix_len, Sk)                      # ... and the prefix
+        start = max(lo, n_prefix)
+        if n_prefix == 0 or start == n_prefix:
+            # one run of keys: a view, so that autograd keeps no copy a row
+            first = 0 if n_prefix else lo
+            last = max(hi, start)
+            kr, vr = k64[:, :, first:last], v64[:, :, first:last]
+        else:
+            keys = list(range(n_prefix)) + list(range(start, hi))
+            idx = torch.tensor(keys, dtype=torch.long, device=q.device)
+            kr, vr = k64[:, :, idx], v64[:, :, idx]
+        s = torch.einsum("bkgd,bksd->bkgs", q64[:, :, :, i], kr) * scale
         p = torch.softmax(s, dim=-1)
-        rows.append(torch.einsum("bkgs,bksd->bkgd", p, v64[:, :, idx]))
+        rows.append(torch.einsum("bkgs,bksd->bkgd", p, vr))
     return torch.stack(rows, dim=3).to(q.dtype)
 
 

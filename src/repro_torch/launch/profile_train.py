@@ -9,9 +9,14 @@ idle share over a few warm steps, as one JSON object::
         --n-layers 8 --compression int8
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-1.6b \\
         --no-smoke --compression int8
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch paligemma-3b \\
+        --no-smoke --compression int8
 
 Takes the flags of ``repro_torch.launch.train`` (``--arch``, default
-granite-8b, any family the port trains; ``--steps`` is set from
+granite-8b, any family the port trains: paligemma-3b and whisper-base with
+their stub inputs, 256 prefix embeddings or 1536 frames a sequence, drawn
+each step by ``train.drawn_inputs`` from ``--seed`` + 100, as
+``chip_smoke.py`` draws them; ``--steps`` is set from
 ``--warm`` and ``--active``) plus ``--top`` (kernels listed), ``--warm``
 (steps run before the profiled ones: the first builds the kernels and warms
 the allocator) and ``--active`` (steps profiled).  The idle share is given
@@ -33,6 +38,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from ..configs import load
 from . import train
 
 # kinds of kernels, by a piece of their names (first match wins)
@@ -94,7 +100,10 @@ def main(argv: list[str] | None = None) -> None:
     args.warm = max(args.warm, 1)
     args.steps = args.warm + args.active + 1
 
-    plain = train.run(args)
+    harness = load(args.arch, smoke=args.smoke)
+    inputs = (train.drawn_inputs(harness, args.batch, args.seed + 100, args.device)
+              if harness.family in ("vlm", "audio") else None)
+    plain = train.run(args, inputs=inputs)
     marks = []
     sched = schedule(wait=0, warmup=args.warm, active=args.active, repeat=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=sched) as prof:
@@ -103,7 +112,7 @@ def main(argv: list[str] | None = None) -> None:
             marks.append(time.perf_counter())
             prof.step()
 
-        traced = train.run(args, observe=observe)
+        traced = train.run(args, observe=observe, inputs=inputs)
 
     # device-side events only: a host operator's row repeats its kernels' time,
     # and the marks (the profiler's steps, the train.* ranges) span kernels

@@ -17,9 +17,14 @@ topology-aware search first (``plan_parallelism``: the run's workload on
 ``core/planner.py``) and logs its three best specs in the reference's
 ``[planner] ...`` lines; the run itself stays on its one device, as the
 reference's does.  The transformers (dense, MoE, and paligemma text-only as the
-reference's train script trains it), rwkv6 and zamba2 train.  whisper-base
-raises: the reference's train script feeds tokens and labels only, and its
-encoder-decoder loss reads frames (ROADMAP C5).
+reference's train script trains it), rwkv6 and zamba2 train.  Without
+``inputs`` whisper-base raises: the reference's train script feeds tokens
+and labels only, and its encoder-decoder loss reads frames (ROADMAP C5).
+``run(..., inputs=)`` adds the stub frontends' outputs to every step's
+batch, as the JAX package's train step takes them
+(``harness.train_input_specs``): paligemma-3b's ``prefix_embeds`` (its loss
+then trains behind the bidirectional prefix) and whisper-base's ``frames``;
+``drawn_inputs`` draws them from a seed, other images or audio each step.
 
 One step: the loss and its gradients (``value_and_grad`` of the harness's
 loss, with the family's kernels and their recompute under remat), the
@@ -54,11 +59,13 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs import load
 from ..data.pipeline import DataConfig, Pipeline, SyntheticSource
 from ..kernels import launch_counts
+from ..models.api import ShapeCell
 from ..models.layers import Runtime
 from ..models.param import param_count, tree_init, tree_map, value_and_grad
 from ..optim import adamw
 from ..optim.compression import CompressionConfig, compress_grads
 from ..runtime.fault_tolerance import TrainingSupervisor
+from .serve import stub_inputs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,8 +134,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def drawn_inputs(harness, batch: int, seed: int, device):
+    """``inputs`` for ``run``: step ``s``'s stub frontend outputs drawn by
+    ``serve.stub_inputs`` from ``seed + s`` (bf16 standard normal,
+    paligemma's ``prefix_tokens`` patch embeddings or whisper's ``n_frames``
+    frame embeddings), so that every step sees other images or audio and a
+    second run sees the same ones."""
+    return lambda step: stub_inputs(harness, batch, seed + step, device)
+
+
+def _step_inputs(harness, args: argparse.Namespace, device: torch.device, inputs, step: int) -> dict:
+    """``inputs(step)`` checked against the harness's training inputs beside
+    tokens and labels (``train_input_specs``): each key one the family
+    takes, each tensor of its shape on the run's device."""
+    specs = harness.train_input_specs(ShapeCell("train", "train", args.seq, args.batch))
+    allowed = sorted(set(specs) - {"tokens", "labels"})
+    extra = inputs(step)
+    if not set(extra) <= set(allowed):
+        raise ValueError(f"{args.arch} ({harness.family}) takes inputs {allowed}, got {sorted(extra)}")
+    for k, t in extra.items():
+        if tuple(t.shape) != tuple(specs[k].shape) or t.device.type != device.type:
+            raise ValueError(f"input {k!r}: {tuple(t.shape)} on {t.device}, expected "
+                             f"{tuple(specs[k].shape)} on {device}")
+    return extra
+
+
 def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe=None,
-        log=None, stop_at: int | None = None) -> dict:
+        log=None, stop_at: int | None = None, inputs=None) -> dict:
     """Train up to ``args.steps`` updates, from fresh weights and optimizer
     state or from the latest save in ``args.ckpt_dir``.
 
@@ -145,7 +177,12 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     many updates, as a run cut there would end, but with its save written
     (with ``--ckpt-dir``): a later call resumes from it.  A run that resumes
     with nothing left to do writes no save, so that no label ever names
-    fewer updates than its save holds.
+    fewer updates than its save holds.  ``inputs(step) -> dict``, if given,
+    returns step ``step``'s entries of the batch beside tokens and labels,
+    on the run's device: ``{"prefix_embeds": (batch, prefix_tokens,
+    d_model)}`` for the VLM, ``{"frames": (batch, n_frames, d_model)}`` for
+    the audio family (``drawn_inputs`` draws them); a key the family does
+    not take, or another shape, raises a ``ValueError``.
 
     Returns per step run the loss, the gradient norm, the learning rate and
     the wall time (host clock ended by a device synchronise), the peak device
@@ -167,11 +204,11 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
         )
     say = log if log is not None else (lambda line: None)
     harness = harness if harness is not None else load(args.arch, smoke=args.smoke)
-    if harness.family == "audio":
+    if harness.family == "audio" and inputs is None:
         raise ValueError(
-            f"--arch {args.arch}: the training loop feeds tokens and labels only, and the "
-            "encoder-decoder's loss reads frames; the reference's train script fails the same "
-            "way with a KeyError (ROADMAP C5)")
+            f"--arch {args.arch}: without inputs= the training loop feeds tokens and labels only, "
+            "and the encoder-decoder's loss reads frames; the reference's train script fails the "
+            "same way with a KeyError (ROADMAP C5)")
     if args.n_layers is not None:
         harness = harness.clone(n_layers=args.n_layers)
     plans = plan_parallelism(harness, args) if args.auto_parallel else None
@@ -229,6 +266,8 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
         for step in range(start, stop):
             batch = next(pipeline)
             batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("tokens", "labels")}
+            if inputs is not None:
+                batch.update(_step_inputs(harness, args, device, inputs, step))
             t0 = time.perf_counter()
             with record_function("train.grad"):
                 loss, grads = loss_and_grad(params, batch)

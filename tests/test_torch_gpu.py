@@ -516,6 +516,45 @@ def test_train_kernel_path_matches_plain_path(cuda):
         assert (a - b).abs().max() <= 2e-5
 
 
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-base"])
+def test_train_with_stub_inputs_kernel_path_matches_plain_path(cuda, arch):
+    """paligemma-3b smoke with its 8 prefix embeddings and whisper-base smoke
+    with its 24 frames (``train.drawn_inputs``), float32, one step through
+    ``launch/train.run(..., inputs=...)`` with int8 compression on each path
+    from the same weights and inputs: the same loss within 1e-5, gradients
+    within 2e-5, one ``ccu_reduce`` launch per leaf and flash twice an
+    attention (forward and recompute: paligemma one a layer, whisper three,
+    the encoder's and the decoder's self- and cross-attention) on the
+    kernel path, and no launch of either on the plain path."""
+    from repro_torch.configs import load
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.param import tree_init, tree_leaves
+
+    h = load(arch, smoke=True).clone(dtype=torch.float32)
+    args = train.build_parser().parse_args(["--arch", arch, "--steps", "1", "--batch", "4", "--seq", "64",
+                                            "--lr", "1e-3", "--compression", "int8"])
+    inputs = train.drawn_inputs(h, 4, 100, cuda)
+    runs = []
+    for rt in (Runtime(), Runtime(use_kernels=False)):
+        params = tree_init(h.param_specs(), torch.Generator(device=cuda).manual_seed(1), torch.float32, cuda)
+        grads = []
+        reset_launch_counts()
+        res = train.run(args, harness=h, params=params, rt=rt, inputs=inputs,
+                        observe=lambda s, l, g, p, w: grads.append(g))
+        runs.append((res, grads[0], launch_counts()))
+    (k, kg, kc), (p, pg, pc) = runs
+    n_leaves = len(tree_leaves(kg))
+    attentions = {"paligemma-3b": 1, "whisper-base": 3}[arch] * h.cfg.n_layers
+    assert kc == {"flash_attention": 2 * attentions, "moe_dispatch": 0, "ssd_scan": 0,
+                  "rwkv6_scan": 0, "ccu_reduce": n_leaves}
+    assert pc["flash_attention"] == 0 and pc["ccu_reduce"] == 0
+    assert abs(k["losses"][0] - p["losses"][0]) <= 1e-5
+    for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+        assert (a - b).abs().max() <= 2e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N", [2048, 4096, 4194304, 16777216, 58720256, 100663296])
 def test_ccu_reduce_at_the_dist_rows(cuda, N, dtype):
