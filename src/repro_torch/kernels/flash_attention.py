@@ -234,7 +234,7 @@ def flash_attention(
     if return_lse:
         return _launch(q, k, v, return_lse=True, **kw)
     if grad:
-        return PlainGradient.apply(lambda *t: _launch(*t, **kw),
+        return PlainGradient.apply("flash_attention", lambda *t: _launch(*t, **kw),
                                    lambda *t: flash_attention_plain(*t, **kw), q, k, v)
     return _launch(q, k, v, **kw)
 

@@ -109,7 +109,7 @@ def moe_dispatch(disp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if disp.ndim == 3:
         return moe_dispatch(disp[None], x[None])[:, 0]
     if torch.is_grad_enabled() and (disp.requires_grad or x.requires_grad):
-        return PlainGradient.apply(_launch, moe_dispatch_plain, disp, x)
+        return PlainGradient.apply("moe_dispatch", _launch, moe_dispatch_plain, disp, x)
     return _launch(disp, x)
 
 

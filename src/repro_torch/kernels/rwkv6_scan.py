@@ -175,7 +175,7 @@ def rwkv6_scan(
     inputs = (r, k, v, w, u, s0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return PlainGradient.apply(
-            lambda *t: _launch(*t[:5], chunk, t[5]),
+            "rwkv6_scan", lambda *t: _launch(*t[:5], chunk, t[5]),
             lambda *t: rwkv6_scan_plain(*t[:5], chunk=chunk, s0=t[5]), *inputs)
     return _launch(r, k, v, w, u, chunk, s0)
 

@@ -164,7 +164,7 @@ def ssd_scan(
     inputs = (xh, log_l, Bm, Cm, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return PlainGradient.apply(
-            lambda *t: _launch(*t[:4], chunk, t[4]),
+            "ssd_scan", lambda *t: _launch(*t[:4], chunk, t[4]),
             lambda *t: ssd_scan_plain(*t[:4], chunk=chunk, h0=t[4]), *inputs)
     return _launch(xh, log_l, Bm, Cm, chunk, h0)
 

@@ -2,8 +2,10 @@
 ``repro_torch.launch.train.run`` once unprofiled and once under
 ``torch.profiler``, and prints the device time by part of the step (the
 loss and its gradients, the compression, AdamW: the ``train.*`` ranges that
-``train.run`` marks), by kind of kernel and by kernel name, and the device's
-idle share over a few warm steps, as one JSON object::
+``train.run`` marks), by kind of kernel, by kernel name and by the
+program's innermost span (``spans.py``: ``model.attention``,
+``model.attention.recompute``, ``flash_attention.bwd``, ...), and the
+device's idle share over a few warm steps, as one JSON object::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --no-smoke \\
         --n-layers 8 --compression int8
@@ -38,6 +40,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from .. import spans
 from ..configs import load
 from . import train
 
@@ -64,29 +67,33 @@ def _kind(name: str) -> str:
 
 
 def _is_mark(name: str) -> bool:
-    return name.startswith(("ProfilerStep", "train."))
+    return name.startswith("ProfilerStep") or spans.is_span(name)
 
 
-def _by_part(events) -> dict[str, float]:
-    """Device time (ms, summed over the window) of the kernels that start
-    inside the device-side spans of ``train.compress`` and ``train.adamw``;
-    every other kernel is the loss and its gradients (``train.grad``: the
+def _by_part(events) -> tuple[dict[str, float], dict[str, float]]:
+    """Device time (ms, summed over the window) by each kernel's innermost
+    device-side range of the program (``spans.innermost``: ``model.*``,
+    their ``.recompute`` and ``.bwd`` forms, ``<kernel>.bwd``, ``train.*``;
+    "" where none holds it), and by part of the step: the kernels in
+    ``train.compress`` and ``train.adamw`` (no span opens inside them), and
+    every other kernel, the loss and its gradients (``train.grad``: the
     backward runs on autograd's own thread, outside the range as marked)."""
     cuda = torch.autograd.DeviceType.CUDA
-    spans = {name: [] for name in ("train.compress", "train.adamw")}
-    kernels = []
+    ranges, kernels = [], []
     for e in events:
         if e.device_type != cuda:
             continue
-        if e.name in spans:
-            spans[e.name].append((e.time_range.start, e.time_range.end))
+        if spans.is_span(e.name):
+            ranges.append((e.name, e.time_range.start, e.time_range.end))
         elif not _is_mark(e.name):
-            kernels.append((e.time_range.start, e.time_range.elapsed_us()))
-    parts = {"train.grad": 0.0, **{name: 0.0 for name in spans}}
-    for start, us in kernels:
-        part = next((n for n, ss in spans.items() if any(a <= start <= b for a, b in ss)), "train.grad")
-        parts[part] += us / 1e3
-    return parts
+            kernels.append((e.name, e.time_range.start, e.time_range.end))
+    by_span: dict[str, float] = {}
+    for (_, start, end), inner in zip(kernels, spans.innermost(kernels, ranges)):
+        by_span[inner or ""] = by_span.get(inner or "", 0.0) + (end - start) / 1e3
+    steps = ("train.compress", "train.adamw")
+    parts = {"train.grad": sum(v for n, v in by_span.items() if n not in steps),
+             **{n: by_span.get(n, 0.0) for n in steps}}
+    return parts, by_span
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -124,7 +131,7 @@ def main(argv: list[str] | None = None) -> None:
     ]
     if not rows:
         raise SystemExit("the profiler recorded no device time")
-    parts = _by_part(prof.events())
+    parts, by_span = _by_part(prof.events())
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = (marks[args.warm + args.active - 1] - marks[args.warm - 1]) * 1e3
@@ -150,6 +157,8 @@ def main(argv: list[str] | None = None) -> None:
                          1 - device_ms / args.active / min(plain["step_ms"][args.warm:])},
         "launches_per_step": {k: v / args.steps for k, v in traced["launches"].items()},
         "by_part_device_ms_per_step": {k: v / args.active for k, v in parts.items()},
+        "by_span_device_ms_per_step": {k: v / args.active
+                                       for k, v in sorted(by_span.items(), key=lambda kv: -kv[1])},
         "by_kind_ms_per_step": {k: {"ms": v[0], "launches": v[1], "share": v[0] * args.active / device_ms}
                                 for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])},
         "kernels_by_device_time": [

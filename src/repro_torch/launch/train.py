@@ -55,6 +55,7 @@ import time
 import torch
 from torch.profiler import record_function
 
+from .. import spans
 from ..checkpoint.manager import CheckpointManager
 from ..configs import load
 from ..data.pipeline import DataConfig, Pipeline, SyntheticSource
@@ -64,7 +65,6 @@ from ..models.layers import Runtime
 from ..models.param import param_count, tree_init, tree_map, value_and_grad
 from ..optim import adamw
 from ..optim.compression import CompressionConfig, compress_grads
-from ..runtime.fault_tolerance import TrainingSupervisor
 from .serve import stub_inputs
 
 
@@ -194,7 +194,9 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
     (``residual_restored``), and with ``--auto-parallel`` the planner's
     ``PlanReport`` (``plans``, else None).  The three parts of a step are marked for
     ``torch.profiler`` as ``train.grad``, ``train.compress`` and
-    ``train.adamw`` (``launch/profile_train.py`` reads them).
+    ``train.adamw`` (``launch/profile_train.py`` reads them), and the
+    step's batch, from the data pipeline to the device, as ``train.data``
+    while a profiler records (``spans.mark``).
     """
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -259,15 +261,15 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
 
     data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq, vocab_size=cfg.vocab_size, seed=0)
     pipeline = Pipeline(SyntheticSource(data_cfg), data_cfg, start_step=start)
-    supervisor = TrainingSupervisor(n_workers=1)
     out = {"losses": [], "grad_norms": [], "lrs": [], "step_ms": []}
     launches0 = launch_counts()
     try:
         for step in range(start, stop):
-            batch = next(pipeline)
-            batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("tokens", "labels")}
-            if inputs is not None:
-                batch.update(_step_inputs(harness, args, device, inputs, step))
+            with spans.mark("train.data"):
+                batch = next(pipeline)
+                batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("tokens", "labels")}
+                if inputs is not None:
+                    batch.update(_step_inputs(harness, args, device, inputs, step))
             t0 = time.perf_counter()
             with record_function("train.grad"):
                 loss, grads = loss_and_grad(params, batch)
@@ -286,7 +288,6 @@ def run(args: argparse.Namespace, *, harness=None, params=None, rt=None, observe
             del payload
             _sync(device)
             dt = time.perf_counter() - t0
-            supervisor.heartbeat(0, step, dt)
             out["losses"].append(float(loss))
             out["grad_norms"].append(float(metrics["grad_norm"]))
             out["lrs"].append(float(metrics["lr"]))

@@ -75,6 +75,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..kernels import ops
 from .param import ParamSpec
 
@@ -328,8 +329,8 @@ def attention(
     q = rt.shard(q, "batch", "sp", None, None)
 
     if cfg.rope_theta is not None and kv_override is None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        q = spans.call("model.rope", rope, q, positions, cfg.rope_theta)
+        k = spans.call("model.rope", rope, k, positions, cfg.rope_theta)
 
     q_start = 0
     new_cache = None
@@ -401,7 +402,7 @@ def _attention_tp(rt: Runtime, p: dict, x: torch.Tensor, cfg: AttnConfig, pos: i
     q, k, v = q.reshape(B, S, N, Dh), k.reshape(B, S, K, Dh), v.reshape(B, S, K, Dh)
     if cfg.rope_theta is not None:
         at = torch.full((S,), pos, device=x.device)
-        q, k = rope(q, at, cfg.rope_theta), rope(k, at, cfg.rope_theta)
+        q, k = (spans.call("model.rope", rope, t, at, cfg.rope_theta) for t in (q, k))
     ck, cv = kv_cache
     Lb = ck.shape[1]
     lo = model.rank * Lb

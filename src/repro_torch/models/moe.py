@@ -35,6 +35,13 @@ as full sums, not all-to-alls; every sum is ``ccu_reduce`` in rank order
   shard, and the partial outputs are summed over the axis;
 * ``rt.tokens`` (training on a mesh): the auxiliary loss's means are over
   every rank's tokens, as the reference's are over the whole batch.
+
+The routing, from the router's product to the dispatch and combine
+tensors, runs inside the span ``model.moe.route`` (``spans.py``).  While a
+profiler records, the first forward counts the layer's (token, choice)
+assignments (``moe.assigned``, B·S·K), those kept within the capacity
+(``moe.kept``) and the slots the expert products run over (``moe.slots``,
+E·B·C of this rank).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..kernels import ops
 from .layers import Runtime
 from .param import ParamSpec
@@ -159,6 +167,13 @@ def dispatch_tensors(
 EXPERTS = ("w_gate", "w_up", "w_down")
 
 
+def _routed(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, C: int, seq):
+    """``route`` and its dispatch and combine tensors: what ``moe_apply``
+    reads of them, ``(probs, onehot, keep, disp, comb)``."""
+    r = route(x, router, cfg, capacity=C, seq=seq)
+    return (r.probs, r.onehot, r.keep, *dispatch_tensors(r, C, x.dtype))
+
+
 def moe_apply(
     rt: Runtime, p: dict, x: torch.Tensor, cfg: MoEConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -179,8 +194,10 @@ def moe_apply(
     if rt.fsdp is not None:
         p = {**p, **rt.fsdp.gather_tree({k: p[k] for k in EXPERTS}, specs)}
 
-    r = route(x, p["router"], cfg, capacity=C, seq=seq)
-    disp, comb = dispatch_tensors(r, C, x.dtype)
+    probs, onehot, keep, disp, comb = spans.call("model.moe.route", _routed, x, p["router"], cfg, C, seq)
+    spans.count("moe.assigned", B * S * K)
+    spans.count("moe.kept", keep)
+    spans.count("moe.slots", E * B * C)
 
     if rt.use_kernels:
         expert_in = ops.moe_dispatch(disp, x)                    # (E, B, C, D)
@@ -223,9 +240,9 @@ def moe_apply(
     y = rt.shard(y, "batch", "sp", None)
 
     # load-balancing auxiliary loss (Switch/GShard form)
-    routed = r.onehot[..., 0, :] if K == 1 else torch.sum(r.onehot, dim=2)
+    routed = onehot[..., 0, :] if K == 1 else torch.sum(onehot, dim=2)
     me = torch.mean(routed, dim=(0, 1)) / K
-    ce = torch.mean(r.probs, dim=(0, 1))
+    ce = torch.mean(probs, dim=(0, 1))
     if rt.tokens is not None:    # the means over every rank's tokens (equal shares)
         me, ce = rt.tokens.all_reduce(torch.stack([me, ce]) / rt.tokens.size).unbind(0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)

@@ -21,7 +21,11 @@ no prefix: its causal mask already shows every prefix key.
 
 Each block runs under the config's ``remat_policy`` (``remat.remat``): under
 ``"nothing"`` and ``"dots"`` a layer's attention runs twice a training step,
-once in the forward and once in the recompute.
+once in the forward and once in the recompute.  The embedding, every norm,
+the attention (its rope inside it), the MLP or MoE layer, the unembedding
+and the loss run inside the spans of ``spans.py`` (``model.embed``,
+``model.norm``, ``model.attention``, ``model.rope``, ``model.mlp``,
+``model.moe``, ``model.unembed``, ``model.loss``), which a profiler reads.
 
 On the "model" axis (``rt.model``; ``train/train_step.py``) a rank holds
 its model shard of each weight the rules shard on the axis.  In training
@@ -54,6 +58,7 @@ from typing import Any
 
 import torch
 
+from .. import spans
 from . import layers as L
 from .moe import MoEConfig, moe_apply, moe_specs
 from .param import cast_floats, param_count, round_up, stack_specs
@@ -117,8 +122,12 @@ def _norm_specs(cfg: LMConfig) -> Any:
     )
 
 
-def _apply_norm(cfg: LMConfig, p: Any, x: torch.Tensor) -> torch.Tensor:
+def _norm(cfg: LMConfig, p: Any, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
+
+
+def _apply_norm(cfg: LMConfig, p: Any, x: torch.Tensor) -> torch.Tensor:
+    return spans.call("model.norm", _norm, cfg, p, x)
 
 
 def block_specs(cfg: LMConfig) -> dict:
@@ -169,18 +178,16 @@ def _block(
 ):
     p = _whole(rt, p, block_specs, cfg)
     h = _apply_norm(cfg, p["ln1"], x)
-    a, new_cache = L.attention(
-        rt, p["attn"], h, cfg.attn(prefix), positions, cache, cache_pos
+    a, new_cache = spans.call(
+        "model.attention", L.attention, rt, p["attn"], h, cfg.attn(prefix), positions, cache, cache_pos
     )
     x = x + a
     h = _apply_norm(cfg, p["ln2"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe is not None:
-        m, aux = moe_apply(rt, p["moe"], h, cfg.moe)
-    elif cfg.act == "swiglu":
-        m = L.swiglu(rt, p["mlp"], h)
+        m, aux = spans.call("model.moe", moe_apply, rt, p["moe"], h, cfg.moe)
     else:
-        m = L.gelu_mlp(rt, p["mlp"], h)
+        m = spans.call("model.mlp", L.swiglu if cfg.act == "swiglu" else L.gelu_mlp, rt, p["mlp"], h)
     x = x + m
     return rt.shard(x, "batch", "sp", None), new_cache, aux
 
@@ -211,7 +218,8 @@ def _embed(rt: L.Runtime, cfg: LMConfig, params: dict, tokens: torch.Tensor,
     if P and _sequence_parallel(rt):
         P *= rt.model.size
         prefix_embeds, tokens = _concat_shard(rt, P, prefix_embeds, tokens)
-    x = L.embed(rt, _whole(rt, {"tok": params["embed"]["tok"]}, _embed_specs, cfg), tokens)
+    x = spans.call("model.embed", lambda tok: L.embed(rt, _whole(rt, {"tok": tok}, _embed_specs, cfg), tokens),
+                   params["embed"]["tok"])
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
@@ -224,7 +232,8 @@ def _embed_specs(cfg: LMConfig) -> dict:
 
 
 def _unembed(rt: L.Runtime, cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    return L.unembed(rt, _whole(rt, {"unembed": params["embed"]["unembed"]}, _embed_specs, cfg), x)
+    return spans.call("model.unembed", L.unembed, rt,
+                      _whole(rt, {"unembed": params["embed"]["unembed"]}, _embed_specs, cfg), x)
 
 
 def forward(
@@ -259,7 +268,7 @@ def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Te
     logits, aux = forward(rt, cfg, params, batch["tokens"], batch.get("prefix_embeds"))
     labels = batch["labels"]
     if not _sequence_parallel(rt):
-        return L.cross_entropy(logits, labels, cfg.vocab_size) + aux
+        return spans.call("model.loss", L.cross_entropy, logits, labels, cfg.vocab_size) + aux
     # this rank's share of the mean over the whole sequences' tokens, and of
     # the auxiliary loss (the same on every model rank)
     n_all = labels.shape[1] * rt.model.size
@@ -267,7 +276,8 @@ def loss_fn(rt: L.Runtime, cfg: LMConfig, params: dict, batch: dict) -> torch.Te
         prefix = batch["prefix_embeds"]
         labels = _concat_shard(rt, prefix.shape[1] * rt.model.size, prefix, labels)[1]
     share = labels.shape[1] / n_all
-    ce = L.cross_entropy(logits, labels, cfg.vocab_size) * share if share else logits.sum() * 0.0
+    ce = spans.call("model.loss", L.cross_entropy, logits, labels, cfg.vocab_size) * share if share \
+        else logits.sum() * 0.0
     return ce + aux / rt.model.size
 
 

@@ -77,7 +77,7 @@ def grads_both_ways(plain, arrays, dtype, grad_of, used, seed=0, strided=False):
     out = []
     for via in (True, False):
         xs = leaves(arrays, dtype, grad_of)
-        outs = PlainGradient.apply(plain, plain, *xs) if via else plain(*xs)
+        outs = PlainGradient.apply("plain", plain, plain, *xs) if via else plain(*xs)
         outs = outs if isinstance(outs, tuple) else (outs,)
         gen.manual_seed(seed)
         picked, gos = [], []
@@ -140,7 +140,7 @@ def test_moe_dispatch_gradients_equal_plain(batched, disp_grad):
     for a, b in zip(g, gp):
         assert torch.equal(a, b)
     xs = leaves(arrays, torch.float32, grad_of)
-    PlainGradient.apply(moe_dispatch_plain, moe_dispatch_plain, *xs).sum().backward()
+    PlainGradient.apply("plain", moe_dispatch_plain, moe_dispatch_plain, *xs).sum().backward()
     assert (xs[0].grad is not None) == disp_grad and xs[1].grad is not None
 
 
@@ -148,7 +148,7 @@ def test_unused_input_gets_no_gradient():
     """An input that needs no gradient (w here) gets None, the others theirs."""
     arrays = rwkv_inputs(np.random.default_rng(2), 1, 16, 1, 8)
     xs = leaves(arrays, torch.float32, [0, 1, 2, 4])
-    y, _ = PlainGradient.apply(rwkv_plain(16), rwkv_plain(16), *xs)
+    y, _ = PlainGradient.apply("plain", rwkv_plain(16), rwkv_plain(16), *xs)
     y.sum().backward()
     assert xs[3].grad is None and all(xs[i].grad is not None for i in (0, 1, 2, 4))
 
@@ -244,7 +244,7 @@ def test_gradients_finite_at_the_decay_extremes(dtype):
             (lambda *t: port_mamba2.ssd_chunked(*t[:4], 64, t[4]), ssd_inputs(rng, 1, 128, 2, 16, 16, strong=True), 4,
              ssd_fp32)):
         xs = leaves(arrays, dtype, list(range(n)), fp32)
-        y, state = PlainGradient.apply(plain, plain, *xs)
+        y, state = PlainGradient.apply("plain", plain, plain, *xs)
         (y.float().sum() + state.sum()).backward()
         for t in xs[:n]:
             assert torch.isfinite(t.grad.float()).all()

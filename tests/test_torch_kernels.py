@@ -310,7 +310,7 @@ def test_attention_function_gradcheck(kw):
                for s in [(1, 2, 2, 6, 32), (1, 2, Sk, 32), (1, 2, Sk, 32)])
     kw = {**kw, "sm_scale": 1 / np.sqrt(32)}
     plain = functools.partial(flash_attention_plain, **kw)
-    assert torch.autograd.gradcheck(lambda q, k, v: PlainGradient.apply(plain, plain, q, k, v), (q, k, v))
+    assert torch.autograd.gradcheck(lambda q, k, v: PlainGradient.apply("plain", plain, plain, q, k, v), (q, k, v))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -327,7 +327,7 @@ def test_attention_function_matches_plain_autograd(dtype):
     go = torch.from_numpy(rand(rng, (B, K, N // K, S, D))).to(TDT[dtype])
     outs = []
     plain = functools.partial(flash_attention_plain, **kw)
-    for fn in (lambda *t: PlainGradient.apply(plain, plain, *t), plain):
+    for fn in (lambda *t: PlainGradient.apply("plain", plain, plain, *t), plain):
         leaves = [t.clone().requires_grad_() for t in base]
         o = fn(*views(*leaves))
         o.backward(go)

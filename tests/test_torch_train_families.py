@@ -114,7 +114,7 @@ def through_functions():
 
     def apply(plain, *inputs):
         calls[0] += 1
-        return PlainGradient.apply(plain, plain, *inputs)
+        return PlainGradient.apply("plain", plain, plain, *inputs)
 
     ops.rwkv6_scan = lambda r, k, v, w, u, *, chunk=128, s0=None: apply(
         lambda *t: rwkv6_scan_plain(*t[:5], chunk=chunk, s0=t[5]), r, k, v, w, u, s0)

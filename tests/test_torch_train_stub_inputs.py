@@ -128,7 +128,7 @@ def flash_through_function():
 
     def through(q, k, v, **kw):
         calls.append(kw)
-        return PlainGradient.apply(lambda *t: flash_attention_plain(*t, **kw),
+        return PlainGradient.apply("plain", lambda *t: flash_attention_plain(*t, **kw),
                                    lambda *t: flash_attention_plain(*t, **kw), q, k, v)
 
     ops.flash_attention = through
