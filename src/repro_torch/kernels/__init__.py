@@ -8,7 +8,9 @@ payload in training (``optim/compression.py``).
 Each kernel module holds the CUDA kernel's wrapper, a plain PyTorch version of
 the same function, and a launch count on the wrapper.  ``launch_counts`` and
 ``reset_launch_counts`` read and clear the counts of every kernel, so a run
-can show which kernels its path went through.
+can show which kernels its path went through; flash attention's backward
+kernels count under their own key, ``flash_attention.bwd``
+(``flash_attention.bwd_launches``: backward calls served by the kernels).
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ KERNELS = {"flash_attention": flash_attention, "moe_dispatch": moe_dispatch, "ss
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {**{name: fn.launches for name, fn in KERNELS.items()},
+            "flash_attention.bwd": flash_attention.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.bwd_launches = 0

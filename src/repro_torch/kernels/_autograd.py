@@ -1,8 +1,10 @@
 """The first cut of a backward for the port's kernels under autograd
-(``flash_attention``, ``moe_dispatch``, ``ssd_scan``, ``rwkv6_scan``): the
-kernel's launch in the forward, the gradient of its plain version in the
-backward.  The reference's Pallas kernels have no backward (no
-``custom_vjp``), so none has a hand-written backward kernel yet."""
+(``moe_dispatch``, ``ssd_scan``, ``rwkv6_scan``, and ``flash_attention`` in
+fp32 or at head_dim 32 or 256): the kernel's launch in the forward, the
+gradient of its plain version in the backward.  The reference's Pallas
+kernels have no backward (no ``custom_vjp``).  Flash attention's bf16
+backward at head_dim 64 and 128 is a kernel of its own
+(``flash_attention.FlashGradient``)."""
 
 from __future__ import annotations
 

@@ -84,11 +84,20 @@
 // The caller counts one launch per call of the wrapper, also when a decode
 // step runs the combine kernel after the split kernel.
 //
+// Under autograd the tensor-core kernel's second instantiation (LSE = true)
+// also writes each row's log-sum-exp of its scaled, filled scores, fp32
+// (B, K, G, Sq), the quantity the combine kernel writes, and the output
+// before its rounding to bf16, fp32 (B, K, G, Sq, D): the backward kernels
+// of csrc/flash_attention_bwd.cu recompute the probabilities from the first
+// and take rowsum(dO o O) from the second (with the bf16 output that sum
+// moved dQ and dK past one bf16 ulp of their largest element from the
+// float64 oracle).  The instantiation without them (prefill, serving) is the
+// same code as before.
+//
 // Left for later: TMA loads from a producer warp and two consumer
 // warpgroups of 64 rows each sharing every K/V tile (half the K/V traffic of
 // 64-row blocks), a persistent schedule over the tiles, the decode step in
-// one kernel, and the backward kernel (the autograd backward is the plain
-// version's gradient today).
+// one kernel.
 //
 // Every query row must see at least one key (true of every causal row whose
 // own position is among the keys); a row that sees none has no defined value
@@ -118,7 +127,8 @@ struct Params {
   int causal, window, prefix_len, q_start;   // window < 0: none
   float sm_scale;
   float* acc;   // tensor-core kernel: fp32 copies of O flushed every FLUSH_TILES tiles (null: no flush)
-  float* lse;   // decode: each row's log-sum-exp of its scores, (B, K, G, Sq) fp32 (null: not written)
+  float* lse;   // each row's log-sum-exp of its scores, (B, K, G, Sq) fp32 (null: not written)
+  float* o32;   // tensor-core kernel under autograd: O unrounded, (B, K, G, Sq, D) fp32 (null: not written)
 };
 
 // ---------------------------------------------------------------------------
@@ -351,7 +361,7 @@ __device__ inline void split(float x0, float x1, unsigned& hi, unsigned& lo) {
 // holds row 16 w + g (e < 2) or 16 w + g + 8 (e >= 2), column 8 n + 2 t + (e & 1).
 // The A fragment from registers of a k16 step is the mma.m16n8k16 one, so the
 // probabilities go from the score accumulators to A fragments in place.
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) flash_fwd_tc_kernel(const Params p) {
   using L = Layout<D>;
   constexpr int DP = L::DP;
@@ -593,6 +603,22 @@ __global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) fl
   // one division a row: o * (1 / l) lies within an fp32 ulp of o / l
   const float inv0 = 1.f / fmaxf(l[0], 1e-20f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-20f);
+  if constexpr (LSE) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rg = r0 + warp * 16 + g + 8 * h;
+      if (rg < R) {
+        const long long row = ((long long)blockIdx.y * p.G + rg % p.G) * p.Sq + rg / p.G;
+        // m is kept times log2(e): lse = ln 2 (m + log2 l); one lane of the quad a row
+        if (wg == 0 && t == 0) p.lse[row] = (m[h] + log2f(l[h])) * 0.6931471805599453f;
+        const float inv = h ? inv1 : inv0;
+#pragma unroll
+        for (int n = 0; n < (D < DW ? D : DW) / 8; ++n)
+          *reinterpret_cast<float2*>(p.o32 + row * D + wg * DW + n * 8 + 2 * t) =
+              make_float2(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
+      }
+    }
+  }
 #pragma unroll
   for (int n = 0; n < (D < DW ? D : DW) / 8; ++n) {
     *reinterpret_cast<unsigned*>(Os + g * L::LDO + n * 8 + 2 * t) = pack(o[4 * n] * inv0, o[4 * n + 1] * inv0);
@@ -616,7 +642,7 @@ __global__ void __launch_bounds__(Layout<D>::NTHREADS, Layout<D>::MIN_BLOCKS) fl
 template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using L = Layout<D>;
-  auto kernel = flash_fwd_tc_kernel<D>;
+  auto kernel = p.o32 != nullptr ? flash_fwd_tc_kernel<D, true> : flash_fwd_tc_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -1153,11 +1179,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_dim(Params p, int dtype, float* part, int splits, cudaStream_t stream) {
   if (p.G * p.Sq <= dec::MAX_ROWS) {
-    if (part == nullptr || splits < 1 || splits > dec::MAX_SPLITS) return cudaErrorInvalidValue;
+    if (part == nullptr || splits < 1 || splits > dec::MAX_SPLITS || p.o32 != nullptr)
+      return cudaErrorInvalidValue;
     return dtype == 1 ? dec::launch<bf16, D>(p, part, splits, stream)
                       : dec::launch<float, D>(p, part, splits, stream);
   }
-  if (p.lse != nullptr) return cudaErrorInvalidValue;   // the log-sum-exp is a decode call's
+  // above 16 rows the log-sum-exp comes with the unrounded output: a bf16 call's under autograd
+  if ((p.lse == nullptr) != (p.o32 == nullptr) || (p.lse != nullptr && dtype != 1))
+    return cudaErrorInvalidValue;
   p.acc = part;    // the tensor-core kernel's flushed copies of O, where the rows are long
   return dtype == 1 ? tc::launch<D>(p, stream) : simt::launch<D>(p, stream);
 }
@@ -1170,15 +1199,17 @@ cudaError_t launch_dim(Params p, int dtype, float* part, int splits, cudaStream_
 // workspace of B*K*splits*G*Sq*(D+2) floats and the number of key splits;
 // for bf16 with G*Sq > 16, null or (where Sk > 2,048) fp32 workspace of
 // ceil(G*Sq/64)*B*K*64*max(D,64) floats for O's flushed copies (`splits`
-// unused).  `lse`: null, or for G*Sq <= 16 an fp32 output of B*K*G*Sq floats
-// for each row's log-sum-exp.  Returns the cudaError_t of the launches
-// (0 = ok); it does not synchronise.
+// unused).  `lse`: null, or for G*Sq <= 16 an fp32 output of B*K*G*Sq
+// floats for each row's log-sum-exp.  For bf16 with G*Sq > 16, `lse` and
+// `o32` both null, or both given: the log-sum-exp and an fp32 output of
+// B*K*G*Sq*D floats (contiguous) for the output before its rounding.
+// Returns the cudaError_t of the launches (0 = ok); it does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int K, int G, int Sq, int Sk, int D, int dtype,
     const long long* strides,
     int causal, int window, int prefix_len, int q_start, float sm_scale,
-    void* part, int splits, void* lse, void* stream) {
+    void* part, int splits, void* lse, void* o32, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.K = K; p.G = G; p.Sq = Sq; p.Sk = Sk;
@@ -1190,6 +1221,7 @@ extern "C" int flash_attention_fwd(
   p.sm_scale = sm_scale;
   p.acc = nullptr;
   p.lse = static_cast<float*>(lse);
+  p.o32 = static_cast<float*>(o32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* work = static_cast<float*>(part);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);

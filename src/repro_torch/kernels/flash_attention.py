@@ -16,10 +16,19 @@ function serves prefill (``q_start=0``) and a decode step over the cache
 (``Sq=1, q_start=pos``).  Every query row must see at least one key.
 
 Gradients: where autograd records (grad mode on and an input that requires
-grad), the kernel runs inside ``_autograd.PlainGradient``, a
-``torch.autograd.Function`` whose backward is the gradient of
-``flash_attention_plain``, recomputed from the saved q, k and v.  The reference has no backward kernel to port; a
-hand-written one is later work.
+grad), bf16 at head_dim 64 or 128 over more than ``DECODE_ROWS`` folded
+rows (every bf16 training path but paligemma-3b's head_dim 256) runs inside
+``FlashGradient``: the forward kernel also
+writes each row's log-sum-exp and its output before the rounding to bf16,
+and the backward is the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` (``_launch_bwd``; their arithmetic in plain
+PyTorch: ``flash_attention_bwd_plain``), counted by
+``flash_attention.bwd_launches``.  Other types and widths, and
+decode-sized calls, run inside ``_autograd.PlainGradient``, whose backward
+is the gradient of ``flash_attention_plain``, recomputed from the saved q, k
+and v.  The choice is made from the dtype and the shape
+(``kernel_gradient``).  The
+reference has no backward kernel (no ``custom_vjp``).
 
 On the card the function is bound by bytes (q, k, v read once, o written
 once).  ``_launch`` hands the call to one of three kernels of the CUDA source,
@@ -54,11 +63,13 @@ import math
 
 import torch
 
+from .. import spans
 from . import _build
 from ._autograd import PlainGradient
 
 NEG_INF = -1e30          # the kernel's finite mask fill (reference: NEG_INF)
 HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)   # head dims of the backward kernels (bf16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_ROWS = 16         # folded rows G * Sq up to which the decode kernels run
 KEY_TILE = 64            # keys in a kernel's tile
@@ -129,7 +140,48 @@ def flash_attention_plain(
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide)).to(q.dtype)
-    return (o, torch.logsumexp(s, dim=-1).float()) if return_lse else o
+    return (o, torch.logsumexp(s, dim=-1).to(wide)) if return_lse else o
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,            # (B, K, G, Sq, D)
+    k: torch.Tensor,            # (B, K, Sk, D)
+    v: torch.Tensor,            # (B, K, Sk, D)
+    o: torch.Tensor,            # (B, K, G, Sq, D), the forward's output (the kernels': before rounding)
+    lse: torch.Tensor,          # (B, K, G, Sq), the forward's log-sum-exp
+    do: torch.Tensor,           # (B, K, G, Sq, D), the output's gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    prefix_len: int = 0,
+    q_start: int = 0,
+    sm_scale: float | None = None,
+):
+    """Plain PyTorch version of the backward kernels' function, with their
+    algorithm in fp32 (float64 stays float64): the probabilities recomputed
+    from the saved log-sum-exp, ``P = exp(S * scale - lse)`` (masked keys
+    0), ``delta = rowsum(dO * O)``, ``dS = P * (dO V^T - delta)``; returns
+    ``(dq, dk, dv)`` in the inputs' types, dk and dv summed over the G
+    query heads of their kv head."""
+    Sq, D = q.shape[3], q.shape[4]
+    Sk = k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qw, kw, vw, ow, dow = (t.to(wide) for t in (q, k, v, o, do))
+    s = torch.einsum("bkgqd,bksd->bkgqs", qw, kw) * scale
+    ok = visible(
+        Sq, Sk, causal=causal, window=window, prefix_len=prefix_len,
+        q_start=q_start, device=q.device,
+    )
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.to(wide)[..., None])
+    delta = (dow * ow).sum(-1)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dow, vw)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kw) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qw) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dow)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, window, prefix_len, q_start):
@@ -155,32 +207,42 @@ def _check(q, k, v, window, prefix_len, q_start):
         raise ValueError(f"bad window={window}, prefix_len={prefix_len}, q_start={q_start}")
 
 
-def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale, return_lse=False):
+def _aligned(t: torch.Tensor) -> bool:
+    """The kernels load rows 16 bytes at a time: innermost stride 1, every
+    row and every stride 16-byte aligned."""
+    per16 = 16 // t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s in t.stride()[:-1])
+
+
+def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale, return_lse=False, for_backward=False):
+    """The forward kernels: o; with ``return_lse`` (o, lse); with
+    ``for_backward`` (o, lse, o before its rounding, fp32), which only the
+    tensor-core kernel writes (bf16, G * Sq > 16)."""
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
-            + [ci] * 4 + [ctypes.c_float, vp, ci, vp, vp]
+            + [ci] * 4 + [ctypes.c_float, vp, ci, vp, vp, vp]
         fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
 
     o = torch.empty_like(q)     # keeps q's strides where q is a dense view
     strides = [*q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *o.stride()[:4]]
-    # the kernel loads rows 16 bytes at a time
-    per16 = 16 // q.element_size()
     for t in (q, k, v, o):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1]):
+        if not _aligned(t):
             raise ValueError(
                 "flash_attention needs innermost stride 1 and 16-byte aligned rows; "
                 f"got shape {tuple(t.shape)}, strides {t.stride()}"
             )
     B, K, G, Sq, D = q.shape
     Sk = k.shape[2]
-    splits, part, lse = 0, None, None
-    if return_lse:
+    splits, part, lse, o32 = 0, None, None, None
+    if return_lse or for_backward:
         lse = torch.empty((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    if for_backward:
+        o32 = torch.empty((B, K, G, Sq, D), dtype=torch.float32, device=q.device)
     if G * Sq <= DECODE_ROWS:
         splits = decode_splits(B * K, Sk, _sm_count(q.device.index))
         part = torch.empty(B * K * splits * G * Sq * (D + 2), dtype=torch.float32, device=q.device)
@@ -196,13 +258,106 @@ def _launch(q, k, v, *, causal, window, prefix_len, q_start, sm_scale, return_ls
             int(q_start), float(sm_scale),
             None if part is None else part.data_ptr(), splits,
             None if lse is None else lse.data_ptr(),
+            None if o32 is None else o32.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {err})")
     flash_attention.launches += 1
+    if for_backward:
+        return o, lse, o32
     return (o, lse) if return_lse else o
+
+
+def _launch_bwd(q, k, v, o, lse, do, *, causal, window, prefix_len, q_start, sm_scale):
+    """The backward kernels of ``csrc/flash_attention_bwd.cu``: (dq, dk, dv)
+    in bf16, from the forward's inputs, its output ``o`` before its rounding
+    (fp32) and log-sum-exp.  ``do`` is copied where its rows do
+    not meet the kernels' alignment."""
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 4 \
+            + [ctypes.c_float, vp]
+        fn.restype = ci
+        lib.flash_attention_bwd_error_string.argtypes = [ci]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+
+    if not _aligned(do):
+        do = do.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for t in (q, k, v, o, dq, dk, dv):
+        if not _aligned(t):
+            raise ValueError("flash_attention's backward needs innermost stride 1 and 16-byte aligned rows; "
+                             f"got shape {tuple(t.shape)}, strides {t.stride()}")
+    B, K, G, Sq, D = q.shape
+    Sk = k.shape[2]
+    # each row's delta and lse in log2 units, in rows padded to whole 64-row tiles
+    work = torch.empty(2 * B * K * G * -(-Sq // KEY_TILE) * KEY_TILE, dtype=torch.float32, device=q.device)
+    strides = [*q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *o.stride()[:4], *do.stride()[:4],
+               *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.contiguous().data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+            B, K, G, Sq, Sk, D, (ctypes.c_longlong * 28)(*strides),
+            int(causal), -1 if window is None else int(window), int(prefix_len), int(q_start), float(sm_scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention backward launch failed: {msg} (cudaError {err})")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashGradient(torch.autograd.Function):
+    """``FlashGradient.apply(fwd, bwd, q, k, v)``: flash attention under
+    autograd with a backward of its own.  ``fwd(q, k, v)`` returns the
+    output, each row's log-sum-exp and the output before its rounding (on
+    the card the forward kernel, ``for_backward``); the backward, inside the
+    span ``flash_attention.bwd``, returns ``bwd(q, k, v, o, lse, do)`` with
+    that unrounded o (on the card ``_launch_bwd``; the tests hand it
+    ``flash_attention_bwd_plain``), so nothing of size Sq x Sk is kept or
+    made."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, q, k, v):
+        o, lse, o_exact = fwd(q, k, v)
+        ctx.bwd = bwd
+        ctx.save_for_backward(q, k, v, o_exact, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        with spans.mark("flash_attention.bwd"):
+            dq, dk, dv = ctx.bwd(*ctx.saved_tensors, do)
+        return None, None, dq, dk, dv
+
+
+def kernel_gradient(q: torch.Tensor) -> bool:
+    """Whether flash attention under autograd takes the backward kernels
+    (``FlashGradient``): bf16 at head_dim 64 or 128, over more than
+    ``DECODE_ROWS`` folded rows (G * Sq), where the forward is the
+    tensor-core kernel that writes the unrounded output the backward
+    reads.  Other types, widths and decode-sized calls take the plain
+    version's gradient (``PlainGradient``)."""
+    _, _, G, Sq, D = q.shape
+    return q.dtype == torch.bfloat16 and D in BWD_HEAD_DIMS and G * Sq > DECODE_ROWS
+
+
+def _with_grad(q, k, v, kw, launch=_launch, launch_bwd=_launch_bwd):
+    """Flash attention under autograd, its backward chosen by
+    ``kernel_gradient``; ``launch`` and ``launch_bwd`` (the kernels) are the
+    forward and backward calls, which the tests replace with the plain
+    versions on CPU tensors."""
+    if kernel_gradient(q):
+        return FlashGradient.apply(lambda *t: launch(*t, for_backward=True, **kw),
+                                   lambda *t: launch_bwd(*t, **kw), q, k, v)
+    return PlainGradient.apply("flash_attention", lambda *t: launch(*t, **kw),
+                               lambda *t: flash_attention_plain(*t, **kw), q, k, v)
 
 
 def flash_attention(
@@ -234,9 +389,9 @@ def flash_attention(
     if return_lse:
         return _launch(q, k, v, return_lse=True, **kw)
     if grad:
-        return PlainGradient.apply("flash_attention", lambda *t: _launch(*t, **kw),
-                                   lambda *t: flash_attention_plain(*t, **kw), q, k, v)
+        return _with_grad(q, k, v, kw)
     return _launch(q, k, v, **kw)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

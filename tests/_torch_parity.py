@@ -246,6 +246,30 @@ def flash_emulated(q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0
     return (O / L.clamp_min(1e-20)[..., None]).to(q.dtype)
 
 
+def flash_bwd_emulated(q, k, v, o, lse, do, *, causal=True, window=None, prefix_len=0, q_start=0):
+    """The arithmetic of the port's CUDA flash-attention backward kernels, in
+    PyTorch on the CPU: fp32 scores of the bf16 inputs, P from the saved
+    log-sum-exp, delta from ``o`` as given (the kernels': the forward's
+    output before its rounding, fp32), dS in fp32; P rounded to bf16
+    as the dV product's operand, dS cut into two bf16 pieces (the kernels'
+    dS_hi + dS_lo) as the dK and dQ products', whose sums are fp32; (dq, dk,
+    dv) rounded once to bf16."""
+    from repro_torch.kernels.flash_attention import visible
+
+    D = q.shape[4]
+    scale = 1.0 / D ** 0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    ok = visible(q.shape[3], k.shape[2], causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
+    p = torch.where(ok, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = sum(split_parts(p * (dp - (dof * of).sum(-1)[..., None]), 2, "bf16"))
+    p = p.bfloat16().float()
+    return (torch.einsum("bkgqs,bksd->bkgqd", ds, kf).mul(scale).to(q.dtype),
+            torch.einsum("bkgqs,bkgqd->bksd", ds, qf).mul(scale).to(k.dtype),
+            torch.einsum("bkgqs,bkgqd->bksd", p, dof).to(v.dtype))
+
+
 def tf32_cut(v: torch.Tensor) -> torch.Tensor:
     """fp32 cut toward zero to TF32 (10 explicit mantissa bits): the low 13
     bits cleared, as the kernel masks them."""

@@ -386,8 +386,11 @@ def test_ccu_reduce_kernel_matches_plain(cuda, P, N, view, dtype, scaled):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_gradients_match_plain(cuda, dtype):
     """Through the kernel with autograd recording: the output is the
-    kernel's (held as above), its gradients those of the plain version at the
-    same inputs, bit for bit (the backward recomputes the plain version)."""
+    kernel's (held as above).  float32: its gradients those of the plain
+    version at the same inputs, bit for bit (the backward recomputes the
+    plain version); bfloat16 (head_dim 64: the backward kernels) within one
+    bf16 ulp of each gradient's largest |g| from the plain version's, one
+    backward launch."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -395,6 +398,7 @@ def test_flash_attention_gradients_match_plain(cuda, dtype):
     base = [(torch.randn(s, generator=gen, device=cuda) * sc).to(dtype) for s, sc in shapes]
     go = torch.randn((2, 2, 3, 100, 64), generator=gen, device=cuda).to(dtype)
     outs = []
+    before = flash_attention.bwd_launches
     for fn in (flash_attention, flash_attention_plain):
         leaves = [t.clone().requires_grad_() for t in base]
         o = fn(*leaves, causal=True, window=48)
@@ -404,8 +408,51 @@ def test_flash_attention_gradients_match_plain(cuda, dtype):
     (o, g), (r, gr) = outs
     limit = torch.full_like(r, 2e-5) if dtype == torch.float32 else 2.0 ** -7 * r.abs() + 1e-5
     assert ((o - r).abs() <= limit).all()
+    assert flash_attention.bwd_launches == before + (dtype == torch.bfloat16)
     for a, b in zip(g, gr):
-        assert torch.equal(a, b)
+        if dtype == torch.float32:
+            assert torch.equal(a, b)
+        else:
+            assert (a.float() - b.float()).abs().max() <= 2.0 ** -7 * b.float().abs().max()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G,Sq,Sk,q_start,causal,window,prefix_len", [
+    (4, 256, 256, 0, True, None, 0), (1, 100, 100, 0, True, None, 0), (6, 77, 77, 0, True, None, 0),
+    (4, 100, 100, 0, True, 32, 0), (6, 100, 100, 0, True, None, 40), (4, 64, 64, 0, True, 16, 70),
+    (4, 77, 203, 126, True, None, 0), (1, 33, 300, 255, True, 70, 0), (6, 128, 256, 128, True, None, 0),
+    (1, 64, 200, 0, False, None, 0), (4, 130, 40, 0, False, None, 0), (1, 17, 65, 48, True, None, 0),
+    (6, 3, 70, 67, True, None, 0),
+])
+def test_flash_attention_bwd_kernel_matches_oracle(cuda, D, G, Sq, Sk, q_start, causal, window, prefix_len):
+    """The backward kernels (bf16 at head_dim 64 and 128) at the masks,
+    ragged edges, q_start and G of the training paths: dq, dk, dv within one
+    bf16 ulp of each gradient's largest |g| from autograd through the
+    float64 oracle (P and dS enter the products in bf16, fp32 sums), within
+    1e-2 of it from the plain backward on the same saved output and
+    log-sum-exp, two launches bit for bit, one backward launch each."""
+    from repro_torch.kernels.flash_attention import _launch_bwd, flash_attention, flash_attention_bwd_plain
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, v = _peaked_qkv(cuda, G, Sq, Sk, D, torch.bfloat16, seed=3)
+    go = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.bwd_launches
+    o = flash_attention(*leaves, **kw)
+    assert type(o.grad_fn).__name__ == "FlashGradientBackward"
+    saved = [t.detach() for t in o.grad_fn.saved_tensors]       # q, k, v, o, lse
+    o.backward(go)
+    g = [t.grad for t in leaves]
+    assert flash_attention.bwd_launches == before + 1
+    again = _launch_bwd(*saved, go, sm_scale=D ** -0.5, **kw)
+    plain = flash_attention_bwd_plain(*saved, go, **kw)
+    wide = [t.double().requires_grad_() for t in (q, k, v)]
+    oracle = torch.autograd.grad(attention_ref(*wide, **kw), wide, go.double())
+    of_ulp = [((a.double() - r).abs().max() / (2.0 ** -7 * r.abs().max())).item() for a, r in zip(g, oracle)]
+    of_plain = [((a.float() - c.float()).abs().max() / c.float().abs().max()).item() for a, c in zip(g, plain)]
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(g, again))
+    assert max(of_ulp) <= 1.0 and max(of_plain) <= 1e-2, (of_ulp, of_plain)
 
 
 def _autograd_case(cuda, kernel, kind, dtype):
@@ -509,7 +556,7 @@ def test_train_kernel_path_matches_plain_path(cuda):
     (k, kg, kc), (p, pg, pc) = runs
     n_leaves = len(tree_leaves(kg))
     assert kc == {"flash_attention": 2 * 2 * h.cfg.n_layers, "moe_dispatch": 0, "ssd_scan": 0,
-                  "rwkv6_scan": 0, "ccu_reduce": 2 * n_leaves}
+                  "rwkv6_scan": 0, "ccu_reduce": 2 * n_leaves, "flash_attention.bwd": 0}
     assert pc["flash_attention"] == 0 and pc["ccu_reduce"] == 0
     assert max(abs(a - b) for a, b in zip(k["losses"], p["losses"])) <= 1e-5
     for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
@@ -548,7 +595,7 @@ def test_train_with_stub_inputs_kernel_path_matches_plain_path(cuda, arch):
     n_leaves = len(tree_leaves(kg))
     attentions = {"paligemma-3b": 1, "whisper-base": 3}[arch] * h.cfg.n_layers
     assert kc == {"flash_attention": 2 * attentions, "moe_dispatch": 0, "ssd_scan": 0,
-                  "rwkv6_scan": 0, "ccu_reduce": n_leaves}
+                  "rwkv6_scan": 0, "ccu_reduce": n_leaves, "flash_attention.bwd": 0}
     assert pc["flash_attention"] == 0 and pc["ccu_reduce"] == 0
     assert abs(k["losses"][0] - p["losses"][0]) <= 1e-5
     for a, b in zip(tree_leaves(kg), tree_leaves(pg)):

@@ -21,14 +21,14 @@ from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels._autograd import PlainGradient
 from repro_torch.kernels.ccu_reduce import ccu_reduce, ccu_reduce_plain
 from repro_torch.kernels.flash_attention import (
-    decode_splits, flash_attention, flash_attention_plain)
+    _with_grad, decode_splits, flash_attention, flash_attention_bwd_plain, flash_attention_plain, kernel_gradient)
 from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_plain, moe_gather_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers
 
-from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_emulated, max_err, moe_compacted, one_thread,  # noqa: F401
-                           rand, rwkv_emulated, ssd_emulated, to_np)
+from _torch_parity import (BF16_ULP, JDT, TDT, both, flash_bwd_emulated, flash_emulated, max_err,  # noqa: F401
+                           moe_compacted, one_thread, rand, rwkv_emulated, ssd_emulated, to_np)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -174,7 +174,7 @@ def test_launch_count_untouched_on_cpu():
     _, (q, k, v) = qkv(48, 1, 1, 1, 8, 8, 32, "float32")
     flash_attention(q, k, v)
     assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}   # CPU tensors
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}   # CPU tensors
     assert torch.equal(flash_attention(q, k, v), flash_attention_plain(q, k, v))
 
 
@@ -336,6 +336,173 @@ def test_attention_function_matches_plain_autograd(dtype):
         assert a.dtype == TDT[dtype] and torch.equal(a, b)
 
 
+# flash attention's backward kernels: their arithmetic in plain PyTorch
+# (``flash_attention_bwd_plain``) and the choice of backward (on the card the
+# kernels themselves: tests/test_torch_gpu.py)
+
+BWD_CASES = [   # (B, K, G, Sq, Sk, D, mask)
+    (2, 2, 1, 70, 70, 64, dict(causal=True)),
+    (1, 2, 4, 50, 50, 128, dict(causal=True, window=16)),
+    (2, 1, 6, 40, 40, 64, dict(causal=True, prefix_len=9)),
+    (1, 2, 4, 33, 70, 64, dict(causal=True, q_start=37)),
+    (2, 2, 1, 20, 45, 128, dict(causal=False)),
+    (1, 1, 6, 17, 60, 128, dict(causal=True, window=20, prefix_len=5, q_start=43)),
+    (1, 2, 4, 65, 30, 64, dict(causal=False)),
+]
+
+
+def bwd_inputs(seed, B, K, G, Sq, Sk, D, dtype):
+    """q, k, v and the output's gradient, peaked as the card's tests draw
+    them (q 2 randn, k 1.5 randn, v and dO randn)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s) * sc).to(dtype)
+                 for s, sc in [((B, K, G, Sq, D), 2.0), ((B, K, Sk, D), 1.5), ((B, K, Sk, D), 1.0),
+                               ((B, K, G, Sq, D), 1.0)])
+
+
+@pytest.mark.parametrize("B,K,G,Sq,Sk,D,kw", BWD_CASES)
+def test_flash_bwd_plain_is_the_gradient(B, K, G, Sq, Sk, D, kw):
+    """In float64 the plain backward (P from the saved log-sum-exp, delta,
+    dS = P (dP - delta)) is autograd's gradient of ``flash_attention_plain``
+    and of the float64 oracle ``attention_ref``, to rounding."""
+    q, k, v, do = bwd_inputs(31, B, K, G, Sq, Sk, D, torch.float64)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float64
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for fn in (flash_attention_plain, ref.attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(fn(*leaves, **kw), leaves, do)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float64 and a.shape == b.shape
+            assert (a - b).abs().max() <= 1e-12 * b.abs().max()
+
+
+@pytest.mark.parametrize("B,K,G,Sq,Sk,D,kw", BWD_CASES)
+def test_flash_bwd_plain_in_fp32(B, K, G, Sq, Sk, D, kw):
+    """In fp32 (the kernels' own sums) the plain backward lies within 1e-5
+    of each gradient's largest |g| from autograd through the float64 oracle."""
+    q, k, v, do = bwd_inputs(32, B, K, G, Sq, Sk, D, torch.float32)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves, do.double())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert (a.double() - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("B,K,G,Sq,Sk,D,kw", BWD_CASES)
+def test_flash_bwd_arithmetic_within_one_ulp(B, K, G, Sq, Sk, D, kw):
+    """The backward kernels' arithmetic (``flash_bwd_emulated``: P rounded
+    to bf16 and dS cut into two bf16 parts as the products' operands, fp32
+    sums, delta from the fp32 output) on bf16 inputs lies within one bf16
+    ulp of each gradient's largest |g| from the float64 oracle's, the limit
+    ``chip_smoke.py`` holds the kernels to."""
+    q, k, v, do = bwd_inputs(33, B, K, G, Sq, Sk, D, torch.bfloat16)
+    o, lse = flash_attention_plain(q.float(), k.float(), v.float(), return_lse=True, **kw)
+    got = flash_bwd_emulated(q, k, v, o, lse, do, **kw)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves, do.double())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert (a.double() - b).abs().max() <= BF16_ULP * b.abs().max()
+
+
+@pytest.mark.parametrize("B,K,G,Sq,Sk,D,kw", BWD_CASES)
+def test_flash_bwd_plain_matches_jax_grad(B, K, G, Sq, Sk, D, kw):
+    """The plain backward in float64, on the saved output and log-sum-exp,
+    against the reference's gradient: ``jax.vjp`` of its oracle
+    ``attention_ref`` (fp32 inside) on the same q, k, v and dO, within 1e-5
+    of each gradient's largest |g|.  The reference's oracle has no
+    ``q_start`` (its rows start at position 0), so q_start zero rows with a
+    zero gradient go before q, and their dq is cut off again."""
+    q, k, v, do = (t.numpy() for t in bwd_inputs(35, B, K, G, Sq, Sk, D, torch.float32))
+    w = [torch.from_numpy(a).double() for a in (q, k, v, do)]
+    o, lse = flash_attention_plain(*w[:3], return_lse=True, **kw)
+    got = flash_attention_bwd_plain(*w[:3], o, lse, w[3], **kw)
+    n = kw.get("q_start", 0)
+    pad = lambda a: jnp.asarray(np.concatenate([np.zeros((B, K, G, n, D), np.float32), a], axis=3))  # noqa: E731
+    _, vjp = jax.vjp(lambda *t: ref_ref.attention_ref(*t, **{a: b for a, b in kw.items() if a != "q_start"}),
+                     pad(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g, np.float64) for g in vjp(pad(do))]
+    want[0] = want[0][:, :, :, n:]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def _stub_launches(calls):
+    """The forward and backward launches of ``_with_grad``, stubbed with the
+    plain versions on CPU tensors; each call is appended to ``calls``."""
+
+    def launch(*t, for_backward=False, **kw):
+        calls.append("fwd+lse" if for_backward else "fwd")
+        o, lse = flash_attention_plain(*t, return_lse=True, **kw)
+        return (o, lse, o) if for_backward else o
+
+    def launch_bwd(*t, **kw):
+        calls.append("bwd")
+        return flash_attention_bwd_plain(*t, **kw)
+
+    return launch, launch_bwd
+
+
+@pytest.mark.parametrize("dtype,D,kernel", [
+    ("bfloat16", 64, True), ("bfloat16", 128, True), ("bfloat16", 32, False), ("bfloat16", 256, False),
+    ("float32", 64, False), ("float32", 128, False),
+])
+def test_flash_gradient_chosen_by_dtype_and_head_dim(dtype, D, kernel):
+    """Under autograd the wrapper takes the backward kernels (the forward
+    asked for the log-sum-exp, then one backward call) for bf16 at head_dim
+    64 and 128, and the plain version's gradient (``PlainGradient``: the
+    forward alone) for fp32 and for head_dim 32 and 256: the launches are
+    stubbed with the plain versions on CPU tensors.  Either way the
+    gradients are autograd's through the plain version, to the kernels'
+    rounding (two bf16 ulps of the largest |g|; fp32 bit for bit)."""
+    calls = []
+    launch, launch_bwd = _stub_launches(calls)
+    q, k, v, do = bwd_inputs(34, 1, 2, 3, 40, 40, D, TDT[dtype])
+    kw = dict(causal=True, window=None, prefix_len=0, q_start=0, sm_scale=1 / np.sqrt(D))
+    assert kernel_gradient(q) == kernel
+    runs = []
+    for fn in (lambda *t: _with_grad(*t, kw, launch=launch, launch_bwd=launch_bwd),
+               lambda *t: flash_attention_plain(*t, **kw)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        runs.append((o, [t.grad for t in leaves]))
+    (o, g), (op, gp) = runs
+    assert type(o.grad_fn).__name__ == ("FlashGradientBackward" if kernel else "PlainGradientBackward")
+    assert calls == (["fwd+lse", "bwd"] if kernel else ["fwd"])
+    assert torch.equal(o.detach(), op.detach())
+    for a, b in zip(g, gp):
+        assert a.dtype == TDT[dtype]
+        if kernel:
+            assert (a.float() - b.float()).abs().max() <= 2 * BF16_ULP * b.float().abs().max()
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G,Sq,kernel", [(1, 16, False), (4, 4, False), (1, 17, True), (6, 3, True)])
+def test_flash_gradient_plain_at_decode_rows(G, Sq, D, kernel):
+    """bf16 at head_dim 64 and 128 over at most 16 folded rows (G * Sq): the
+    forward is a decode kernel, which writes no unrounded output for the
+    backward, so the plain version's gradient takes the call; over 16 rows
+    the backward kernels do (launches stubbed on CPU tensors)."""
+    calls = []
+    launch, launch_bwd = _stub_launches(calls)
+    q, k, v, do = bwd_inputs(36, 1, 2, G, Sq, 40, D, torch.bfloat16)
+    kw = dict(causal=True, window=None, prefix_len=0, q_start=40 - Sq, sm_scale=1 / np.sqrt(D))
+    assert kernel_gradient(q) == kernel
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = _with_grad(*leaves, kw, launch=launch, launch_bwd=launch_bwd)
+    o.backward(do)
+    assert type(o.grad_fn).__name__ == ("FlashGradientBackward" if kernel else "PlainGradientBackward")
+    assert calls == (["fwd+lse", "bwd"] if kernel else ["fwd"])
+    assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
 def test_attention_cpu_path_keeps_the_graph():
     """On CPU tensors the wrapper is the plain version, graph and all."""
     _, (q, k, v) = qkv(5, 1, 1, 2, 8, 8, 32, "float32")
@@ -460,7 +627,7 @@ class TestSSDScan:
         yp, hp = ssd_scan_plain(*args, chunk=16)
         assert torch.equal(y, yp) and torch.equal(h, hp)
         assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
     def test_strided_inputs(self):
         """B and C as the model hands them over: slices of one conv output"""
@@ -705,7 +872,7 @@ class TestRWKV6Scan:
         yp, sp = rwkv6_scan_plain(*args, chunk=16)
         assert torch.equal(y, yp) and torch.equal(s, sp)
         assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
     def test_strided_inputs(self):
         """r, k, v as the model hands them over: (B, S, H, N) views of
@@ -954,7 +1121,7 @@ class TestMoEDispatch:
         disp, x = torch.from_numpy(one_hot_disp(rng, 16, 2, 8)), torch.from_numpy(rand(rng, (16, 32)))
         assert torch.equal(moe_dispatch(disp, x), moe_dispatch_plain(disp, x))
         assert launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
     @pytest.mark.parametrize("bad", ["rank", "tokens", "batch", "dtype", "mixed", "empty", "device"])
     def test_wrapper_raises(self, bad):

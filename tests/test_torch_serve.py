@@ -85,7 +85,7 @@ def test_greedy_ids_equal_reference_fp32(use_kernels):
     # float32, the same arithmetic in another order of sums
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
     assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}   # CPU: plain versions
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}   # CPU: plain versions
     assert res["prefill_s"] > 0 and res["decode_s_per_token"] > 0
 
 
@@ -100,7 +100,7 @@ def test_mixtral_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
     assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -114,7 +114,7 @@ def test_zamba2_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
     assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -143,7 +143,7 @@ def test_rwkv6_greedy_ids_equal_reference_fp32(use_kernels):
     np.testing.assert_array_equal(res["tokens"], ref_ids)
     np.testing.assert_allclose(res["logits"], ref_logits, atol=2e-4, rtol=0)
     assert res["launches"] == {"flash_attention": 0, "moe_dispatch": 0, "ssd_scan": 0, "rwkv6_scan": 0,
-                               "ccu_reduce": 0}
+                               "ccu_reduce": 0, "flash_attention.bwd": 0}
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
