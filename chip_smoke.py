@@ -685,7 +685,7 @@ def _flash_bwd_rows() -> dict:
 
 
 def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes: int, flops: int,
-                    dt, agree) -> dict:
+                    dt, agree, recomputed=None) -> dict:
     """A kernel under autograd at a training step's shape, as the step calls
     it: y carries a ``grad_fn`` and equals the call without autograd, bit
     for bit; its outputs (y and, for a scan, the final state) under autograd
@@ -694,7 +694,8 @@ def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes:
     plain outputs) -> {comparison: (max |difference|, its ratio to the
     limit)}``, at the kernel rows' limits; the gradients of a
     random projection of y equal the plain version's, bit for bit (the
-    backward recomputes the plain version), and are finite.  Times: the
+    backward recomputes the plain version; ``recomputed``, where given, is
+    the form of it the backward recomputes), and are finite.  Times: the
     kernel's forward (``ms``), the plain version's forward (``plain_ms``)
     and the backward (``backward_ms``: the plain version recomputed and
     differentiated, no kernel); ``bound_ms`` is the forward's, from
@@ -704,7 +705,7 @@ def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes:
     y0 = y0[0] if isinstance(y0, tuple) else y0
     go = _rand(torch.Generator(device="cuda").manual_seed(5), y0.shape, y0.dtype, 1.0)
     runs = []
-    for fn in (call, plain):
+    for fn in (call, plain, recomputed or plain):
         xs = [None if t is None else t.detach().requires_grad_(i in grad_of) for i, t in enumerate(inputs)]
         out = fn(*xs)
         y = out[0] if isinstance(out, tuple) else out
@@ -712,7 +713,7 @@ def _under_autograd(name: str, call, plain, inputs: list, grad_of: list, nbytes:
             raise SystemExit(f"{name} at the training shape: no grad_fn under autograd")
         wanted = [xs[i] for i in grad_of]
         runs.append((out, y, wanted, torch.autograd.grad(y, wanted, go, retain_graph=True)))
-    (out, y, wanted, g), (out_plain, _, _, gp) = runs
+    (out, y, wanted, g), (out_plain, _, _, _), (_, _, _, gp) = runs
     same_output = torch.equal(y.detach(), y0)
     with torch.no_grad():
         agreement = {k: {"max_abs_err": e, "err_of_limit": r} for k, (e, r) in agree(out, out_plain).items()}
@@ -1209,7 +1210,7 @@ def _ssd_row(gen) -> dict:
     plain version held to the float64 oracle ``ssd_scan_ref`` alike."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_chunked, ssd_scan_plain
 
     def excess(y, h, yr, hr, dt, bf16_abs=1e-5):
         ey, ry = _excess(y, yr, dt, f32_limit=5e-5, bf16_abs=bf16_abs)
@@ -1272,7 +1273,8 @@ def _ssd_row(gen) -> dict:
                                 lambda *t: ssd_scan_plain(*t, chunk=128), inputs, [0, 1, 2, 3],
                                 *_ssd_work(*inputs, y_t, h_t, 128)[:2], dt,
                                 lambda o, p: {"vs_oracle": excess(*o, *ssd_scan_ref(*inputs), dt),
-                                              "vs_plain": excess(*o, *p, dt, bf16_abs=5e-5)})
+                                              "vs_plain": excess(*o, *p, dt, bf16_abs=5e-5)},
+                                recomputed=lambda *t: ssd_scan_chunked(*t, chunk=128))
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1295,6 +1297,7 @@ def _ssd_row(gen) -> dict:
         "library_note": "no single PyTorch call computes a chunked scan with a carried state",
         "train": train_row,
         "model_axis_shares": _ssd_shares(gen, excess),
+        "granite_hybrid_train": _ssd_granite_row(excess),
         "test_cases": len(cases),
         "test_max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
         "test_max_err_of_limit": {"float32": worst_of_limit[torch.float32],
@@ -1312,6 +1315,43 @@ def _ssd_work(xh, log_l, Bm, Cm, y, h, chunk) -> tuple[int, int, int]:
     pairs = sum(q * (q + 1) // 2 for q in [min(chunk, S - s0) for s0 in range(0, S, chunk)])
     flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * S * H * P * N
     return nbytes, flops, pairs
+
+
+def _ssd_granite_row(excess) -> dict:
+    """``ssd_scan`` at granite-4.0-h-small's training shape, state size 128:
+    xh (2, 4096, 128, 64), B/C (2, 4096, 128) slices of the conv output,
+    chunk 128, bf16 (the tensor-core design's one-head-a-block instance).
+    Held against the float64 oracle at the rows' limits (one bf16 ulp plus
+    1e-5) and against the plain version with the training row's absolute
+    term, 5e-5: at this shape the plain version's fp32 sums over 128
+    columns of N lie up to 1.3 of the 1e-5 term from the oracle at elements
+    near zero.  Timed beside the plain version; its own generator, so the
+    other rows keep their draws."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    dt, (B, S, H, P, N) = torch.bfloat16, (2, 4096, 128, 64, 128)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    conv = _rand(gen, (B, S, H * P + 2 * N), dt, 0.5)
+    xh = _rand(gen, (B, S, H, P), dt, 0.5)
+    log_l = -torch.nn.functional.softplus(_rand(gen, (B, S, H), torch.float32, 1.0))
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    row = _share_row("ssd_scan", lambda: ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128),
+                     lambda: ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128), [list(xh.shape), list(Bm.shape)],
+                     lambda y, h: _ssd_work(xh, log_l, Bm, Cm, y, h, 128), dt,
+                     lambda *a: excess(*a, dt, bf16_abs=5e-5), H * B, f"granite-4.0-h-small train_4k: xh{tuple(xh.shape)} "
+                     f"B/C{tuple(Bm.shape)}")
+    y, h = ops.ssd_scan(xh, log_l, Bm, Cm, chunk=128)
+    err, of_limit = excess(y, h, *ssd_scan_ref(xh, log_l, Bm, Cm), dt)
+    if not of_limit <= 1.0:
+        raise SystemExit(f"ssd_scan at granite-4.0-h-small's shape: max_abs_err={err} vs the float64 oracle, "
+                         f"{of_limit} of its limit")
+    plain_err, plain_of_limit = excess(*ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128),
+                                       *ssd_scan_ref(xh, log_l, Bm, Cm), dt)
+    row.update(vs_oracle={"max_abs_err": err, "err_of_limit": of_limit},
+               plain_vs_oracle={"max_abs_err": plain_err, "err_of_limit": plain_of_limit})
+    return row
 
 
 def _share_row(name: str, call, plain, outputs, work, dt, excess, grid: int, where: str) -> dict:

@@ -1,7 +1,9 @@
 """Architecture registry — port of ``repro/configs/__init__.py``.
 
 ``load(arch_id, smoke=False)`` returns the Harness; ``ARCH_IDS`` lists all
-ten assigned architectures, in the reference's order.
+ten assigned architectures, in the reference's order.  ``PORT_ONLY`` lists
+the architectures the port has and the reference has not
+(granite-4.0-h-small); ``load`` takes them too.
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ ARCH_IDS = [
     "paligemma_3b",
 ]
 
+PORT_ONLY = ["granite_4_0_h_small"]
+
 # pool ids use dashes
 CANONICAL = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 
 def load(arch_id: str, smoke: bool = False):
     mod_name = arch_id.replace("-", "_").replace(".", "_")
-    if mod_name not in ARCH_IDS:
-        raise ValueError(f"unknown arch {arch_id!r}; known: {sorted(CANONICAL)}")
+    if mod_name not in ARCH_IDS + PORT_ONLY:
+        raise ValueError(f"unknown arch {arch_id!r}; known: {sorted(CANONICAL)} and {PORT_ONLY}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.get_harness(smoke=smoke)

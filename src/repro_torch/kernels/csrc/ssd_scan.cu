@@ -38,7 +38,8 @@
 //    TF32 parts do not; one bf16 part misses by more than 10 limits.  The
 //    parts are cut by masks, not cvt.rna, which runs at the conversion rate:
 //    rounding to nearest gains nothing the check can see.
-//  * Scores once per pair of heads.  A block owns HG = 2 heads and all P <=
+//  * Scores once per pair of heads.  A block owns HG = 2 heads (one head
+//    where 64 < N <= 128, granite-4.0-h's state size) and all P <=
 //    PB = 64 columns (a split of P would cost the scores and the
 //    exponentials again).  S is computed once for the block's heads and kept
 //    in registers (a warp's 16 rows of the causal tiles) while each head
@@ -61,9 +62,9 @@
 //    bank is read twice).
 //  * Chunks are staged by cp.async into two buffers: the next chunk's C, B
 //    and x land while this one is computed.  Tiles have fixed sizes (128
-//    rows, 64 columns of N, zero past the chunk and past N), so every
+//    rows, 64 or 128 columns of N, zero past the chunk and past N), so every
 //    shared-memory address is a constant offset.  188,480 bytes of shared
-//    memory, one block an SM; three barriers a chunk.
+//    memory (213,056 at N > 64), one block an SM; three barriers a chunk.
 //  * What bounds it now: not bytes (6x the byte bound) and not the tensor
 //    pipe's rate, but issue and latency with two warps a scheduler, which
 //    the registers (a warp's scores and accumulators) leave no room to
@@ -76,7 +77,8 @@
 //    so only exp of a non-positive number is ever taken and exp(cum_i) *
 //    exp(-cum_j) is never used; any S, a ragged last chunk staged as zero
 //    rows (x = 0, B = 0, log_l = 0), which add nothing to the state and do
-//    not decay it; any P and N that are multiples of 4 up to 64; an initial
+//    not decay it; any P and N that are multiples of 4, P up to 64 and N up
+//    to 128 (64 in the fp32 design); an initial
 //    state h0; x, B and C read through element strides (innermost 1), so
 //    the model's slices of its conv output are read in place; h written in
 //    fp32.
@@ -333,8 +335,8 @@ constexpr double LOG2E = 1.4426950408889634;
 
 // Shared memory of a block, in tiles of fixed size so that every address is
 // a constant offset: QP = 128 rows (a chunk's rows past q are zero), NP = 64
-// columns of C, B and the state (columns past N are zero), LDN = LDH = NP + 8
-// (row strides padded by 16 and 32 bytes, so no bank is read twice):
+// or 128 columns of C, B and the state (columns past N are zero), LDN = LDH =
+// NP + 8 (row strides padded by 16 and 32 bytes, so no bank is read twice):
 //   two staging buffers, each   cc[QP][LDN], bc[QP][LDN]  C and B of a chunk, bf16
 //                               xs[HG][QP][LDX]           x of the group's heads, the block's columns
 //   hs[HG][PB][LDH]            the state h[p][n], fp32
@@ -342,12 +344,19 @@ constexpr double LOG2E = 1.4426950408889634;
 //   tail[HG][QP], ecum[HG][QP] exp(cum_last - cum_j), exp(cum_j), fp32
 //   decay[HG]                  exp(cum_last)
 // The next chunk is copied into one buffer (cp.async) while the other is read.
-constexpr int QP = 128, NP = 64, LDN = NP + 8, LDH = NP + 8;
-constexpr int HG = 2, PB = 64;         // heads and columns of P a block owns
+// Two instantiations: N <= 64 takes NP = 64 and HG = 2 heads a block (188,480
+// bytes); 64 < N <= 128 takes NP = 128 and HG = 1 (213,056 bytes; two heads'
+// state and x would not fit beside the wider C and B).  A warp owns the same
+// number of state tiles in both (NPW * HG = 4), so the registers do not grow.
+constexpr int QP = 128;
+constexpr int PB = 64;                 // columns of P a block owns
 constexpr int LDX = PB + 8;            // row stride of a head's x tile, bf16 (144 bytes)
-constexpr int NPW = PB / 32;           // (16-row, 16-column) tiles of the state a warp owns, per head
 
+template <int NP, int HG>
 struct Layout {
+  static constexpr int LDN = NP + 8, LDH = NP + 8;
+  static constexpr int NT = NP / 16;                 // 16-column tiles of the state
+  static constexpr int NPW = (PB / 16) * NT / WARPS;  // (16-row, 16-column) state tiles a warp owns, per head
   static constexpr size_t cc = 0;
   static constexpr size_t bc = cc + (size_t)QP * LDN * 2;
   static constexpr size_t xs = bc + (size_t)QP * LDN * 2;
@@ -441,9 +450,11 @@ __device__ inline void stage16(__nv_bfloat16* dst, const __nv_bfloat16* row, int
 }
 
 // grid: (ceil(H / HG), B), THREADS threads; a block owns HG heads, all of P.
+template <int NP, int HG>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using lay = Layout;
+  using lay = Layout<NP, HG>;
+  constexpr int LDN = lay::LDN, LDH = lay::LDH, NT = lay::NT, NPW = lay::NPW;
   float* hs = reinterpret_cast<float*>(smem + lay::hs);
   double* cl = reinterpret_cast<double*>(smem + lay::cl);
   float* tail = reinterpret_cast<float*>(smem + lay::tail);
@@ -538,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p)
 
     // ---- state products: dh[p][n] = sum_j x[j][p] (B[j][n] tail[j]) into registers;
     // warp w owns NPW tiles of 16 rows of the block's P by the same 16 columns of N
-    // (tile w + 8 k: rows 16 ((w + 8 k) / 4) .., columns 16 (w % 4) ..), for every
+    // (tile w + 8 k: rows 16 ((w + 8 k) / NT) .., columns 16 (w % NT) ..), for every
     // head of the group at once (independent accumulators).  B tail is cut into its
     // two TF32 parts once a head and step for all the warp's tiles.  The products
     // are added to the state after the outputs have read it.
@@ -552,7 +563,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dh[k][gh][nn][e] = 0.f;
     {
-      const int r8 = lane & 7, m2 = (lane >> 3) & 1, nq = warp % 4;
+      const int r8 = lane & 7, m2 = (lane >> 3) & 1, nq = warp % NT;
 #pragma unroll 2
       for (int j0 = 0; j0 < qp; j0 += 8) {
         unsigned bv[2];           // B[j .. j + 1][16 nq + 8 nn + g], j = j0 + 2t
@@ -570,7 +581,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p)
             }
 #pragma unroll
             for (int k = 0; k < NPW; ++k) {
-              const int mt = (warp + 8 * k) / 4;
+              const int mt = (warp + 8 * k) / NT;
               unsigned xv[2];     // x[j .. j + 1][16 mt + 8 m + g], m = 0, 1
               ldmatrix_x2_trans(xv, xs + (gh * QP + j0 + r8) * LDX + 16 * mt + 8 * m2);
               // A slot order: (p, j), (p + 8, j), (p, j + 1), (p + 8, j + 1), p = 16 mt + g
@@ -698,7 +709,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p)
     // ---- state: h <- h exp(cum_last) + dh
 #pragma unroll
     for (int k = 0; k < NPW; ++k) {
-      const int mt = (warp + 8 * k) / 4, nq = warp % 4;
+      const int mt = (warp + 8 * k) / NT, nq = warp % NT;
 #pragma unroll
       for (int gh = 0; gh < HG; ++gh) {
         if (hd0 + gh >= p.H) break;
@@ -728,14 +739,19 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_tc_kernel(const Params p)
   }
 }
 
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using lay = Layout;
+template <int NP, int HG>
+cudaError_t launch_with(const Params& p, cudaStream_t stream) {
+  constexpr size_t bytes = Layout<NP, HG>::bytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay::bytes);
+      ssd_scan_tc_kernel<NP, HG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int groups = (p.H + HG - 1) / HG;
-  ssd_scan_tc_kernel<<<dim3(groups, p.B), THREADS, lay::bytes, stream>>>(p);
+  ssd_scan_tc_kernel<NP, HG><<<dim3(groups, p.B), THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.N <= 64 ? launch_with<64, 2>(p, stream) : launch_with<128, 1>(p, stream);
 }
 
 }  // namespace tc
@@ -771,7 +787,8 @@ extern "C" int ssd_scan_fwd(
   p.b_sb = strides[6]; p.b_ss = strides[7];
   p.c_sb = strides[8]; p.c_ss = strides[9];
   p.x_vec = x_vec; p.bc_vec = bc_vec;
-  if (B > 65535 || Q < 1 || Q > 128 || P > 64 || N > 64 || P % 4 || N % 4) return cudaErrorInvalidValue;
+  if (B > 65535 || Q < 1 || Q > 128 || P > 64 || N > (dtype == 1 ? 128 : 64) || P % 4 || N % 4)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) err = launch_fma(p, s);

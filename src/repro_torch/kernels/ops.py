@@ -37,11 +37,12 @@ def flash_attention_bkgsd(
 
 
 def flash_attention_bsnd(
-    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0, return_lse=False
+    q, k, v, *, causal=True, window=None, prefix_len=0, q_start=0, sm_scale=None, return_lse=False
 ):
     """Model-layer layout: q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) GQA -> (B,Sq,N,Dh).
-    Query head n belongs to kv head n // (N // K).  With ``return_lse`` also
-    each row's log-sum-exp, (B,Sq,N) fp32."""
+    Query head n belongs to kv head n // (N // K).  ``sm_scale`` multiplies
+    the scores (None: 1/sqrt(Dh)).  With ``return_lse`` also each row's
+    log-sum-exp, (B,Sq,N) fp32."""
     if q.ndim != 4 or k.ndim != 4 or q.shape[2] % k.shape[2]:
         raise ValueError(
             f"expected q (B,Sq,N,Dh), k/v (B,Sk,K,Dh) with K dividing N; got "
@@ -52,7 +53,8 @@ def flash_attention_bsnd(
     qk = q.unflatten(2, (K, N // K)).permute(0, 2, 3, 1, 4)     # (B,K,G,Sq,D) view
     o = flash_attention(
         qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-        causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, return_lse=return_lse,
+        causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, sm_scale=sm_scale,
+        return_lse=return_lse,
     )
     if return_lse:
         o, lse = o

@@ -3,15 +3,18 @@
 
 ``ssd_scan`` is the wrapper: on CUDA tensors it launches the CUDA C++ kernel
 of ``csrc/ssd_scan.cu`` (built at first use, see ``_build.py``) or raises:
-for bf16 inputs, what the model serves, the tensor-core design (``tc::``),
-for fp32 the first design's FMA kernel (``fma::``).  On CPU tensors, and
+for bf16 inputs, what the model serves, the tensor-core design (``tc::``,
+state size N up to 128), for fp32 the first design's FMA kernel (``fma::``,
+N up to 64).  On CPU tensors, and
 only there, it computes the same function with
 ``ssd_scan_plain``.  There is no fallback from the kernel to the plain
 version.  ``ssd_scan.launches`` counts kernel launches.  Under autograd (a
 CUDA input that requires grad, grad mode on) the launch goes through
 ``_autograd.PlainGradient``: the kernel's output, and in the backward the
-gradient of ``ssd_scan_plain`` recomputed at the saved inputs, for y, the
-final state or both; no backward kernel yet.
+gradient of the plain version recomputed at the saved inputs, for y, the
+final state or both; no backward kernel yet.  The backward recomputes
+``ssd_scan_chunked``, the plain version with its chunks batched (the same
+function to fp32 rounding, with far fewer launches).
 
 The function is the reference's: ``xh (B,S,H,P)``, ``log_l (B,S,H) <= 0``,
 ``Bm, Cm (B,S,N)`` give ``y (B,S,H,P)`` in xh's type and the final state
@@ -34,7 +37,10 @@ from ._autograd import PlainGradient
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128          # rows of a chunk the kernel holds in shared memory
-MAX_WIDTH = 64           # head_dim P and state size N
+MAX_HEAD_DIM = 64        # head_dim P
+# state size N: the tensor-core design (bf16) holds up to 128 columns of C, B
+# and the state, the FMA design (fp32) up to 64
+MAX_STATE = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def ssd_scan_plain(
@@ -75,6 +81,61 @@ def ssd_scan_plain(
     return torch.cat(ys, dim=1).to(xh.dtype), h
 
 
+def ssd_scan_chunked(
+    xh: torch.Tensor,           # (B, S, H, P)
+    log_l: torch.Tensor,        # (B, S, H)
+    Bm: torch.Tensor,           # (B, S, N)
+    Cm: torch.Tensor,           # (B, S, N)
+    *,
+    chunk: int = 128,
+    h0: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_scan_plain``'s function with its whole chunks side by side,
+    what the kernel's backward differentiates (``ssd_scan``): each chunk's
+    scores, decays, intra-chunk output and state increment in one batched
+    pass, the state carried from chunk to chunk in a loop of two elementwise
+    operations a chunk, then each chunk's output from the state it starts
+    at in one batched pass; a ragged last chunk after them, alike.  Each
+    element is computed by the same operations as in ``ssd_scan_plain``,
+    the products batched over the chunks, so the two agree to fp32 rounding;
+    its launches grow with the chunks only by the state loop's, where the
+    plain version's Python loop launches some 25 kernels a chunk (at
+    granite-4.0-h's training shape that loop made the step wait on the
+    host)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    x, ll, bm, cm = xh.float(), log_l.float(), Bm.float(), Cm.float()
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device) if h0 is None
+         else h0.float())
+    whole = S // Q * Q
+    ys = []
+    for lo, hi, q in ((0, whole, Q), (whole, S, S - whole)):
+        if hi == lo:
+            continue
+        c = (hi - lo) // q
+        xq = x[:, lo:hi].reshape(B * c, q, H, P)
+        lq = ll[:, lo:hi].reshape(B * c, q, H)
+        bq, cq = bm[:, lo:hi].reshape(B * c, q, N), cm[:, lo:hi].reshape(B * c, q, N)
+        cum = torch.cumsum(lq, dim=1)                                  # (B c, q, H)
+        scores = torch.einsum("bin,bjn->bij", cq, bq)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]
+        causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
+        att = scores[..., None] * torch.exp(torch.where(causal[None, :, :, None], decay, -torch.inf))
+        y_intra = torch.einsum("bijh,bjhp->bihp", att, xq)
+        tail = torch.exp(cum[:, -1:, :] - cum)
+        dh = torch.einsum("bjhp,bjn,bjh->bhpn", xq, bq, tail).reshape(B, c, H, P, N)
+        last = torch.exp(cum[:, -1, :]).reshape(B, c, H)
+        starts = []
+        for k in range(c):
+            starts.append(h)
+            h = h * last[:, k, :, None, None] + dh[:, k]
+        h_in = torch.stack(starts, dim=1).reshape(B * c, H, P, N)
+        y_inter = torch.einsum("bin,bhpn->bihp", cq, h_in) * torch.exp(cum)[..., None]
+        ys.append((y_intra + y_inter).reshape(B, c * q, H, P))
+    return torch.cat(ys, dim=1).to(xh.dtype), h
+
+
 def _check(xh, log_l, Bm, Cm, chunk, h0) -> None:
     if xh.ndim != 4 or log_l.ndim != 3 or Bm.ndim != 3 or Cm.shape != Bm.shape:
         raise ValueError(
@@ -99,9 +160,9 @@ def _check(xh, log_l, Bm, Cm, chunk, h0) -> None:
         raise ValueError(f"log_l of type {log_l.dtype}, expected one of {list(_DTYPES)}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} not supported (1..{MAX_CHUNK})")
-    if P > MAX_WIDTH or N > MAX_WIDTH or P % 4 or N % 4:
+    if P > MAX_HEAD_DIM or N > MAX_STATE[xh.dtype] or P % 4 or N % 4:
         raise ValueError(f"head_dim {P} and state size {N} must be multiples of 4, at most "
-                         f"{MAX_WIDTH}")
+                         f"{MAX_HEAD_DIM} and {MAX_STATE[xh.dtype]} in {xh.dtype}")
 
 
 def _launch(xh, log_l, Bm, Cm, chunk, h0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -165,7 +226,7 @@ def ssd_scan(
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return PlainGradient.apply(
             "ssd_scan", lambda *t: _launch(*t[:4], chunk, t[4]),
-            lambda *t: ssd_scan_plain(*t[:4], chunk=chunk, h0=t[4]), *inputs)
+            lambda *t: ssd_scan_chunked(*t[:4], chunk=chunk, h0=t[4]), *inputs)
     return _launch(xh, log_l, Bm, Cm, chunk, h0)
 
 

@@ -1,7 +1,8 @@
 """Unified model harness — port of ``repro/models/api.py`` (``ShapeCell``,
 ``SHAPES``, ``Harness``, ``TransformerHarness``, ``RWKVHarness``,
 ``HybridHarness``, ``EncDecHarness``): one interface over all ten
-architectures.
+architectures.  New in the port: ``GraniteHybridHarness``
+(granite-4.0-h-small, ``models/granitemoehybrid.py``), training only.
 
 Each architecture config (``repro_torch/configs/<id>.py``) builds a Harness
 that exposes ``param_specs()``, ``prefill(rt)`` / ``decode(rt)`` (serving
@@ -26,7 +27,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import encdec, hybrid, rwkv_lm, transformer
+from . import encdec, granitemoehybrid, hybrid, rwkv_lm, transformer
 from .layers import Runtime
 from .param import ParamSpec
 
@@ -331,3 +332,47 @@ class EncDecHarness(Harness):
             return encdec.decode_step(rt, self.cfg, params, tokens, cache, pos)
 
         return fn
+
+
+class GraniteHybridHarness(Harness):
+    """Granite 4.0-H: Mamba2 and NoPE attention mixers, each followed by
+    sparse experts and a shared expert (``models/granitemoehybrid.py``).
+    Training only: serving it is not ported, and every serving method
+    raises.  ``clone(n_layers=n)`` keeps the first n of ``layer_types``."""
+
+    family = "moe_hybrid"
+
+    def __init__(self, arch_id: str, cfg: granitemoehybrid.GraniteHybridConfig):
+        self.arch_id = arch_id
+        self.cfg = cfg
+        self.moe_strategy = cfg.moe.strategy
+
+    def clone(self, **cfg_updates) -> "GraniteHybridHarness":
+        if "n_layers" in cfg_updates:
+            cfg_updates["layer_types"] = self.cfg.layer_types[:cfg_updates.pop("n_layers")]
+        return super().clone(**cfg_updates)
+
+    def param_specs(self):
+        return granitemoehybrid.lm_specs(self.cfg)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, rt: Runtime):
+        def fn(params, batch):
+            return granitemoehybrid.loss_fn(rt, self.cfg, params, batch)
+
+        return fn
+
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        B, S = cell.global_batch, cell.seq_len
+        return {
+            "tokens": _tok((B, S), ("batch", None)),
+            "labels": _tok((B, S), ("batch", None)),
+        }
+
+    # -- serving: not ported --------------------------------------------------
+    def _no_serving(self, *_):
+        raise NotImplementedError(
+            f"{self.arch_id}: serving (prefill and decode through launch/serve.run) is not ported for "
+            "the granitemoehybrid family; it trains through launch/train.run")
+
+    serve_state_specs = serve_input_specs = prefill = decode = _no_serving

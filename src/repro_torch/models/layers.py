@@ -207,6 +207,7 @@ class AttnConfig:
     qkv_bias: bool = False
     prefix_len: int = 0            # bidirectional prefix (VLM / audio stubs)
     impl: str = "reference"        # kept for field parity; see Runtime.use_kernels
+    softmax_scale: float | None = None   # multiplies the scores; None: 1/sqrt(head_dim)
 
 
 def attn_specs(cfg: AttnConfig) -> dict:
@@ -254,13 +255,15 @@ def sdpa(
     v: torch.Tensor,      # (B, Sk, K, Dh)
     bias: torch.Tensor | None,   # (Sq, Sk)
     return_lse: bool = False,
+    scale: float | None = None,
 ):
     """Reference grouped-query attention, with the reference's arithmetic:
-    probabilities are cast to v's type before the second product.  With
+    probabilities are cast to v's type before the second product.  The
+    scores are multiplied by ``scale`` (None: 1/sqrt(head_dim)).  With
     ``return_lse`` also each row's log-sum-exp of its biased scores,
     ``(B, Sq, K, G)`` fp32 (a model rank's decode over its block of the
     cache)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
     if bias is not None:
         scores = scores + bias[None, None, None, :, :]
@@ -365,7 +368,7 @@ def attention(
             if kv_cache is not None and not gathered:
                 k, v = k[:, :q_start + S], v[:, :q_start + S]
             mask = dict(causal=cfg.causal, window=cfg.window, prefix_len=cfg.prefix_len, q_start=q_start)
-        out = ops.flash_attention_bsnd(q, k.to(q.dtype), v.to(q.dtype), **mask)
+        out = ops.flash_attention_bsnd(q, k.to(q.dtype), v.to(q.dtype), sm_scale=cfg.softmax_scale, **mask)
     else:
         bias = None
         if kv_override is None:
@@ -374,7 +377,7 @@ def attention(
                 else positions
             )
             bias = _mask_bias(positions, k_pos, cfg.causal, cfg.window, cfg.prefix_len)
-        out = sdpa(q.reshape(B, S, K, G, Dh), k, v, bias)
+        out = sdpa(q.reshape(B, S, K, G, Dh), k, v, bias, scale=cfg.softmax_scale)
     out = out.reshape(B, S, N * Dh)
     y = out @ p["wo"]
     if "bo" in p:
@@ -482,11 +485,11 @@ def _attend_block(rt: Runtime, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tens
     k, v = ck[:, :n].to(q.dtype), cv[:, :n].to(q.dtype)
     if rt.use_kernels:
         return ops.flash_attention_bsnd(q, k, v, causal=cfg.causal, window=cfg.window, prefix_len=prefix,
-                                        q_start=q_local, return_lse=True)
+                                        q_start=q_local, sm_scale=cfg.softmax_scale, return_lse=True)
     K = k.shape[2]
     bias = _mask_bias(torch.full((S,), q_local, device=q.device), torch.arange(n, device=q.device), cfg.causal,
                       cfg.window, prefix)
-    o, lse = sdpa(q.reshape(B, S, K, N // K, Dh), k, v, bias, return_lse=True)
+    o, lse = sdpa(q.reshape(B, S, K, N // K, Dh), k, v, bias, return_lse=True, scale=cfg.softmax_scale)
     return o.reshape(q.shape), lse.reshape(B, S, N)
 
 

@@ -12,7 +12,10 @@ Ported: ``Mamba2Config``, ``mamba2_specs``, ``_causal_conv``,
 ``ssd_chunked``, ``mamba2_apply``, ``mamba2_state_specs``.  One difference
 on purpose: ``mamba2_apply`` without a state returns the state the sequence
 leaves (the final scan state and the conv tail), which the reference
-computes and drops; serving's prefill hands it to decode.
+computes and drops; serving's prefill hands it to decode.  Added here:
+``Mamba2Config.norm_before_gate`` and ``norm_eps``, the gated norm's order
+and eps (the reference's order and 1e-6 by default; granite-4.0-h gates
+before the norm, at 1e-5).
 
 On the model axis (``rt.model``) a rank runs its heads ``[r·H/m,
 (r+1)·H/m)`` (the rules' ``ssm_heads``) and takes their columns of the
@@ -47,6 +50,11 @@ class Mamba2Config:
     d_conv: int = 4
     chunk: int = 128
     unroll: bool = False     # kept for field parity; the port always loops
+    # the gated norm's order: True rmsnorm(y) * silu(z) (the reference's,
+    # Zamba2's); False rmsnorm(y * silu(z)) (mamba_ssm's norm_before_gate=False,
+    # granite-4.0-h's)
+    norm_before_gate: bool = True
+    norm_eps: float = 1e-6   # out_norm's eps
 
     @property
     def n_heads(self) -> int:
@@ -199,7 +207,10 @@ def mamba2_apply(
 
     y = y + xh * p["D"][heads][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, H * P)
-    y = rmsnorm(p["out_norm"][chans], y, group=model) * _silu(z)
+    if cfg.norm_before_gate:
+        y = rmsnorm(p["out_norm"][chans], y, cfg.norm_eps, group=model) * _silu(z)
+    else:
+        y = rmsnorm(p["out_norm"][chans], y * _silu(z), cfg.norm_eps, group=model)
     out = y @ p["out_proj"]
     if model is not None:               # out_proj's rows of this rank's heads: a partial sum
         # back to the rank's positions in training and prefill; whole in decode

@@ -36,12 +36,27 @@ as full sums, not all-to-alls; every sum is ``ccu_reduce`` in rank order
 * ``rt.tokens`` (training on a mesh): the auxiliary loss's means are over
   every rank's tokens, as the reference's are over the whole batch.
 
+An expert share (``MoEConfig.held``, the chip's share under expert
+parallelism, on one card): the layer holds the experts ``[first, first +
+count)`` of ``n_experts``.  It routes over all of them with the router at
+its full width, takes the capacity of the whole layer, and dispatches,
+runs and combines only the held experts' slots: its output is their part
+of the layer's, and no tensor over the absent experts' slots is made.  The
+auxiliary loss is the whole layer's, the same on every share.  No code
+stands in for the exchange with the cards that hold the other experts.  A
+share runs without the mesh's axes.
+
+A shared expert (``MoEConfig.shared_d_ff``) is a SwiGLU beside the routed
+experts, on every token, added to their output inside the span
+``model.moe.shared``; it too runs without the mesh's axes.
+
 The routing, from the router's product to the dispatch and combine
 tensors, runs inside the span ``model.moe.route`` (``spans.py``).  While a
 profiler records, the first forward counts the layer's (token, choice)
-assignments (``moe.assigned``, B·S·K), those kept within the capacity
-(``moe.kept``) and the slots the expert products run over (``moe.slots``,
-E·B·C of this rank).
+assignments to the experts it holds (``moe.assigned``, B·S·K with every
+expert held), those kept within the capacity (``moe.kept``) and the slots
+the expert products run over (``moe.slots``, E·B·C of this rank, E the
+experts held).
 """
 
 from __future__ import annotations
@@ -54,7 +69,7 @@ import torch.nn.functional as F
 
 from .. import spans
 from ..kernels import ops
-from .layers import Runtime
+from .layers import Runtime, swiglu, swiglu_specs
 from .param import ParamSpec
 
 
@@ -68,26 +83,38 @@ class MoEConfig:
     router_aux_coef: float = 0.01
     reshard_tokens: bool = False   # the reference's collective layout knob
     dispatch_dtype: str = "f32"    # f32 | bf16: expert inputs / outputs rounded to bf16
+    held: tuple[int, int] | None = None   # (first, count): the experts this layer holds; None: all
+    shared_d_ff: int = 0           # a shared expert's width (SwiGLU on every token); 0: none
 
     def capacity(self, seq_len: int) -> int:
-        """Slots per expert and sequence: max(1, int(S * K * cf / E))."""
+        """Slots per expert and sequence: max(1, int(S * K * cf / E)),
+        E every expert of the layer, held or not."""
         return max(1, int(seq_len * self.topk * self.capacity_factor / self.n_experts))
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts if self.held is None else self.held[1]
 
 
 def moe_specs(d_model: int, cfg: MoEConfig) -> dict:
-    E, F_ = cfg.n_experts, cfg.d_ff
+    """The router over every expert, the held experts' weights, and the
+    shared expert's where there is one."""
+    E, F_ = cfg.n_held, cfg.d_ff
     if cfg.strategy == "expert_parallel":
         logical = ("experts", None, "moe_fsdp")
         logical_out = ("experts", "moe_fsdp", None)
     else:
         logical = (None, "moe_fsdp", "ff")
         logical_out = (None, "ff", "moe_fsdp")
-    return {
-        "router": ParamSpec((d_model, E), (None, None), init="scaled"),
+    specs = {
+        "router": ParamSpec((d_model, cfg.n_experts), (None, None), init="scaled"),
         "w_gate": ParamSpec((E, d_model, F_), logical, init="scaled"),
         "w_up": ParamSpec((E, d_model, F_), logical, init="scaled"),
         "w_down": ParamSpec((E, F_, d_model), logical_out, init="scaled"),
     }
+    if cfg.shared_d_ff:
+        specs["shared"] = swiglu_specs(d_model, cfg.shared_d_ff)
+    return specs
 
 
 class Routing(NamedTuple):
@@ -169,9 +196,17 @@ EXPERTS = ("w_gate", "w_up", "w_down")
 
 def _routed(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, C: int, seq):
     """``route`` and its dispatch and combine tensors: what ``moe_apply``
-    reads of them, ``(probs, onehot, keep, disp, comb)``."""
+    reads of them, ``(probs, onehot, keep, disp, comb)``.  With an expert
+    share, ``keep`` is the kept choices of the held experts and the
+    dispatch and combine tensors are over the held experts' slots alone;
+    ``probs`` and ``onehot`` stay over every expert, for the auxiliary
+    loss."""
     r = route(x, router, cfg, capacity=C, seq=seq)
-    return (r.probs, r.onehot, r.keep, *dispatch_tensors(r, C, x.dtype))
+    if cfg.held is None:
+        return (r.probs, r.onehot, r.keep, *dispatch_tensors(r, C, x.dtype))
+    lo, n = cfg.held
+    mine = r._replace(onehot=r.onehot[..., lo:lo + n], keep=r.keep & (r.gate_idx >= lo) & (r.gate_idx < lo + n))
+    return (r.probs, r.onehot, mine.keep, *dispatch_tensors(mine, C, x.dtype))
 
 
 def moe_apply(
@@ -181,6 +216,8 @@ def moe_apply(
     (module docstring for the mesh's axes)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.topk
+    if (cfg.held is not None or cfg.shared_d_ff) and any(a is not None for a in (rt.model, rt.fsdp, rt.tokens)):
+        raise ValueError("an expert share and a shared expert run on one card, without the mesh's axes")
     seq = rt.model if rt.model is not None and not rt.tp else None    # the tokens cut along the sequence
     # the dim of the expert weights that the model axis cuts: 0 the experts
     # (expert_parallel), 2 their F (expert_tp), None neither (every rank
@@ -195,9 +232,10 @@ def moe_apply(
         p = {**p, **rt.fsdp.gather_tree({k: p[k] for k in EXPERTS}, specs)}
 
     probs, onehot, keep, disp, comb = spans.call("model.moe.route", _routed, x, p["router"], cfg, C, seq)
-    spans.count("moe.assigned", B * S * K)
+    spans.count("moe.assigned", B * S * K if cfg.held is None else
+                (onehot[..., cfg.held[0]:cfg.held[0] + cfg.held[1]].sum(-1) > 0))
     spans.count("moe.kept", keep)
-    spans.count("moe.slots", E * B * C)
+    spans.count("moe.slots", cfg.n_held * B * C)
 
     if rt.use_kernels:
         expert_in = ops.moe_dispatch(disp, x)                    # (E, B, C, D)
@@ -238,6 +276,8 @@ def moe_apply(
     if rt.tp and cut is not None:    # decode: this rank's experts or F shard, a partial sum over the axis
         y = rt.model.sum(y)
     y = rt.shard(y, "batch", "sp", None)
+    if cfg.shared_d_ff:
+        y = y.to(x.dtype) + spans.call("model.moe.shared", swiglu, rt, p["shared"], x)
 
     # load-balancing auxiliary loss (Switch/GShard form)
     routed = onehot[..., 0, :] if K == 1 else torch.sum(onehot, dim=2)

@@ -51,10 +51,25 @@ def test_flash_attention_kernel_matches_plain(cuda, D, G, Sq, Sk, q_start, windo
     of each element (2^-7 |r|: both round the same fp32 result once) plus 1e-5.
     Folded rows G * Sq <= 16 take the decode kernels (keys split across
     blocks), more take the tensor-core kernel (bf16) or the fp32 one."""
+    _assert_flash_matches_plain(cuda, D, G, Sq, Sk, q_start, window, prefix_len, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Sk,q_start,window,prefix_len", [
+    (4, 256, 256, 0, None, 0), (4, 4096, 4096, 0, None, 0), (6, 77, 203, 126, 40, 0), (4, 200, 200, 0, 32, 100),
+])
+def test_flash_attention_kernel_at_a_softmax_scale(cuda, G, Sq, Sk, q_start, window, prefix_len, dtype):
+    """granite-4.0-h's NoPE attention scales its scores by 1/128 at head_dim
+    128, not by 1/sqrt(128): the kernels at that ``sm_scale``, causal, with
+    G = 4 as the model has and at its training length, at the limits above."""
+    _assert_flash_matches_plain(cuda, 128, G, Sq, Sk, q_start, window, prefix_len, dtype, sm_scale=2.0 ** -7)
+
+
+def _assert_flash_matches_plain(cuda, D, G, Sq, Sk, q_start, window, prefix_len, dtype, sm_scale=None):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     q, k, v = _peaked_qkv(cuda, G, Sq, Sk, D, dtype)
-    kw = dict(causal=True, window=window, prefix_len=prefix_len, q_start=q_start)
+    kw = dict(causal=True, window=window, prefix_len=prefix_len, q_start=q_start, sm_scale=sm_scale)
     before = flash_attention.launches
     o = flash_attention(q, k, v, **kw).float()
     torch.cuda.synchronize()
@@ -194,6 +209,10 @@ def test_moe_dispatch_kernel_matches_plain(cuda, B, T, E, C, D, dense, dtype):
     (1, 256, 4, 16, 16, 128, "strong"),     # log_l = -13
     (2, 384, 8, 64, 64, 32, "h0"),          # many short chunks
     (4, 512, 64, 64, 64, 128, "conv"),      # zamba2's shape, B and C slices of the conv output
+    (2, 256, 3, 64, 128, 128, "randn"),     # N = 128: one head a block
+    (2, 200, 3, 36, 100, 64, "h0"),         # N = 100 (zero columns up to 128), ragged chunk
+    (2, 1, 4, 64, 128, 128, "h0"),          # N = 128, S = 1
+    (1, 256, 4, 16, 128, 128, "strong"),    # N = 128, log_l = -13
 ])
 def test_ssd_scan_tensor_core_cases(cuda, B, S, H, P, N, chunk, kind):
     """The bf16 (tensor-core) kernel at its edges: y within one bf16 ulp of
@@ -226,6 +245,36 @@ def test_ssd_scan_tensor_core_cases(cuda, B, S, H, P, N, chunk, kind):
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
     assert ((y - yr).abs() <= 2.0 ** -7 * yr.abs() + 1e-5).all()
     assert ((h - hr).abs() <= 5e-5).all()
+
+
+@pytest.mark.parametrize("seed", [32, 4224])
+def test_ssd_scan_at_granite_hybrid_shape(cuda, seed):
+    """At granite-4.0-h-small's training shape (xh (2, 4096, 128, 64), B/C
+    (2, 4096, 128) slices of the conv output, chunk 128) the bf16 kernel's y
+    lies within one bf16 ulp of each element plus 1e-5 of the float64
+    recurrence's, rounded to bf16, and h within 5e-5: the limits the tests
+    above hold it to against the plain version.  Against the plain version
+    the absolute term is the fp32 limit, 5e-5, as ``chip_smoke.py``'s
+    training row has it: at this shape the plain version's fp32 sums over
+    128 columns of N lie up to 1.3 of the 1e-5 term from the oracle at
+    elements near zero, where the kernel stays within it."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    B, S, H, P, N = 2, 4096, 128, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xh = (torch.randn((B, S, H, P), generator=gen, device=cuda) * 0.5).bfloat16()
+    conv = (torch.randn((B, S, H * P + 2 * N), generator=gen, device=cuda) * 0.5).bfloat16()
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    log_l = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    y, h = ssd_scan(xh, log_l, Bm, Cm, chunk=128)
+    yo, ho = ssd_scan_ref(xh, log_l, Bm, Cm)
+    yp, hp = ssd_scan_plain(xh, log_l, Bm, Cm, chunk=128)
+    y, yo, yp = y.float(), yo.float(), yp.float()
+    assert ((y - yo).abs() <= 2.0 ** -7 * yo.abs() + 1e-5).all()
+    assert ((h - ho).abs() <= 5e-5).all()
+    assert ((y - yp).abs() <= 2.0 ** -7 * yp.abs() + 5e-5).all()
+    assert ((h - hp).abs() <= 5e-5).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -424,19 +473,21 @@ def test_flash_attention_gradients_match_plain(cuda, dtype):
     (1, 64, 200, 0, False, None, 0), (4, 130, 40, 0, False, None, 0), (1, 17, 65, 48, True, None, 0),
     (6, 3, 70, 67, True, None, 0),
 ])
-def test_flash_attention_bwd_kernel_matches_oracle(cuda, D, G, Sq, Sk, q_start, causal, window, prefix_len):
+@pytest.mark.parametrize("sm_scale", [None, 2.0 ** -7])
+def test_flash_attention_bwd_kernel_matches_oracle(cuda, D, G, Sq, Sk, q_start, causal, window, prefix_len, sm_scale):
     """The backward kernels (bf16 at head_dim 64 and 128) at the masks,
     ragged edges, q_start and G of the training paths: dq, dk, dv within one
     bf16 ulp of each gradient's largest |g| from autograd through the
     float64 oracle (P and dS enter the products in bf16, fp32 sums), within
     1e-2 of it from the plain backward on the same saved output and
-    log-sum-exp, two launches bit for bit, one backward launch each."""
+    log-sum-exp, two launches bit for bit, one backward launch each.  At
+    1/sqrt(D) and at granite-4.0-h's 1/128."""
     from repro_torch.kernels.flash_attention import _launch_bwd, flash_attention, flash_attention_bwd_plain
     from repro_torch.kernels.ref import attention_ref
 
     q, k, v = _peaked_qkv(cuda, G, Sq, Sk, D, torch.bfloat16, seed=3)
     go = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda).bfloat16()
-    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_start=q_start, sm_scale=sm_scale)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = flash_attention.bwd_launches
     o = flash_attention(*leaves, **kw)
@@ -445,7 +496,7 @@ def test_flash_attention_bwd_kernel_matches_oracle(cuda, D, G, Sq, Sk, q_start, 
     o.backward(go)
     g = [t.grad for t in leaves]
     assert flash_attention.bwd_launches == before + 1
-    again = _launch_bwd(*saved, go, sm_scale=D ** -0.5, **kw)
+    again = _launch_bwd(*saved, go, **{**kw, "sm_scale": sm_scale or D ** -0.5})
     plain = flash_attention_bwd_plain(*saved, go, **kw)
     wide = [t.double().requires_grad_() for t in (q, k, v)]
     oracle = torch.autograd.grad(attention_ref(*wide, **kw), wide, go.double())
@@ -463,7 +514,7 @@ def _autograd_case(cuda, kernel, kind, dtype):
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_dispatch import moe_dispatch_plain
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_chunked
 
     gen = torch.Generator(device=cuda).manual_seed(3)
 
@@ -483,8 +534,10 @@ def _autograd_case(cuda, kernel, kind, dtype):
         log_l = -torch.nn.functional.softplus(rnd((B, S, H), 1.0, torch.float32))
         inputs = [rnd((B, S, H, P)), log_l, rnd((B, S, N)), rnd((B, S, N)),
                   rnd((B, H, P, N), 0.5, torch.float32) if kind == "state" else None]
+        # the backward recomputes the plain version with its chunks batched
+        # (``ssd_scan_chunked``, held to ``ssd_scan_plain`` on the CPU)
         return (lambda *t: ops.ssd_scan(*t[:4], chunk=128, h0=t[4]),
-                lambda *t: ssd_scan_plain(*t[:4], chunk=128, h0=t[4]), inputs,
+                lambda *t: ssd_scan_chunked(*t[:4], chunk=128, h0=t[4]), inputs,
                 [0, 1, 2, 3] + ([4] if kind == "state" else []))
     B, T, E, C, D = 2, 77, 8, 24, 256
     idx = torch.randint(0, E, (B, T), generator=gen, device=cuda)
@@ -501,8 +554,9 @@ def test_kernel_gradients_match_plain(cuda, kernel, kind, dtype):
     """Under autograd the wrapper launches its kernel once (its output that
     of the call without autograd, bit for bit) and the gradients are those
     of the plain version at the same inputs, bit for bit (the backward
-    recomputes it), for a non-contiguous incoming gradient, for y alone and,
-    with an initial state, for the final state too."""
+    recomputes it; for ``ssd_scan`` its chunk-batched form), for a
+    non-contiguous incoming gradient, for y alone and, with an initial
+    state, for the final state too."""
     from repro_torch import kernels
 
     call, plain, inputs, grad_of = _autograd_case(cuda, kernel, kind, dtype)

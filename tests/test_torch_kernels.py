@@ -681,6 +681,37 @@ def jax_bf16(arrays):
     return xh.astype(jnp.bfloat16), ll, Bm.astype(jnp.bfloat16), Cm.astype(jnp.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [
+    (2, 256, 3, 16, 16, 64, False), (2, 200, 3, 16, 16, 64, True), (1, 77, 2, 8, 16, 128, True),
+    (2, 40, 2, 8, 8, 16, False), (1, 1, 2, 8, 8, 16, True),
+])
+def test_ssd_scan_chunked_is_the_plain_function(B, S, H, P, N, chunk, with_h0, dtype):
+    """``ssd_scan_chunked`` (what the kernel's backward differentiates) is
+    ``ssd_scan_plain``'s function: y, the final state and every input's
+    gradient agree to fp32 rounding (2e-6 of the largest), and in bf16 y and
+    the gradients to one ulp of the largest, whole chunks, a ragged last one
+    and an initial state alike."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_chunked
+
+    gen = torch.Generator().manual_seed(S + H)
+    xh, Bm, Cm = ((torch.randn(s, generator=gen) * 0.5).to(dtype) for s in [(B, S, H, P), (B, S, N), (B, S, N)])
+    log_l = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    h0 = torch.randn((B, H, P, N), generator=gen) * 0.5 if with_h0 else None
+    gy = torch.randn((B, S, H, P), generator=gen).to(dtype)
+    gh = torch.randn((B, H, P, N), generator=gen)
+    runs = []
+    for fn in (ssd_scan_plain, ssd_scan_chunked):
+        xs = [t.detach().clone().requires_grad_() if t is not None else None for t in (xh, log_l, Bm, Cm, h0)]
+        y, h = fn(*xs[:4], chunk=chunk, h0=xs[4])
+        leaves = [t for t in xs if t is not None]
+        runs.append((y, h, torch.autograd.grad((y, h), leaves, (gy, gh))))
+    (y, h, g), (yc, hc, gc) = runs
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    for a, r in [(yc, y), (hc, h), *zip(gc, g)]:
+        assert (a.float() - r.float()).abs().max() <= tol * r.float().abs().max() + 1e-7
+
+
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 128, 2, 16, 16, 64),
     (2, 256, 4, 32, 16, 128),

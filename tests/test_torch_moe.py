@@ -151,7 +151,10 @@ def test_config_and_specs_match_reference():
     for kw in [dict(n_experts=16, topk=4, d_ff=10752, strategy="expert_parallel"),
                dict(n_experts=8, topk=2, d_ff=16384, strategy="expert_tp")]:
         rc, pc = RM.MoEConfig(**kw), PM.MoEConfig(**kw)
-        assert dataclasses.asdict(rc) == dataclasses.asdict(pc)
+        port = dataclasses.asdict(pc)
+        # the port's own fields (an expert share, a shared expert) at the defaults that are the reference's layer
+        assert {k: port.pop(k) for k in ("held", "shared_d_ff")} == {"held": None, "shared_d_ff": 0}
+        assert dataclasses.asdict(rc) == port
         rs, ps = RM.moe_specs(6144, rc), PM.moe_specs(6144, pc)
         assert rs.keys() == ps.keys()
         for k in rs:
